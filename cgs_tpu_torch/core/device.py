@@ -43,3 +43,13 @@ def disable_tf32() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return tf32_state()
+
+
+def deterministic_cudnn() -> dict:
+    """Make cuDNN pick deterministic algorithms and return the switch.
+    With its defaults, cuDNN's backward kernels sum in an order that
+    changes from run to run, so one seed's trained critic, contrastive
+    split and eval IoU move between runs; deterministic, one seed gives
+    the same losses and IoU on every run."""
+    torch.backends.cudnn.deterministic = True
+    return {"cudnn.deterministic": torch.backends.cudnn.deterministic}

@@ -1,8 +1,7 @@
 """Synthetic reward-segmentation fixture (numpy copy of
-`cgs_tpu/data/synthetic.py`: the episode renderers and
-`synthetic_eval_set`; the same seed gives equal arrays).
-`synthetic_dataset`, which needs the discounted label matrix, waits for
-the training slice (ROADMAP.md).
+`cgs_tpu/data/synthetic.py`: the episode renderers,
+`synthetic_dataset` and `synthetic_eval_set`; the same seed gives
+equal arrays, and labels within float32 rounding).
 
 The reference trains on the 60 GB MineRL Treechop imitation dataset
 (main.py:1287-1290), which is neither shippable nor downloadable here.
@@ -45,7 +44,11 @@ Two variants (--synthetic-variant):
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+
+from cgs_tpu_torch.ops.discount import build_label_matrix
 
 
 def _trunk_mask(width: int, center: int, trunk_w: int) -> np.ndarray:
@@ -241,6 +244,31 @@ def synthetic_episode_hard(rng: np.random.Generator,
 
 _EPISODE_FNS = {"easy": synthetic_episode,
                 "hard": synthetic_episode_hard}
+
+
+def synthetic_dataset(n_frames: int = 4000, seed: int = 0,
+                      width: int = 64,
+                      gammas=(0.98, 0.97, 0.96, 0.95),
+                      variant: str = "easy",
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(X, Y, I) in the collect_data contract (main.py:1295-1297).
+    gammas: discount factors for label rows 1-4 — collect_data passes
+    the parsed --gammas like the MineRL collector does.
+    variant: 'easy' | 'hard' (module docstring)."""
+    episode = _EPISODE_FNS[variant]
+    rng = np.random.default_rng(seed)
+    X = np.zeros((n_frames, width, width, 3), np.uint8)
+    Y = np.zeros((7, n_frames), np.float32)
+    I = np.zeros(n_frames, np.uint16)
+    t = 0
+    while t < n_frames:
+        frames, rewards, _ = episode(rng, width=width)
+        add = min(len(frames), n_frames - t)
+        X[t:t + add] = frames[:add]
+        Y[:, t:t + add] = build_label_matrix(rewards[:add], gammas)
+        I[t:t + add] = np.arange(add)
+        t += add
+    return X, Y, I
 
 
 def synthetic_eval_set(n_frames: int = 600, seed: int = 99,

@@ -95,7 +95,7 @@ def evaluate(cfg, pipeline, x: np.ndarray, gt: np.ndarray,
     if cfg.crf:
         raise NotImplementedError(
             "-crf: the denseCRF binding is not ported yet (ROADMAP.md "
-            "queue 1 item 7)")
+            "queue 1 item 9)")
     x_u8 = (x * 255).astype(np.uint8)
     out = pipeline.run(x_u8)
     preds, masks, sal = out.preds, out.masks, out.saliency

@@ -4,8 +4,11 @@ reference's `.pt` files (port of `cgs_tpu/models/torch_interop.py:27-82`).
 The port's modules already use the reference's key names, so a `.pt`
 written by the reference or by `cgs_tpu` loads with plain
 `load_state_dict`. `state_dict_from_flax` turns a JAX parameter tree,
-given as numpy arrays, into the port's state_dict; it is how the
-parity tests give both packages the same weights.
+given as numpy arrays, into the port's state_dict, and
+`adam_state_from_optax` turns the optax Adam moments of a JAX train
+state into a `torch.optim.Adam` state dict; they are how the parity
+tests start both packages from the same weights and the same
+mid-training state.
 
 Weight layout: torch conv (out, in, kh, kw) <-> flax (kh, kw, in, out);
 torch linear (out, in) <-> flax (in, out).
@@ -62,6 +65,42 @@ def state_dict_from_flax(params: Dict, keymap: Dict[str, str]
         out[f"{torch_name}.bias"] = torch.from_numpy(
             np.array(leaf["bias"], np.float32, copy=True))
     return out
+
+
+def adam_state_from_optax(optimizer: torch.optim.Optimizer,
+                          modules: Dict[str, nn.Module], mu: Dict,
+                          nu: Dict, count: int) -> Dict:
+    """The JAX `TrainState`'s optax Adam moments as a
+    `torch.optim.Adam` state dict for `optimizer`, whose parameter
+    groups are named after the keys of `modules` (as
+    `train/steps.py:make_optimizer` makes them). mu and nu are the
+    optax `ScaleByAdamState` trees {name: {flax layer: {'kernel',
+    'bias'}}} as numpy arrays, count its step count. Load the result
+    with `optimizer.load_state_dict`."""
+    state = {}
+    index = 0
+    for group in optimizer.param_groups:
+        name = group["name"]
+        keymap = KEYMAPS[name]
+        by_param = {id(p): k for k, p in modules[name].named_parameters()}
+        torch_to_flax = {v: k for k, v in keymap.items()}
+        for p in group["params"]:
+            layer, kind = by_param[id(p)].rsplit(".", 1)
+            leaf = "kernel" if kind == "weight" else "bias"
+            flax = torch_to_flax[layer]
+
+            def moment(tree):
+                a = np.asarray(tree[name][flax][leaf], np.float32)
+                if leaf == "kernel":
+                    a = _to_torch_w(a)
+                return torch.from_numpy(np.ascontiguousarray(a).copy())
+
+            state[index] = {"step": torch.tensor(float(count)),
+                            "exp_avg": moment(mu),
+                            "exp_avg_sq": moment(nu)}
+            index += 1
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}
 
 
 def init_torch_default(module: nn.Module,

@@ -11,9 +11,10 @@ on a machine without `nvcc`.
 Every C entry point takes its pointers and the stream as `void*` and
 returns `cudaGetLastError()`; `check` raises on anything but 0.
 
-`launches` counts kernel launches per kernel name. A wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that
-its path went through the kernels.
+`launches` counts kernel launches per entry point (`KERNELS`: the C
+name without its `cgs_` prefix). A wrapper adds one where it launches
+its kernel and nowhere else, so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -38,10 +39,17 @@ _P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "normalize_u8": {"cgs_normalize_u8": (_P, _P, _I64, _P)},
     "upsample2x": {"cgs_upsample2x": (_P, _P, _I64, _I64, _I64, _I64,
-                                      _P)},
+                                      _P),
+                   "cgs_upsample2x_bwd": (_P, _P) + (_I64,) * 9 + (_P,)},
     "threshold_iou": {"cgs_threshold_iou": (_P, _P, _I64, _F32, _P,
                                             _P)},
+    "merge_pair": {"cgs_merge_pair": (_P,) * 5 + (_I64, _I64, _P),
+                   "cgs_merge_pair_bwd": (_P,) * 8 + (_I64,) * 9 + (_P,)},
 }
+
+# one launch counter per C entry point, named without the `cgs_` prefix
+KERNELS = tuple(fn[len("cgs_"):] for fns in SIGNATURES.values()
+                for fn in fns)
 
 launches: collections.Counter = collections.Counter()
 
@@ -124,9 +132,13 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda_tensor(t: torch.Tensor, name: str) -> None:
-    """Kernel inputs must be contiguous and on a CUDA device."""
+def require_cuda_tensor(t: torch.Tensor, name: str,
+                        memory_format=torch.contiguous_format) -> None:
+    """Kernel inputs must be dense in `memory_format` and on a CUDA
+    device."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    if not t.is_contiguous(memory_format=memory_format):
+        raise ValueError(f"{name}: expected a contiguous tensor"
+                         + ("" if memory_format == torch.contiguous_format
+                            else f" in {memory_format}"))

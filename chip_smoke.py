@@ -3,41 +3,62 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --train-seeds 0,1,2   # the protocol per seed
+
 Run from the root of a checkout on a machine with an NVIDIA card
 (written for an H100, `sm_90a`) and `nvcc`. It builds the CUDA kernels
 from `cgs_tpu_torch/csrc/`, then:
 
   kernels  holds each kernel against its plain PyTorch version on the
-           card at the shapes the serving path gives it (bit-equal /
-           exactly equal), and times kernel, plain version, a PyTorch
-           yardstick where one exists, and the least time the card
-           could take (bytes / 3.35 TB/s, or operations / peak);
+           card at the shapes the serving and training paths give it
+           (bit-equal / exactly equal), and times kernel, plain
+           version, a PyTorch yardstick where one exists, and the
+           least time the card could take (bytes / 3.35 TB/s, or
+           operations / peak); the merges and the upsample gradient at
+           the masker step's shapes and at batch 8192;
   serve    runs `MaskPipeline` at chfak 5 (the published width), batch
            8192, on device-resident frames, in f32 (TF32 off) and
            bf16: kernel path against plain path, 1 `normalize_u8` and 6
            `upsample2x` launches per batch, frames/s;
-  eval     (main path) a `Handler` built from `-eval -salience
+  step     one chfak-5 masker step (default flags, f32, TF32 off,
+           deterministic cuDNN): loss terms and every gradient of the
+           kernel path bit-equal to the plain path, every decoder gradient
+           non-zero, the launches per step and the gradient layouts
+           the kernels were handed;
+  speed    critic and masker train steps/s at chfak 5, f32 and bf16,
+           and the device time of one masker step by category;
+  eval     (serving main path) a `Handler` built from `-eval -salience
            -synthetic_data --chfak 5`: `evaluate(..., write=False)` on
            the 2450-frame synthetic set; the kernel IoU must equal a
            host numpy IoU of the same masks;
-  process  (main path) `_mask_variants` with the u8 wire and the
-           device-side binarisation against the f32 wire thresholded
-           on the host.
+  process  (serving main path) `_mask_variants` with the u8 wire and
+           the device-side binarisation against the f32 wire
+           thresholded on the host;
+  train    (training main path) `cli.main(["-train", "-eval",
+           "-synthetic_data", "--chfak", "5", "--dropout", "0.5",
+           ...])`: the paper's synthetic protocol (20k frames, critic 10
+           / masker 12 epochs) with `-frozen` (the CLI's `-train` makes
+           cuDNN deterministic), in a temporary directory, writing no
+           files; the eval IoU must reach 0.70.
 
-Launch counts are set to 0 just before the main path (eval + process)
-and read just after it; every kernel must have launched there.
-Weights are random, from a seed. Any failed check exits non-zero.
-Without CUDA, or without the rest of the checkout, it fails and prints
-no result. The next-to-last lines are a JSON `kernels` summary and the
-card's name and power limit from nvidia-smi; the last line is
-{"ok": true, "device": {...}}.
+Launch counts are set to 0 just before each main path (eval + process;
+train) and read just after it; every kernel of a path must have
+launched there. Weights are random, from a seed. Any failed check exits
+non-zero. Without CUDA, or without the rest of the checkout, it fails
+and prints no result. The next-to-last lines are a JSON `kernels`
+summary and the card's name and power limit from nvidia-smi; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
+import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -53,6 +74,17 @@ CHFAK1_STEPS = [(1, 1, 32), (2, 2, 32), (4, 4, 16), (8, 8, 8),
                 (16, 16, 8), (32, 32, 8)]
 BATCH = 8192
 EVAL_N, FRAME_F, MASK_F = 2450, 64 * 64 * 3, 64 * 64
+MASKER_N = 64        # frames a masker step merges and decodes (2K)
+PIX = 64 * 64
+SERVE_KERNELS = ("normalize_u8", "upsample2x", "threshold_iou")
+TRAIN_KERNELS = ("normalize_u8", "merge_pair", "merge_pair_bwd",
+                 "upsample2x", "upsample2x_bwd", "threshold_iou")
+STEP_LAUNCHES = {"normalize_u8": 2, "merge_pair": 1, "merge_pair_bwd": 1,
+                 "upsample2x": 6, "upsample2x_bwd": 6}
+PROTOCOL = ["-train", "-eval", "-synthetic_data", "--chfak", "5",
+            "--dropout", "0.5", "--datasize", "20000", "--cepochs", "10",
+            "--mepochs", "12", "-frozen", "--model", "chip-smoke-train"]
+MIN_IOU = 0.70
 
 
 class SmokeFailure(Exception):
@@ -74,7 +106,12 @@ def bound_ms(nbytes: float, ops: float = 0.0):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--train-seeds", default="0",
+                    help="comma-separated seeds of the train protocol")
+    args = ap.parse_args(argv)
+    seeds = [int(s) for s in args.train_seeds.split(",")]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a "
               "card", file=sys.stderr)
@@ -105,17 +142,35 @@ def main() -> int:
 
     summary = {}
     phase_kernels(_build, summary)
+    phase_train_kernels(summary)
     phase_serve(_build)
+    phase_train_step(_build)
+    phase_train_speed()
 
-    _build.launches.clear()                 # main path starts here
+    _build.launches.clear()                 # serving main path starts
     phase_eval(_build)
     phase_process()
-    main_launches = dict(_build.launches)   # main path ends here
-    log("[main path] launches:", main_launches)
-    for name in _build.SIGNATURES:
-        check(main_launches.get(name, 0) > 0,
-              f"{name} never launched on the main path")
-        summary[name]["launches"] = main_launches[name]
+    serve_launches = dict(_build.launches)  # serving main path ends
+    log("[main path: serve] launches:", serve_launches)
+    for name in SERVE_KERNELS:
+        check(serve_launches.get(name, 0) > 0,
+              f"{name} never launched on the serving main path")
+
+    train_launches = {}
+    for seed in seeds:
+        _build.launches.clear()             # training main path starts
+        phase_train(seed)
+        for name, n in _build.launches.items():   # ... and ends
+            train_launches[name] = train_launches.get(name, 0) + n
+    log("[main path: train] launches:", train_launches)
+    for name in TRAIN_KERNELS:
+        check(train_launches.get(name, 0) > 0,
+              f"{name} never launched on the training main path")
+    for name in _build.KERNELS:
+        summary[name]["launches"] = (serve_launches.get(name, 0)
+                                     + train_launches.get(name, 0))
+        check(summary[name]["launches"] > 0,
+              f"{name} never launched on a main path")
 
     log(f"[done] {time.time() - t_start:.1f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -270,7 +325,8 @@ def phase_kernels(_build, summary) -> None:
 
 
 CATEGORIES = (   # first match wins, on the lower-cased kernel name
-    ("port kernels", ("normalize_u8", "upsample2x", "threshold_iou")),
+    ("port kernels", ("normalize_u8", "upsample2x", "threshold_iou",
+                      "merge_pair")),
     ("concat", ("catarray", "cat_")),
     ("max-pool", ("max_pool",)),
     ("convolution", ("conv", "cudnn", "xmma", "gemm", "sm90", "wgrad",
@@ -281,7 +337,8 @@ CATEGORIES = (   # first match wins, on the lower-cased kernel name
 
 def device_breakdown(step, reps: int = 2) -> dict:
     """Device time of `reps` steps by kernel category, from
-    torch.profiler, with the top kernels and the device's idle share of
+    torch.profiler, with the top kernels, the device operations
+    (kernels, copies, fills) per step, and the device's idle share of
     the host-timed window (profiler on, so an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -295,12 +352,17 @@ def device_breakdown(step, reps: int = 2) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     kern = {}
+    n_kernels = 0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a user annotation (the optimizer's `Optimizer.step#...` span)
+        # also shows on the device timeline; its kernels count already
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         kern[e.key] = kern.get(e.key, 0.0) + us
+        n_kernels += e.count
     busy = sum(kern.values())
     cats = {}
     for k, us in kern.items():
@@ -311,6 +373,7 @@ def device_breakdown(step, reps: int = 2) -> dict:
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
     return {"ms_per_step": busy / reps / 1e3,
             "idle_share": max(0.0, 1.0 - busy / wall_us),
+            "device_ops_per_step": n_kernels / reps,
             "by_category_ms": {c: us / reps / 1e3 for c, us in
                                sorted(cats.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms": [[k[:90], us / reps / 1e3] for k, us in top]}
@@ -459,6 +522,372 @@ def phase_process() -> None:
         f"equal the host-thresholded f32 wire; _mask_variants wall "
         f"{wall:.3f} s; hard fraction {float(m_u8[1].mean()):.4f}; phase "
         f"{time.time() - t0:.1f} s")
+
+
+def _layout(t) -> str:
+    if t.is_contiguous():
+        return "nchw-dense" if t.dim() == 4 else "contiguous"
+    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last):
+        return "channels_last-dense"
+    return f"strided {tuple(t.stride())}"
+
+
+def phase_train_kernels(summary) -> None:
+    """The training slice's kernels: merge_pair, merge_pair_bwd and the
+    upsample backward, bit-equal to their plain versions, and timed at
+    the masker step's shapes (the summary rows) and at batch 8192."""
+    import torch.nn.functional as F
+
+    from cgs_tpu_torch.ops.kernels import (
+        merge_pair, merge_pair_bwd, merge_pair_bwd_plain, merge_pair_plain,
+    )
+    from cgs_tpu_torch.ops.upsample import (
+        upsample2x_bwd, upsample2x_bwd_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    t0 = time.time()
+
+    def frames(n, h=64, w=64, c=3):      # NCHW stored channels_last
+        return torch.rand((n, h, w, c), device=dev,
+                          generator=gen).permute(0, 3, 1, 2)
+
+    errs = {"merge_pair": 0.0, "merge_pair_bwd": 0.0,
+            "upsample2x_bwd": 0.0}
+
+    def same(got, want, what):
+        name = what.split()[0]
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and torch.equal(_bits(g), _bits(w)),
+                  f"{what} differs from plain")
+            if g.numel():
+                errs[name] = max(errs[name], float(
+                    (g.float() - w.float()).abs().max()))
+
+    # merges: the masker step, batch 8192, a ragged shape, N = 0; the
+    # gradients in both memory formats cuDNN's dgrad may hand over
+    for n, h, w in [(MASKER_N, 64, 64), (BATCH, 64, 64), (7, 5, 9),
+                    (0, 64, 64)]:
+        a, b, z = frames(n, h, w), frames(n, h, w), frames(n, h, w, 1)
+        same(merge_pair(a, b, z), merge_pair_plain(a, b, z),
+             f"merge_pair at {(n, h, w)}")
+        gr, gi = frames(n, h, w), frames(n, h, w)
+        for fmt in (torch.channels_last, torch.contiguous_format):
+            g_r = gr.contiguous(memory_format=fmt)
+            g_i = gi.contiguous(memory_format=fmt)
+            same(merge_pair_bwd(a, b, z, g_r, g_i),
+                 merge_pair_bwd_plain(a, b, z, g_r, g_i),
+                 f"merge_pair_bwd at {(n, h, w)} {fmt}")
+        del a, b, z, gr, gi
+    torch.cuda.empty_cache()
+
+    rows = {}
+    for n in (MASKER_N, BATCH):
+        a, b, z = frames(n), frames(n), frames(n, 64, 64, 1)
+        gr, gi = frames(n), frames(n)
+        gr_nchw, gi_nchw = gr.contiguous(), gi.contiguous()
+        px = n * PIX
+        rows[n] = {
+            "merge_pair": {
+                "ms": time_ms(lambda: merge_pair(a, b, z), iters=50),
+                "plain_ms": time_ms(lambda: merge_pair_plain(a, b, z),
+                                    iters=50),
+                "bound": bound_ms(52 * px, 19 * px)},
+            "merge_pair_bwd": {
+                "ms": time_ms(lambda: merge_pair_bwd(a, b, z, gr, gi),
+                              iters=50),
+                "ms_nchw_grads": time_ms(lambda: merge_pair_bwd(
+                    a, b, z, gr_nchw, gi_nchw), iters=50),
+                "plain_ms": time_ms(lambda: merge_pair_bwd_plain(
+                    a, b, z, gr, gi), iters=50),
+                "bound": bound_ms(80 * px, 31 * px)}}
+        del a, b, z, gr, gi, gr_nchw, gi_nchw
+        torch.cuda.empty_cache()
+    log("[kernels] merges (ms; N = 64 is the masker step):",
+        json.dumps(rows))
+    for name, src_line in (("merge_pair", 110), ("merge_pair_bwd", 151)):
+        r = rows[MASKER_N][name]
+        summary[name] = {
+            "name": name, "route": "cuda",
+            "source": "cgs_tpu_torch/csrc/merge_pair.cu",
+            "replaces": f"cgs_tpu/ops/pallas_kernels.py:{src_line}",
+            "launches": 0, "max_abs_err": errs[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None,
+            "shape": f"f32 ({MASKER_N}, 3, 64, 64) channels_last + mask "
+                     f"({MASKER_N}, 1, 64, 64)"}
+
+    # upsample backward: the six chfak-5 decoder steps at batch 128 in
+    # f32 and bf16, a ragged shape, N = 0, and the channel slices of a
+    # concat's gradient (what autograd hands over) in both layouts
+    for h, w, c in CHFAK5_STEPS:
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.rand((128, 2 * h, 2 * w, c), device=dev,
+                           generator=gen).to(dt)
+            same([upsample2x_bwd(g)], [upsample2x_bwd_plain(g)],
+                 f"upsample2x_bwd at {(128, h, w, c)} {dt}")
+    for shape in [(3, 10, 18, 5), (0, 4, 4, 8)]:
+        g = torch.rand(shape, device=dev, generator=gen)
+        same([upsample2x_bwd(g)], [upsample2x_bwd_plain(g)],
+             f"upsample2x_bwd at {shape}")
+    for dt in (torch.float32, torch.bfloat16):
+        wide = torch.rand((128, 64, 64, 43), device=dev,
+                          generator=gen).to(dt)          # cat([x, up])
+        wide_nchw = wide.permute(0, 3, 1, 2).contiguous().permute(
+            0, 2, 3, 1)
+        for g in (wide[..., 3:], wide_nchw[..., 3:]):
+            check(not g.is_contiguous(), "slice should be a strided view")
+            same([upsample2x_bwd(g)], [upsample2x_bwd_plain(g)],
+                 f"upsample2x_bwd of a channel slice {g.stride()} {dt}")
+    del g, wide, wide_nchw
+    torch.cuda.empty_cache()
+
+    steps = {}
+    for n in (MASKER_N, BATCH):
+        steps[n] = []
+        for h, w, c in CHFAK5_STEPS:
+            g = torch.rand((n, 2 * h, 2 * w, c), device=dev, generator=gen)
+            g_nchw = g.permute(0, 3, 1, 2)
+            steps[n].append({
+                "shape": [n, h, w, c],
+                "ms": time_ms(lambda: upsample2x_bwd(g), iters=50),
+                "plain_ms": time_ms(lambda: upsample2x_bwd_plain(g),
+                                    iters=50),
+                "library_ms": time_ms(lambda: F.avg_pool2d(
+                    g_nchw, 2, divisor_override=1), iters=50),
+                # f32: reads 4 B and writes 1 B per gradient element
+                "bound_ms": bound_ms(5 * g.numel(),
+                                     3 * g.numel() // 4)[0]})
+            del g, g_nchw
+        torch.cuda.empty_cache()
+    log("[kernels] upsample2x_bwd chfak-5 f32 steps (ms):",
+        json.dumps(steps))
+    st = steps[MASKER_N]
+    summary["upsample2x_bwd"] = {
+        "name": "upsample2x_bwd", "route": "cuda",
+        "source": "cgs_tpu_torch/csrc/upsample2x.cu",
+        "replaces": "cgs_tpu/ops/pallas_upsample.py:132",
+        "launches": 0, "max_abs_err": errs["upsample2x_bwd"],
+        "ms": sum(s["ms"] for s in st),
+        "plain_ms": sum(s["plain_ms"] for s in st),
+        "bound_ms": sum(s["bound_ms"] for s in st), "bound_by": "bytes",
+        "library_ms": sum(s["library_ms"] for s in st),
+        "shape": f"the 6 chfak-5 decoder steps, f32, batch {MASKER_N} "
+                 "(sum)"}
+    log(f"[kernels] training kernels ok in {time.time() - t0:.1f} s")
+
+
+def _train_models(dtype, seed: int):
+    """Train-mode chfak-5 critic and masker on the card, random
+    weights."""
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    critic = Critic(chfak=5, dropout=0.5, compute_dtype=dtype)
+    masker = UnetDecoder(chfak=5, compute_dtype=dtype)
+    params = _random_params(critic, masker, seed)
+    out = {}
+    for name, template in (("critic", critic), ("masker", masker)):
+        m = copy.deepcopy(template).to("cuda",
+                                       memory_format=torch.channels_last)
+        m.load_state_dict(params[name])
+        out[name] = m.train()
+    return out
+
+
+def phase_train_step(_build) -> None:
+    """One chfak-5 masker step with default flags, kernel path against
+    plain path: loss terms and every gradient bit-equal, every decoder
+    gradient non-zero, launches per step as expected."""
+    from unittest import mock
+
+    import cgs_tpu_torch.ops.merge as merge_mod
+    import cgs_tpu_torch.ops.upsample as upsample_mod
+    import cgs_tpu_torch.train.losses as losses_mod
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.ops.augment import shift_batch
+    from cgs_tpu_torch.ops.kernels import (
+        merge_pair_bwd_plain, merge_pair_plain, normalize_u8_plain,
+    )
+    from cgs_tpu_torch.train.steps import StepRng
+
+    t0 = time.time()
+    dev = torch.device("cuda")
+    cfg = parse_args(["-train", "--chfak", "5", "--dropout", "0.5"])
+    check(cfg.live and cfg.inject, "default flags are live + inject")
+    models = _train_models(torch.float32, seed=3)
+    g = torch.Generator(device=dev).manual_seed(4)
+    a_u8, b_u8 = (torch.randint(0, 256, (MASKER_N, 64, 64, 3),
+                                dtype=torch.uint8, device=dev, generator=g)
+                  for _ in range(2))
+    y = torch.rand(MASKER_N, device=dev, generator=g)
+    terms = ("loss", "replace", "inject", "norm", "critic")
+
+    def run():
+        rng = StepRng.seeded(0, dev)          # the same draws each run
+        for m in models.values():
+            m.zero_grad(set_to_none=True)
+        a = shift_batch(a_u8, cfg.shift, rng.shift)
+        loss, aux = losses_mod.build_masker_loss(cfg)(
+            models, losses_mod.ingest(a), y, losses_mod.ingest(b_u8),
+            rng.dropout)
+        loss.backward()
+        torch.cuda.synchronize()
+        return ({t: float(aux[t].detach()) for t in terms},
+                {f"{n}.{k}": p.grad.detach().clone()
+                 for n, m in models.items()
+                 for k, p in m.named_parameters()})
+
+    layouts = {}
+    real_mbwd, real_ubwd = merge_mod.merge_pair_bwd, upsample_mod.upsample2x_bwd
+
+    def spy_mbwd(a, b, z, gr, gi):
+        layouts["merge_pair_bwd (gr, gi)"] = [_layout(gr), _layout(gi)]
+        return real_mbwd(a, b, z, gr, gi)
+
+    def spy_ubwd(gg):
+        layouts.setdefault("upsample2x_bwd", []).append(
+            [list(gg.shape), list(gg.stride())])
+        return real_ubwd(gg)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _build.launches.clear()
+        with mock.patch.object(merge_mod, "merge_pair_bwd", spy_mbwd), \
+                mock.patch.object(upsample_mod, "upsample2x_bwd", spy_ubwd):
+            k_terms, k_grads = run()
+        per_step = dict(_build.launches)
+        with mock.patch.object(losses_mod, "normalize_u8",
+                               normalize_u8_plain), \
+                mock.patch.object(merge_mod, "merge_pair",
+                                  merge_pair_plain), \
+                mock.patch.object(merge_mod, "merge_pair_bwd",
+                                  merge_pair_bwd_plain), \
+                mock.patch.object(upsample_mod, "upsample2x_fwd",
+                                  upsample_mod.upsample2x_plain), \
+                mock.patch.object(upsample_mod, "upsample2x_bwd",
+                                  upsample_mod.upsample2x_bwd_plain):
+            _build.launches.clear()
+            p_terms, p_grads = run()
+            check(sum(_build.launches.values()) == 0,
+                  f"plain path launched {dict(_build.launches)}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("[step] launches per masker step:", per_step)
+    check(per_step == STEP_LAUNCHES,
+          f"launches per masker step {per_step}, want {STEP_LAUNCHES}")
+    log("[step] gradient layouts the kernels were handed:",
+        json.dumps(layouts))
+    d_terms = max(abs(k_terms[t] - p_terms[t]) for t in terms)
+    d_grads = max(float((k_grads[k] - p_grads[k]).abs().max())
+                  for k in k_grads)
+    check(all(np.isfinite(v) for v in k_terms.values()),
+          f"loss terms not finite: {k_terms}")
+    # the kernels are bit-equal to their plain versions and cuDNN is
+    # deterministic, so the two paths agree in every bit
+    check(k_terms == p_terms and all(
+        torch.equal(_bits(k_grads[k]), _bits(p_grads[k])) for k in k_grads),
+        f"kernel path vs plain path: terms {d_terms}, grads {d_grads}")
+    zero = [k for k, v in k_grads.items()
+            if k.startswith("masker.") and not bool(v.abs().sum() > 0)]
+    check(not zero, f"decoder gradients all zero: {zero}")
+    log(f"[step] chfak 5 f32 masker step: terms {k_terms}; kernel vs plain "
+        f"max |diff| terms {d_terms:.3g} grads {d_grads:.3g}; all "
+        f"{sum(k.startswith('masker.') for k in k_grads)} decoder "
+        f"gradients non-zero; phase {time.time() - t0:.1f} s")
+
+
+def phase_train_speed() -> None:
+    """Critic (batch 64) and masker (2K = 64) train steps/s at chfak 5,
+    f32 (TF32 off) and bf16, on random uint8 banks on the card, and the
+    device time of one masker step."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.train.contrastive import sample_index_stacks
+    from cgs_tpu_torch.train.loops import critic_chunk, masker_chunk
+    from cgs_tpu_torch.train.steps import (
+        StepRng, make_optimizer, masker_step,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    bank = torch.randint(0, 256, (4096, 64, 64, 3), dtype=torch.uint8,
+                         device=dev, generator=g)
+    ybank = torch.rand(4096, device=dev, generator=g)
+    cfg = parse_args(["-train", "--chfak", "5", "--dropout", "0.5"])
+    nrng = np.random.default_rng(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        t0 = time.time()
+        rng = StepRng.seeded(0, dev)
+        models = _train_models(dtype, seed=6)
+        opt = make_optimizer({"critic": models["critic"]})
+        idx = nrng.integers(0, 4096, (205, 64))
+        critic_chunk(cfg, models["critic"], opt, bank, ybank, idx[:5], rng)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        losses = critic_chunk(cfg, models["critic"], opt, bank, ybank,
+                              idx[5:], rng).cpu().numpy()
+        c_sps = 200 / (time.time() - t1)
+        check(bool(np.isfinite(losses).all()), "critic losses not finite")
+
+        models = _train_models(dtype, seed=6)
+        opt = make_optimizer(models)
+        xpos, ypos = bank[:2048], ybank[:2048]
+        xneg, yneg = bank[2048:], ybank[2048:]
+        h, l, c = sample_index_stacks(nrng, 2048, 2048, 55, 32)
+        masker_chunk(cfg, models, opt, xpos, ypos, xneg, yneg, h[:5],
+                     l[:5], c[:5], rng)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        losses = masker_chunk(cfg, models, opt, xpos, ypos, xneg, yneg,
+                              h[5:], l[5:], c[5:], rng).cpu().numpy()
+        m_sps = 50 / (time.time() - t1)
+        check(bool(np.isfinite(losses).all()), "masker losses not finite")
+        a_u8 = torch.cat([xpos[:32], xneg[:32]])
+        log(f"[speed] chfak 5 {name}: critic {c_sps:.1f} steps/s (batch "
+            f"64), masker {m_sps:.1f} steps/s (2K = 64)")
+        log(f"[speed] device time of one masker step, chfak5 {name}:",
+            json.dumps(device_breakdown(lambda: masker_step(
+                cfg, models, opt, a_u8, ypos[:64], xneg[:64], rng))))
+        log(f"[speed] phase {name} {time.time() - t0:.1f} s")
+        del models, opt
+        torch.cuda.empty_cache()
+
+
+def phase_train(seed: int) -> None:
+    """The paper's synthetic protocol through the CLI, -frozen, at
+    chfak 5, writing no files."""
+    from cgs_tpu_torch import cli
+
+    t0 = time.time()
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            handler = cli.main(PROTOCOL + ["--seed", str(seed)],
+                               primary=False)
+        finally:
+            os.chdir(old)
+    check(handler.device.type == "cuda", f"handler on {handler.device}")
+    check(torch.backends.cudnn.deterministic,
+          "the CLI's -train did not make cuDNN deterministic")
+    closs = handler.loss_log["critic"]
+    mloss = handler.loss_log["masker"]
+    check(closs.shape == (10 * 313,) and bool(np.isfinite(closs).all()),
+          f"critic losses {closs.shape}")
+    check(mloss.ndim == 2 and mloss.shape[0] > 0
+          and bool(np.isfinite(mloss).all()), f"masker losses {mloss.shape}")
+    sets = handler.contrastive
+    iou = handler.last_ious[0]
+    log(f"[train] seed {seed}: chfak 5 -frozen, 20k frames, critic 10 / "
+        f"masker 12 epochs: {closs.shape[0]} critic and {mloss.shape[0]} "
+        f"masker steps; contrastive {sets.n_pos} pos / {sets.n_neg} neg; "
+        f"critic loss first/last chunk {closs[:100].mean():.5f} / "
+        f"{closs[-100:].mean():.5f}; eval IoU {handler.last_ious}; "
+        f"phase {time.time() - t0:.1f} s")
+    check(iou >= MIN_IOU, f"seed {seed}: eval IoU {iou} < {MIN_IOU}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
-"""PyTorch port: the flag grammar, the slice end to end (`-eval` and
+"""PyTorch port: the flag grammar, the slices end to end (`-eval` and
 `-process` through the port's CLI on the CPU, against the JAX
 package's `evaluate` and `segment_folder` on the same weights and
-frames), the CPU-only default guard, and the static import guard.
+frames; `-train -eval` on the CPU, its first critic chunk against the
+JAX package's on the same weights and batches), the CPU-only default
+guard, and the static import guard.
 """
 
 import ast
@@ -14,11 +16,20 @@ import pytest
 import torch
 from PIL import Image
 
+import jax
+import jax.numpy as jnp
+
 from cgs_tpu.core.config import parse_args as jax_parse_args
+from cgs_tpu.data.collect import collect_data as jax_collect_data
+from cgs_tpu.data.loader import DataBundle as JBundle
+from cgs_tpu.data.loader import EpochLoader as JLoader
 from cgs_tpu.eval.harness import evaluate as jax_evaluate
 from cgs_tpu.eval.harness import load_eval_set as jax_load_eval_set
 from cgs_tpu.eval.segment import segment_folder as jax_segment_folder
 from cgs_tpu.pipeline import MaskPipeline as JPipeline
+from cgs_tpu.train.loops import make_critic_chunk
+from cgs_tpu.train.steps import init_train_state
+from cgs_tpu.train.steps import make_optimizer as jax_make_optimizer
 from cgs_tpu.train.checkpoints import checkpoint_paths as jax_ckpt_paths
 from cgs_tpu.train.checkpoints import load_model_pt as jax_load_pt
 from cgs_tpu.train.checkpoints import save_model_pt as jax_save_pt
@@ -26,8 +37,12 @@ from cgs_tpu_torch import cli
 from cgs_tpu_torch.core.config import parse_args
 from cgs_tpu_torch.data.synthetic import synthetic_eval_set
 from cgs_tpu_torch.handler import Handler
+from cgs_tpu_torch.models.critic import Critic
 from cgs_tpu_torch.pipeline import MaskPipeline
-from torch_port_common import jax_models, port_models, port_params
+from cgs_tpu_torch.train.checkpoints import load_model_pt
+from torch_port_common import (  # noqa: F401 (one_torch_thread: fixture)
+    jax_models, one_torch_thread, port_models, port_params,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -151,8 +166,69 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         cli.main(["-eval", "-synthetic_data"])
 
 
-@pytest.mark.parametrize("argv", [["-train"], ["-vismasker"],
-                                  ["-eval", "-crf"], ["--ensemble", "2"]])
+# the arguments of tests/test_e2e_synthetic.py:17-19, with a short
+# eval video
+TRAIN_ARGS = ["-synthetic_data", "--datasize", "2000", "--testsize",
+              "200", "--cepochs", "8", "--visevery", "40", "--dropout",
+              "0", "--shift", "0", "--contrastive-min", "100", "--model",
+              "e2erun", "--eval-video-max-frames", "4"]
+
+
+def test_train_eval_slice_runs_and_tracks_jax(tmp_path, monkeypatch,
+                                             one_torch_thread):
+    """-train -eval through the port's CLI on the CPU writes both .pt
+    files and the run's artifacts, and the saved critic loads back.
+    Both packages start from the same weights (the JAX ones) and draw
+    the same numpy batch order from --seed, so the first critic chunk
+    (32 steps, dropout 0, shift 0) tracks the JAX chunk: step 0 within
+    1e-5, the chunk within 3e-3 relative. Adam amplifies 1e-7 gradient
+    noise (tests/test_torch_port_train.py), and how far the chunk
+    drifts depends on the CPU's summation order: up to 1.4e-3 on one
+    thread, under 1e-3 on eight."""
+    monkeypatch.chdir(tmp_path)
+    jc, _, jp = jax_models()
+
+    def reset_models(self):
+        self.params = {n: v for n, v in port_params(jp).items()
+                       if n in ("critic", "masker")}
+
+    monkeypatch.setattr(Handler, "reset_models", reset_models)
+    handler = cli.main(["--device", "cpu", "-train", "-eval"] + TRAIN_ARGS)
+    run = tmp_path / "e2erun"
+    (critic_pt,) = (run / "saves").glob("critic-*.pt")
+    assert list((run / "saves").glob("masker-*.pt"))
+    back = Critic(dropout=0.0)
+    back.load_state_dict(load_model_pt("critic", str(critic_pt)))
+    w = back.state_dict()["features.0.weight"]
+    # trained in phase 1; the live critic that phase 2 moved on stays in
+    # memory unsaved (cgs_tpu/handler.py:524-525)
+    assert not torch.equal(w, port_params(jp)["critic"]["features.0.weight"])
+    assert not torch.equal(w, handler.params["critic"]["features.0.weight"])
+    for art in ("critic/_loss.png", "critic/log.txt", "segment/_loss.png",
+                "pred_idx1_hist.png", "metrics.jsonl"):
+        assert (run / art).exists(), art
+    assert list(run.glob("*>0.7__*<0.3.txt"))
+    assert handler.contrastive.n_pos >= 100
+    assert len(handler.last_ious) == 1 and 0 <= handler.last_ious[0] <= 1
+    assert handler.loss_log["masker"].shape[1] == 4
+
+    jcfg = jax_parse_args(["-train"] + TRAIN_ARGS)
+    bundle = JBundle.from_arrays(*jax_collect_data(jcfg), jcfg)  # our cache
+    bundle.to_device(jcfg)
+    idx = next(JLoader(bundle.n_train, jcfg.batch_size,
+                       np.random.default_rng(jcfg.seed)).chunks(100))
+    tx = jax_make_optimizer()
+    _, jl = make_critic_chunk(jcfg, jc, tx)(
+        init_train_state({"critic": jp["critic"]}, tx), bundle.x_train_dev,
+        bundle.y_train_dev, jnp.asarray(idx), jax.random.PRNGKey(0))
+    ours = handler.loss_log["critic"][:len(idx)]
+    np.testing.assert_allclose(ours[0], float(jl[0]), rtol=1e-5)
+    np.testing.assert_allclose(ours, np.asarray(jl), rtol=3e-3)
+
+
+@pytest.mark.parametrize("argv", [["-orbax"], ["--profile", "trace"],
+                                  ["-vismasker"], ["-eval", "-crf"],
+                                  ["--ensemble", "2"]])
 def test_unported_modes_raise(argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

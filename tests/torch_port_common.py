@@ -4,6 +4,7 @@ weights, made from a seed, handed to both packages."""
 import functools
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,18 @@ from cgs_tpu_torch.models.decoder import UnetDecoder
 from cgs_tpu_torch.models.interop import (
     CRITIC_KEYMAP, DECODER_KEYMAP, state_dict_from_flax,
 )
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run the test's PyTorch ops on one thread. The suite runs in
+    several processes on a few cores; a multi-threaded training loop of
+    many small ops then waits at every op's thread barrier, and runs
+    many times slower than on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_models(chfak=1, dropout=0.0, bf16=False, seed=0):
