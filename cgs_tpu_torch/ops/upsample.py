@@ -1,35 +1,45 @@
-"""Nearest-neighbour x2 upsample, NHWC, and its gradient: CUDA kernel
-wrappers, their plain PyTorch versions, and the autograd `Function`
-that joins them.
+"""Nearest-neighbour upsample into a channel concat, NHWC, and its
+gradient: CUDA kernel wrappers, their plain PyTorch versions, and the
+autograd `Function`s that join them.
 
 Port of `cgs_tpu/ops/pallas_upsample.py:upsample2x_pallas` (forward:
 `_up2_kernel`; backward: `_up2_bwd`, a 2x2 sum-pool) and of the jnp
-path `cgs_tpu/models/decoder.py:upsample2x`. The decoder runs it 6
-times per forward, and a masker train step differentiates all 6. On a
-CUDA tensor each wrapper launches its kernel (`csrc/upsample2x.cu`:
-`cgs_upsample2x`, `cgs_upsample2x_bwd`) or raises; on a CPU tensor it
-runs the plain version. The forward is an exact copy and the backward
-sums in one fixed order, so kernel and plain version are bit-identical.
+path `cgs_tpu/models/decoder.py:upsample2x`, together with the concat
+that follows every up-step of the decoder (`decoder.py:124-138`), which
+XLA fused into the repeat. One kernel (`csrc/upsample2x.cu`:
+`cgs_upsample2x`) writes `cat([skip, up_f(x)], channels)` for f = 2 or
+4 into one fresh buffer, and its backward (`cgs_upsample2x_bwd`) reads
+that buffer's gradient once and writes the skip's gradient and the f x f
+sum-pool. The decoder's five skip joins are 5 launches per forward and
+5 per backward. On a CUDA tensor each wrapper launches its kernel or
+raises; on a CPU tensor it runs the plain version. The forward is an
+exact copy and the backward sums in one fixed order, so kernel and
+plain version are bit-identical.
 
-`upsample2x` is differentiable: its backward is the sum-pool kernel.
-(A kernel launched through ctypes into a fresh tensor has no
-`grad_fn`; without the `Function` every gradient through the decoder's
-up-steps would be dropped on the card.)
+`up_cat` and `upsample2x` are differentiable through `UpCat` and
+`Upsample2x`. (A kernel launched through ctypes into a fresh tensor has
+no `grad_fn`; without the `Function` every gradient through the
+decoder's up-steps would be dropped on the card.) `upsample2x` is the
+join with no skip channels.
 
-The decoder keeps its activations in `torch.channels_last`, so the
-NHWC tensor the forward takes is a `permute(0, 2, 3, 1)` view of an
-NCHW activation, with no copy. The gradient that arrives is a channel
-slice of the gradient of the decoder's next `torch.cat`, a strided
-view; the backward kernel reads it in place through its strides.
+The decoder keeps its activations in `torch.channels_last`, so the NHWC
+tensors the kernels take are `permute(0, 2, 3, 1)` views of NCHW
+activations, with no copy; a tensor that is not channels_last-dense is
+refused rather than copied. The gradient that arrives is the concat
+buffer's, from cuDNN's dgrad, in either memory format; the backward
+kernel reads it in place through its strides.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from cgs_tpu_torch.ops import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
+LEVELS = {2: 1, 4: 2}     # upsample factor -> number of x2 steps
 
 
 def upsample2x_plain(x: torch.Tensor) -> torch.Tensor:
@@ -46,6 +56,29 @@ def upsample2x_bwd_plain(g: torch.Tensor) -> torch.Tensor:
     return s.to(g.dtype).contiguous()
 
 
+def upcat_plain(skip: Optional[torch.Tensor], x: torch.Tensor,
+                factor: int = 2) -> torch.Tensor:
+    """NHWC `cat([skip, up_factor(x)], -1)`, the x4 as two x2 steps;
+    skip None is the plain upsample."""
+    for _ in range(LEVELS[factor]):
+        x = upsample2x_plain(x)
+    return x if skip is None else torch.cat([skip, x], -1)
+
+
+def upcat_bwd_plain(g: torch.Tensor, cs: int, factor: int = 2,
+                    need_skip: bool = True
+                    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The gradient of `upcat_plain` from the NHWC gradient g of its
+    output: (the skip channels of g, contiguous, or None when not
+    wanted; the sum-pool of the other channels, the x4 as two chained
+    x2 sum-pools, each rounded to g's type)."""
+    dskip = g[..., :cs].contiguous() if need_skip else None
+    dx = g[..., cs:]
+    for _ in range(LEVELS[factor]):
+        dx = upsample2x_bwd_plain(dx)
+    return dskip, dx
+
+
 def _check(x: torch.Tensor, name: str) -> None:
     if x.dim() != 4:
         raise ValueError(f"{name}: expected (B, H, W, C), got "
@@ -54,64 +87,105 @@ def _check(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: dtype {x.dtype} not in {DTYPES}")
 
 
-def upsample2x_fwd(x: torch.Tensor) -> torch.Tensor:
-    """The forward kernel's wrapper, not differentiable: (B, H, W, C)
-    contiguous NHWC -> (B, 2H, 2W, C), f32 or bf16, any C and W."""
-    _check(x, "upsample2x")
-    if not x.is_contiguous():
-        # a strided NHWC view means the NCHW activation was not
-        # channels_last: a silent layout copy the decoder must not make
-        raise ValueError("upsample2x: expected a contiguous NHWC tensor")
+def _check_factor(factor: int, name: str) -> None:
+    if factor not in LEVELS:
+        raise ValueError(f"{name}: factor {factor} not in {tuple(LEVELS)}")
+
+
+def upcat_fwd(skip: Optional[torch.Tensor], x: torch.Tensor,
+              factor: int = 2) -> torch.Tensor:
+    """The forward kernel's wrapper, not differentiable: skip (B, fH,
+    fW, Cs) or None and x (B, H, W, Cu), contiguous NHWC, one dtype (f32
+    or bf16), any C and W -> (B, fH, fW, Cs + Cu) contiguous,
+    bit-equal to `upcat_plain`."""
+    _check_factor(factor, "upsample2x")
+    for t in (x,) if skip is None else (skip, x):
+        _check(t, "upsample2x")
+        if not t.is_contiguous():
+            # a strided NHWC view means the NCHW activation was not
+            # channels_last: a silent layout copy the decoder must not make
+            raise ValueError("upsample2x: expected a contiguous NHWC tensor "
+                             "(an NCHW activation stored channels_last), got "
+                             f"strides {t.stride()}")
+    b, h, w, cu = x.shape
+    cs = 0
+    if skip is not None:
+        cs = skip.shape[3]
+        if (skip.shape[:3] != (b, factor * h, factor * w)
+                or skip.dtype != x.dtype or skip.device != x.device):
+            raise ValueError(
+                f"upsample2x: skip {tuple(skip.shape)} {skip.dtype} does "
+                f"not match x {tuple(x.shape)} {x.dtype} upsampled "
+                f"x{factor}")
     if x.device.type == "cpu":
-        return upsample2x_plain(x)
+        return upcat_plain(skip, x, factor)
     _build.require_cuda_tensor(x, "upsample2x")
-    b, h, w, c = x.shape
-    out = torch.empty((b, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
-    if x.numel() == 0:
+    out = torch.empty((b, factor * h, factor * w, cs + cu), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
         return out
     lib = _build.kernel("upsample2x")
-    err = lib.cgs_upsample2x(x.data_ptr(), out.data_ptr(), b, h, w,
-                             c * x.element_size(),
+    err = lib.cgs_upsample2x(None if skip is None else skip.data_ptr(),
+                             x.data_ptr(), out.data_ptr(), b, h, w, cs, cu,
+                             factor, x.element_size(),
                              _build.stream_ptr(x.device))
     _build.check(err, "upsample2x")
     _build.launches["upsample2x"] += 1
     return out
 
 
-def upsample2x_bwd(g: torch.Tensor) -> torch.Tensor:
-    """The backward kernel's wrapper: (B, 2H, 2W, C) gradient, any
-    strides (a channel slice of a concat's gradient is read in place)
-    -> (B, H, W, C) contiguous. Bit-equal to `upsample2x_bwd_plain`."""
+def upcat_bwd(g: torch.Tensor, cs: int, factor: int = 2,
+              need_skip: bool = True
+              ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The backward kernel's wrapper: g (B, fH, fW, Cs + Cu), any
+    strides (either memory format of the concat buffer's gradient is
+    read in place) -> (d_skip (B, fH, fW, Cs) contiguous, or None
+    unless `need_skip`; dx (B, H, W, Cu) contiguous). Bit-equal to
+    `upcat_bwd_plain`."""
     _check(g, "upsample2x_bwd")
-    if g.shape[1] % 2 or g.shape[2] % 2:
+    _check_factor(factor, "upsample2x_bwd")
+    if g.shape[1] % factor or g.shape[2] % factor:
         raise ValueError(f"upsample2x_bwd: H and W of {tuple(g.shape)} "
-                         "must be even")
+                         f"must be multiples of {factor}")
+    if not 0 <= cs <= g.shape[3]:
+        raise ValueError(f"upsample2x_bwd: {cs} skip channels of "
+                         f"{tuple(g.shape)}")
     if g.device.type == "cpu":
-        return upsample2x_bwd_plain(g)
+        return upcat_bwd_plain(g, cs, factor, need_skip)
     if g.device.type != "cuda":
         raise ValueError(f"upsample2x_bwd: expected a CUDA tensor, got "
                          f"{g.device}")
-    b, h2, w2, c = g.shape
-    dx = torch.empty((b, h2 // 2, w2 // 2, c), dtype=g.dtype,
-                     device=g.device)
-    if dx.numel() == 0:
-        return dx
+    b, fh, fw, ct = g.shape
+    h, w = fh // factor, fw // factor
+    dskip = (torch.empty((b, fh, fw, cs), dtype=g.dtype, device=g.device)
+             if need_skip else None)
+    dx = torch.empty((b, h, w, ct - cs), dtype=g.dtype, device=g.device)
+    if g.numel() == 0:
+        return dskip, dx
     lib = _build.kernel("upsample2x")
-    err = lib.cgs_upsample2x_bwd(g.data_ptr(), dx.data_ptr(), b, h2 // 2,
-                                 w2 // 2, c, *g.stride(),
-                                 int(g.dtype == torch.bfloat16),
-                                 _build.stream_ptr(g.device))
+    err = lib.cgs_upsample2x_bwd(
+        g.data_ptr(), None if dskip is None else dskip.data_ptr(),
+        dx.data_ptr(), b, h, w, cs, ct - cs, factor, *g.stride(),
+        int(g.dtype == torch.bfloat16), _build.stream_ptr(g.device))
     _build.check(err, "upsample2x_bwd")
     _build.launches["upsample2x_bwd"] += 1
-    return dx
+    return dskip, dx
+
+
+def upsample2x_bwd(g: torch.Tensor) -> torch.Tensor:
+    """The backward kernel with no skip: (B, 2H, 2W, C) gradient, any
+    strides -> (B, H, W, C) contiguous. Bit-equal to
+    `upsample2x_bwd_plain`."""
+    return upcat_bwd(g, 0, need_skip=False)[1]
 
 
 class Upsample2x(torch.autograd.Function):
-    """`upsample2x_fwd` with `upsample2x_bwd` as its gradient."""
+    """The forward kernel with no skip, with `upsample2x_bwd` as its
+    gradient."""
 
     @staticmethod
     def forward(ctx, x):
-        return upsample2x_fwd(x)
+        return upcat_fwd(None, x)
 
     @staticmethod
     def backward(ctx, g):
@@ -123,3 +197,29 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     f32 or bf16: the forward kernel, and the sum-pool kernel as its
     backward."""
     return Upsample2x.apply(x)
+
+
+class UpCat(torch.autograd.Function):
+    """`upcat_fwd` with `upcat_bwd` as its gradient (NHWC); the skip's
+    gradient is written only when autograd asks for it."""
+
+    @staticmethod
+    def forward(ctx, skip, x, factor):
+        ctx.cs, ctx.factor = skip.shape[3], factor
+        return upcat_fwd(skip, x, factor)
+
+    @staticmethod
+    def backward(ctx, g):
+        dskip, dx = upcat_bwd(g, ctx.cs, ctx.factor,
+                              need_skip=ctx.needs_input_grad[0])
+        return dskip, dx, None
+
+
+def up_cat(skip: torch.Tensor, x: torch.Tensor,
+           factor: int = 2) -> torch.Tensor:
+    """One skip join of the decoder, differentiable: skip (B, Cs, fH,
+    fW) and x (B, Cu, H, W), NCHW stored channels_last, one dtype ->
+    `cat([skip, upsample_factor(x)], dim=1)` (B, Cs + Cu, fH, fW), NCHW
+    stored channels_last. One kernel launch forward, one backward."""
+    return UpCat.apply(skip.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1),
+                       factor).permute(0, 3, 1, 2)

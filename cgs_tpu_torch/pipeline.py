@@ -4,8 +4,9 @@ port of `cgs_tpu/pipeline.py`; reference main.py:1130-1151 / 935-956).
 One forward per batch: uint8 NHWC frames are ingested by the
 `normalize_u8` kernel, viewed as NCHW channels_last with no copy, run
 through the critic (with its feature pyramid and, optionally, the
-input-gradient saliency from the same pass) and the decoder, whose 6
-up-steps are the `upsample2x` kernel; the outputs are encoded for the
+input-gradient saliency from the same pass) and the decoder, whose 5
+skip joins are the fused upsample-into-concat kernel (`upsample2x`);
+the outputs are encoded for the
 wire on the device. Inputs and outputs keep the JAX package's layout:
 frames (N, H, W, 3) uint8, masks (N, H, W, 1).
 

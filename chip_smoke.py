@@ -14,12 +14,17 @@ from `cgs_tpu_torch/csrc/`, then:
            (bit-equal / exactly equal), and times kernel, plain
            version, a PyTorch yardstick where one exists, and the
            least time the card could take (bytes / 3.35 TB/s, or
-           operations / peak); the merges and the upsample gradient at
-           the masker step's shapes and at batch 8192;
+           operations / peak); the fused upsample-into-concat pair
+           (`upsample2x`, `upsample2x_bwd`) at the decoder's five skip
+           joins, at batch 8192 (serve) and 64 (masker step), beside
+           the unfused pair it replaced, with the device time from
+           torch.profiler at batch 64; the merges at the masker step's
+           shapes and at batch 8192;
   serve    runs `MaskPipeline` at chfak 5 (the published width), batch
            8192, on device-resident frames, in f32 (TF32 off) and
-           bf16: kernel path against plain path, 1 `normalize_u8` and 6
-           `upsample2x` launches per batch, frames/s;
+           bf16: kernel path against plain path, 1 `normalize_u8` and 5
+           `upsample2x` launches per batch and no concat kernel,
+           frames/s;
   step     one chfak-5 masker step (default flags, f32, TF32 off,
            deterministic cuDNN): loss terms and every gradient of the
            kernel path bit-equal to the plain path, every decoder gradient
@@ -68,10 +73,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores
-CHFAK5_STEPS = [(1, 1, 160), (2, 2, 160), (4, 4, 80), (8, 8, 40),
-                (16, 16, 40), (32, 32, 40)]
-CHFAK1_STEPS = [(1, 1, 32), (2, 2, 32), (4, 4, 16), (8, 8, 8),
-                (16, 16, 8), (32, 32, 8)]
+# the decoder's skip joins: (name, skip channels Cs, upsampled channels
+# Cu, input H = W, factor); ragged ones: (Cs, Cu, H, W, factor), odd
+# Cs, Cu and W, no skip (the plain upsample)
+CHFAK5_JOINS = [("in3", 80, 160, 1, 4), ("in2", 40, 80, 4, 2),
+                ("in1", 40, 40, 8, 2), ("in0", 40, 40, 16, 2),
+                ("head", 3, 40, 32, 2)]
+CHFAK1_JOINS = [("in3", 16, 32, 1, 4), ("in2", 8, 16, 4, 2),
+                ("in1", 8, 8, 8, 2), ("in0", 8, 8, 16, 2),
+                ("head", 3, 8, 32, 2)]
+RAGGED_JOINS = [(5, 7, 3, 9, 2), (3, 5, 2, 3, 4), (0, 7, 3, 5, 2),
+                (0, 3, 5, 7, 2)]
 BATCH = 8192
 EVAL_N, FRAME_F, MASK_F = 2450, 64 * 64 * 3, 64 * 64
 MASKER_N = 64        # frames a masker step merges and decodes (2K)
@@ -80,7 +92,7 @@ SERVE_KERNELS = ("normalize_u8", "upsample2x", "threshold_iou")
 TRAIN_KERNELS = ("normalize_u8", "merge_pair", "merge_pair_bwd",
                  "upsample2x", "upsample2x_bwd", "threshold_iou")
 STEP_LAUNCHES = {"normalize_u8": 2, "merge_pair": 1, "merge_pair_bwd": 1,
-                 "upsample2x": 6, "upsample2x_bwd": 6}
+                 "upsample2x": 5, "upsample2x_bwd": 5}
 PROTOCOL = ["-train", "-eval", "-synthetic_data", "--chfak", "5",
             "--dropout", "0.5", "--datasize", "20000", "--cepochs", "10",
             "--mepochs", "12", "-frozen", "--model", "chip-smoke-train"]
@@ -202,14 +214,49 @@ def _bits(t):
                    torch.bfloat16: torch.int16}[t.dtype])
 
 
-def phase_kernels(_build, summary) -> None:
-    import torch.nn.functional as F
+def _join_inputs(n, cs, cu, h, w, f, dt, gen):
+    """NHWC skip (n, fH, fW, Cs) and x (n, H, W, Cu) on the card."""
+    return tuple(torch.rand(shape, device="cuda", generator=gen).to(dt)
+                 for shape in ((n, f * h, f * w, cs), (n, h, w, cu)))
 
+
+def _unaligned(t):
+    """A copy of t whose data starts 1 element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return buf.copy_(t.flatten()).view(t.shape)
+
+
+def _unfused_fwd(skip, x, f):
+    """A join as the decoder ran it before the fusion: the upsample
+    kernel with no skip (twice for x4), then torch.cat."""
+    from cgs_tpu_torch.ops.upsample import LEVELS, upcat_fwd
+    for _ in range(LEVELS[f]):
+        x = upcat_fwd(None, x)
+    return torch.cat([skip, x], -1)
+
+
+def _unfused_bwd(g, cs, f, need_skip):
+    """Its gradient as it ran before the fusion: the sum-pool kernel on
+    the upsampled channels' slice (twice for x4), and a copy of the
+    skip's slice."""
+    from cgs_tpu_torch.ops.upsample import LEVELS, upcat_bwd
+    dskip = g[..., :cs].contiguous() if need_skip else None
+    dx = g[..., cs:]
+    for _ in range(LEVELS[f]):
+        dx = upcat_bwd(dx, 0, need_skip=False)[1]
+    return dskip, dx
+
+
+def _name(dt) -> str:
+    return "f32" if dt == torch.float32 else "bf16"
+
+
+def phase_kernels(_build, summary) -> None:
     from cgs_tpu_torch.ops.kernels import (
         INV255, normalize_u8, normalize_u8_plain, threshold_iou,
         threshold_iou_plain,
     )
-    from cgs_tpu_torch.ops.upsample import upsample2x, upsample2x_plain
+    from cgs_tpu_torch.ops.upsample import upcat_fwd, upcat_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -245,53 +292,78 @@ def phase_kernels(_build, summary) -> None:
             lambda: x.to(torch.float32).mul_(INV255)),
         "shape": f"uint8 ({BATCH}, {FRAME_F})"}
     del x
+    # most of its launches are at the critic step's batch of 64
+    x = u8((MASKER_N, FRAME_F))
+    nb = MASKER_N * FRAME_F
+    log(f"[kernels] normalize_u8 at batch {MASKER_N} (ms):", json.dumps({
+        "ms": time_ms(lambda: normalize_u8(x), iters=50),
+        "plain_ms": time_ms(lambda: normalize_u8_plain(x), iters=50),
+        "device_ms": device_breakdown(lambda: normalize_u8(x),
+                                      reps=20)["ms_per_step"],
+        "bound_ms": bound_ms(5 * nb, nb)[0]}))
+    del x
 
-    # upsample2x: bit-equal at all 12 decoder steps x 2 dtypes
-    err = 0.0
-    steps_ms = []
-    for width, steps in (("chfak5", CHFAK5_STEPS), ("chfak1", CHFAK1_STEPS)):
-        for h, w, c in steps:
-            for dt in (torch.float32, torch.bfloat16):
-                xin = torch.rand((BATCH, h, w, c), device=dev,
-                                 generator=gen).to(dt)
-                got, want = upsample2x(xin), upsample2x_plain(xin)
-                check(torch.equal(_bits(got), _bits(want)),
-                      f"upsample2x differs from plain at "
-                      f"{(BATCH, h, w, c)} {dt}")
-                err = max(err, float((got.float() - want.float())
-                                     .abs().max()))
-                del got, want
-                if dt == torch.float32 and width == "chfak5":
-                    nchw = xin.permute(0, 3, 1, 2)
-                    steps_ms.append({
-                        "shape": [BATCH, h, w, c],
-                        "ms": time_ms(lambda: upsample2x(xin)),
-                        "plain_ms": time_ms(
-                            lambda: upsample2x_plain(xin)),
-                        "library_ms": time_ms(lambda: F.interpolate(
-                            nchw, scale_factor=2, mode="nearest")),
-                        "bound_ms": bound_ms(5 * xin.numel() * 4)[0]})
-                del xin
-    # ragged shapes no TPU run used: odd C and W, an unaligned pixel
-    for shape in [(3, 5, 7, 3), (2, 3, 9, 5)]:
+    # upsample2x, fused into the concat: bit-equal at the five skip
+    # joins of chfak 1 and chfak 5, f32 and bf16, at the serve batch and
+    # the masker step's; the chfak-5 joins timed beside the unfused pair
+    # they replaced (and, at batch 64, their device time)
+    fwd = {}
+    for n in (BATCH, MASKER_N):
         for dt in (torch.float32, torch.bfloat16):
-            xin = torch.rand(shape, device=dev, generator=gen).to(dt)
-            check(torch.equal(_bits(upsample2x(xin)),
-                              _bits(upsample2x_plain(xin))),
-                  f"upsample2x differs from plain at {shape} {dt}")
-    torch.cuda.empty_cache()
-    log("[kernels] upsample2x chfak-5 f32 steps:", json.dumps(steps_ms))
+            for joins in (CHFAK1_JOINS, CHFAK5_JOINS):
+                ins = [(name, f) + _join_inputs(n, cs, cu, h, h, f, dt, gen)
+                       for name, cs, cu, h, f in joins]
+                for name, f, skip, x in ins:
+                    check(torch.equal(_bits(upcat_fwd(skip, x, f)),
+                                      _bits(upcat_plain(skip, x, f))),
+                          f"upsample2x differs from plain at {name} "
+                          f"{tuple(skip.shape)} + {tuple(x.shape)} x{f} {dt}")
+            rows = []
+            for name, f, skip, x in ins:          # the chfak-5 joins
+                nbytes = (2 * skip.numel() + (1 + f * f) * x.numel()) \
+                    * skip.element_size()
+                rows.append({
+                    "join": name,
+                    "ms": time_ms(lambda: upcat_fwd(skip, x, f)),
+                    "unfused_ms": time_ms(lambda: _unfused_fwd(skip, x, f)),
+                    "plain_ms": time_ms(lambda: upcat_plain(skip, x, f)),
+                    "bound_ms": bound_ms(nbytes)[0]})
+            res = {k: sum(r[k] for r in rows) for k in
+                   ("ms", "unfused_ms", "plain_ms", "bound_ms")}
+            res["joins"] = rows
+            if n == MASKER_N:
+                for key, fn in (("device_ms", upcat_fwd),
+                                ("unfused_device_ms", _unfused_fwd)):
+                    res[key] = device_breakdown(
+                        lambda: [fn(s, x, f) for _, f, s, x in ins],
+                        reps=20)["ms_per_step"]
+            fwd[f"batch {n} {_name(dt)}"] = res
+            del ins, skip, x
+            torch.cuda.empty_cache()
+    # ragged joins no decoder has (odd Cs, Cu and W, no pixel or row
+    # 16-byte aligned), no skip, N = 0, and inputs off a 16-byte boundary
+    for cs, cu, h, w, f in RAGGED_JOINS:
+        for n in (3, 0):
+            for dt in (torch.float32, torch.bfloat16):
+                skip, x = _join_inputs(n, cs, cu, h, w, f, dt, gen)
+                for sk, xx in ((skip, x), (_unaligned(skip), _unaligned(x))):
+                    check(torch.equal(_bits(upcat_fwd(sk, xx, f)),
+                                      _bits(upcat_plain(sk, xx, f))),
+                          f"upsample2x differs from plain at "
+                          f"{(n, cs, cu, h, w, f)} {dt}")
+    log("[kernels] upsample2x (fused into the concat), the 5 chfak-5 "
+        "joins (ms, sums over the joins):", json.dumps(fwd))
+    r = fwd[f"batch {BATCH} f32"]
     summary["upsample2x"] = {
         "name": "upsample2x", "route": "cuda",
         "source": "cgs_tpu_torch/csrc/upsample2x.cu",
         "replaces": "cgs_tpu/ops/pallas_upsample.py:87",
-        "launches": 0, "max_abs_err": err,
-        "ms": sum(s["ms"] for s in steps_ms),
-        "plain_ms": sum(s["plain_ms"] for s in steps_ms),
-        "bound_ms": sum(s["bound_ms"] for s in steps_ms),
-        "bound_by": "bytes",
-        "library_ms": sum(s["library_ms"] for s in steps_ms),
-        "shape": f"the 6 chfak-5 decoder steps, f32, batch {BATCH} (sum)"}
+        "launches": 0, "max_abs_err": 0.0,      # bit-equal, checked above
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "unfused_ms": r["unfused_ms"],
+        "shape": f"the 5 chfak-5 skip joins (upsample into concat), f32, "
+                 f"batch {BATCH} (sum)"}
 
     # threshold_iou: exact counts at the eval set, ragged N, odd numel, 0
     err = 0.0
@@ -325,7 +397,7 @@ def phase_kernels(_build, summary) -> None:
 
 
 CATEGORIES = (   # first match wins, on the lower-cased kernel name
-    ("port kernels", ("normalize_u8", "upsample2x", "threshold_iou",
+    ("port kernels", ("normalize_u8", "upsample", "threshold_iou",
                       "merge_pair")),
     ("concat", ("catarray", "cat_")),
     ("max-pool", ("max_pool",)),
@@ -390,12 +462,11 @@ def _random_params(critic, masker, seed: int):
 def phase_serve(_build) -> None:
     from unittest import mock
 
-    import cgs_tpu_torch.models.decoder as decoder_mod
+    import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
     from cgs_tpu_torch.models.critic import Critic
     from cgs_tpu_torch.models.decoder import UnetDecoder
     from cgs_tpu_torch.ops.kernels import normalize_u8_plain
-    from cgs_tpu_torch.ops.upsample import upsample2x_plain
     from cgs_tpu_torch.pipeline import MaskPipeline
 
     dev = torch.device("cuda")
@@ -414,9 +485,9 @@ def phase_serve(_build) -> None:
         pred, mask, _ = pipe.run_device(frames)
         torch.cuda.synchronize()
         per_batch = dict(_build.launches)
-        check(per_batch == {"normalize_u8": 1, "upsample2x": 6},
+        check(per_batch == {"normalize_u8": 1, "upsample2x": 5},
               f"launches per batch {per_batch}, want 1 normalize_u8 "
-              "and 6 upsample2x")
+              "and 5 upsample2x")
         check(mask.shape == (BATCH, 64, 64, 1) and pred.shape == (BATCH,),
               f"output shapes {tuple(mask.shape)} {tuple(pred.shape)}")
         check(bool(torch.isfinite(mask).all()) and
@@ -425,8 +496,8 @@ def phase_serve(_build) -> None:
         # the same weights through the plain versions on the card
         with mock.patch.object(pipeline_mod, "normalize_u8",
                                normalize_u8_plain), \
-                mock.patch.object(decoder_mod, "upsample2x",
-                                  upsample2x_plain):
+                mock.patch.object(upsample_mod, "upcat_fwd",
+                                  upsample_mod.upcat_plain):
             ppred, pmask, _ = pipe.run_device(frames)
         torch.cuda.synchronize()
         if torch.equal(mask, pmask) and torch.equal(pred, ppred):
@@ -453,8 +524,11 @@ def phase_serve(_build) -> None:
         log(f"[serve] frames/s chfak5 {name} batch {BATCH} "
             f"device-resident: {reps * BATCH / dt:.0f} "
             f"({dt / reps * 1e3:.2f} ms/batch)")
-        log(f"[serve] device time chfak5 {name}:",
-            json.dumps(device_breakdown(lambda: pipe.run_device(frames))))
+        breakdown = device_breakdown(lambda: pipe.run_device(frames))
+        log(f"[serve] device time chfak5 {name}:", json.dumps(breakdown))
+        # the decoder's five joins were the serve batch's only concats
+        check("concat" not in breakdown["by_category_ms"],
+              f"the serve batch still runs concat kernels: {breakdown}")
         log(f"[serve] phase {name} {time.time() - t0:.1f} s")
         del pipe
         torch.cuda.empty_cache()
@@ -534,16 +608,13 @@ def _layout(t) -> str:
 
 def phase_train_kernels(summary) -> None:
     """The training slice's kernels: merge_pair, merge_pair_bwd and the
-    upsample backward, bit-equal to their plain versions, and timed at
-    the masker step's shapes (the summary rows) and at batch 8192."""
-    import torch.nn.functional as F
-
+    fused upsample-into-concat backward, bit-equal to their plain
+    versions, and timed at the masker step's shapes (the summary rows)
+    and at batch 8192."""
     from cgs_tpu_torch.ops.kernels import (
         merge_pair, merge_pair_bwd, merge_pair_bwd_plain, merge_pair_plain,
     )
-    from cgs_tpu_torch.ops.upsample import (
-        upsample2x_bwd, upsample2x_bwd_plain,
-    )
+    from cgs_tpu_torch.ops.upsample import upcat_bwd, upcat_bwd_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -619,63 +690,83 @@ def phase_train_kernels(summary) -> None:
             "shape": f"f32 ({MASKER_N}, 3, 64, 64) channels_last + mask "
                      f"({MASKER_N}, 1, 64, 64)"}
 
-    # upsample backward: the six chfak-5 decoder steps at batch 128 in
-    # f32 and bf16, a ragged shape, N = 0, and the channel slices of a
-    # concat's gradient (what autograd hands over) in both layouts
-    for h, w, c in CHFAK5_STEPS:
+    # upsample backward, fused: the five joins of chfak 5 and chfak 1 at
+    # batch 128 and the ragged joins at N = 3 and 0, f32 and bf16, the
+    # concat gradient in both memory formats cuDNN's dgrad may hand
+    # over, with and without the skip's gradient
+    cases = [(128, cs, cu, h, h, f)
+             for _, cs, cu, h, f in CHFAK5_JOINS + CHFAK1_JOINS]
+    cases += [(n, *j) for j in RAGGED_JOINS for n in (3, 0)]
+    for n, cs, cu, h, w, f in cases:
         for dt in (torch.float32, torch.bfloat16):
-            g = torch.rand((128, 2 * h, 2 * w, c), device=dev,
+            g = torch.rand((n, f * h, f * w, cs + cu), device=dev,
                            generator=gen).to(dt)
-            same([upsample2x_bwd(g)], [upsample2x_bwd_plain(g)],
-                 f"upsample2x_bwd at {(128, h, w, c)} {dt}")
-    for shape in [(3, 10, 18, 5), (0, 4, 4, 8)]:
-        g = torch.rand(shape, device=dev, generator=gen)
-        same([upsample2x_bwd(g)], [upsample2x_bwd_plain(g)],
-             f"upsample2x_bwd at {shape}")
-    for dt in (torch.float32, torch.bfloat16):
-        wide = torch.rand((128, 64, 64, 43), device=dev,
-                          generator=gen).to(dt)          # cat([x, up])
-        wide_nchw = wide.permute(0, 3, 1, 2).contiguous().permute(
-            0, 2, 3, 1)
-        for g in (wide[..., 3:], wide_nchw[..., 3:]):
-            check(not g.is_contiguous(), "slice should be a strided view")
-            same([upsample2x_bwd(g)], [upsample2x_bwd_plain(g)],
-                 f"upsample2x_bwd of a channel slice {g.stride()} {dt}")
-    del g, wide, wide_nchw
+            g_nchw = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+            grads = [g, g_nchw] + ([_unaligned(g)] if n == 3 else [])
+            for gg in grads:
+                for need in (True, False):
+                    got = upcat_bwd(gg, cs, f, need)
+                    want = upcat_bwd_plain(gg, cs, f, need)
+                    check((got[0] is None) == (want[0] is None),
+                          "upsample2x_bwd: d_skip returned when not asked")
+                    same([t for t in got if t is not None],
+                         [t for t in want if t is not None],
+                         f"upsample2x_bwd at {(n, cs, cu, h, w, f)} {dt} "
+                         f"strides {gg.stride()} d_skip {need}")
+    del g, g_nchw, grads
     torch.cuda.empty_cache()
 
-    steps = {}
+    # timed at the chfak-5 joins with the gradient channels_last-dense
+    # (what cuDNN's dgrad hands over, the step phase prints it) and the
+    # skip's gradient where the masker step asks for it (not for the
+    # head join's frame)
+    bwd = {}
     for n in (MASKER_N, BATCH):
-        steps[n] = []
-        for h, w, c in CHFAK5_STEPS:
-            g = torch.rand((n, 2 * h, 2 * w, c), device=dev, generator=gen)
-            g_nchw = g.permute(0, 3, 1, 2)
-            steps[n].append({
-                "shape": [n, h, w, c],
-                "ms": time_ms(lambda: upsample2x_bwd(g), iters=50),
-                "plain_ms": time_ms(lambda: upsample2x_bwd_plain(g),
-                                    iters=50),
-                "library_ms": time_ms(lambda: F.avg_pool2d(
-                    g_nchw, 2, divisor_override=1), iters=50),
-                # f32: reads 4 B and writes 1 B per gradient element
-                "bound_ms": bound_ms(5 * g.numel(),
-                                     3 * g.numel() // 4)[0]})
-            del g, g_nchw
-        torch.cuda.empty_cache()
-    log("[kernels] upsample2x_bwd chfak-5 f32 steps (ms):",
-        json.dumps(steps))
-    st = steps[MASKER_N]
+        for dt in (torch.float32, torch.bfloat16):
+            gs = [(name, cs, f, name != "head",
+                   torch.rand((n, f * h, f * h, cs + cu), device=dev,
+                              generator=gen).to(dt))
+                  for name, cs, cu, h, f in CHFAK5_JOINS]
+            rows = []
+            for name, cs, f, need, g in gs:
+                n_skip = g.numel() // g.shape[3] * cs
+                n_dx = (g.numel() - n_skip) // (f * f)
+                nbytes = (g.numel() + n_skip * need + n_dx) * g.element_size()
+                rows.append({
+                    "join": name, "d_skip": need,
+                    "ms": time_ms(lambda: upcat_bwd(g, cs, f, need),
+                                  iters=50),
+                    "unfused_ms": time_ms(
+                        lambda: _unfused_bwd(g, cs, f, need), iters=50),
+                    "plain_ms": time_ms(
+                        lambda: upcat_bwd_plain(g, cs, f, need), iters=50),
+                    "bound_ms": bound_ms(nbytes, n_dx * (f * f - 1))[0]})
+            res = {k: sum(r[k] for r in rows) for k in
+                   ("ms", "unfused_ms", "plain_ms", "bound_ms")}
+            res["joins"] = rows
+            if n == MASKER_N:
+                for key, fn in (("device_ms", upcat_bwd),
+                                ("unfused_device_ms", _unfused_bwd)):
+                    res[key] = device_breakdown(
+                        lambda: [fn(g, cs, f, need)
+                                 for _, cs, f, need, g in gs],
+                        reps=20)["ms_per_step"]
+            bwd[f"batch {n} {_name(dt)}"] = res
+            del gs, g
+            torch.cuda.empty_cache()
+    log("[kernels] upsample2x_bwd (fused), the 5 chfak-5 joins (ms, sums "
+        "over the joins):", json.dumps(bwd))
+    r = bwd[f"batch {MASKER_N} f32"]
     summary["upsample2x_bwd"] = {
         "name": "upsample2x_bwd", "route": "cuda",
         "source": "cgs_tpu_torch/csrc/upsample2x.cu",
         "replaces": "cgs_tpu/ops/pallas_upsample.py:132",
         "launches": 0, "max_abs_err": errs["upsample2x_bwd"],
-        "ms": sum(s["ms"] for s in st),
-        "plain_ms": sum(s["plain_ms"] for s in st),
-        "bound_ms": sum(s["bound_ms"] for s in st), "bound_by": "bytes",
-        "library_ms": sum(s["library_ms"] for s in st),
-        "shape": f"the 6 chfak-5 decoder steps, f32, batch {MASKER_N} "
-                 "(sum)"}
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "unfused_ms": r["unfused_ms"], "device_ms": r["device_ms"],
+        "unfused_device_ms": r["unfused_device_ms"],
+        "shape": f"the 5 chfak-5 skip joins, f32, batch {MASKER_N} (sum)"}
     log(f"[kernels] training kernels ok in {time.time() - t0:.1f} s")
 
 
@@ -740,23 +831,24 @@ def phase_train_step(_build) -> None:
                  for k, p in m.named_parameters()})
 
     layouts = {}
-    real_mbwd, real_ubwd = merge_mod.merge_pair_bwd, upsample_mod.upsample2x_bwd
+    real_mbwd, real_ubwd = merge_mod.merge_pair_bwd, upsample_mod.upcat_bwd
 
     def spy_mbwd(a, b, z, gr, gi):
         layouts["merge_pair_bwd (gr, gi)"] = [_layout(gr), _layout(gi)]
         return real_mbwd(a, b, z, gr, gi)
 
-    def spy_ubwd(gg):
-        layouts.setdefault("upsample2x_bwd", []).append(
-            [list(gg.shape), list(gg.stride())])
-        return real_ubwd(gg)
+    def spy_ubwd(gg, cs, factor, need_skip):
+        layouts.setdefault("upsample2x_bwd (shape, strides, Cs, d_skip)",
+                           []).append([list(gg.shape), list(gg.stride()),
+                                       cs, need_skip])
+        return real_ubwd(gg, cs, factor, need_skip)
 
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         _build.launches.clear()
         with mock.patch.object(merge_mod, "merge_pair_bwd", spy_mbwd), \
-                mock.patch.object(upsample_mod, "upsample2x_bwd", spy_ubwd):
+                mock.patch.object(upsample_mod, "upcat_bwd", spy_ubwd):
             k_terms, k_grads = run()
         per_step = dict(_build.launches)
         with mock.patch.object(losses_mod, "normalize_u8",
@@ -765,10 +857,10 @@ def phase_train_step(_build) -> None:
                                   merge_pair_plain), \
                 mock.patch.object(merge_mod, "merge_pair_bwd",
                                   merge_pair_bwd_plain), \
-                mock.patch.object(upsample_mod, "upsample2x_fwd",
-                                  upsample_mod.upsample2x_plain), \
-                mock.patch.object(upsample_mod, "upsample2x_bwd",
-                                  upsample_mod.upsample2x_bwd_plain):
+                mock.patch.object(upsample_mod, "upcat_fwd",
+                                  upsample_mod.upcat_plain), \
+                mock.patch.object(upsample_mod, "upcat_bwd",
+                                  upsample_mod.upcat_bwd_plain):
             _build.launches.clear()
             p_terms, p_grads = run()
             check(sum(_build.launches.values()) == 0,

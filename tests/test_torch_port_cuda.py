@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain
 version, the pipeline's and the masker step's kernel path against
-their plain paths, and the upsample gradient through a `torch.cat`.
+their plain paths, and the gradient of a fused upsample-into-concat
+join through a conv.
 
 Marked `cuda`; every test skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -21,12 +22,20 @@ from cgs_tpu_torch.ops.kernels import (
     normalize_u8, normalize_u8_plain, threshold_iou, threshold_iou_plain,
 )
 from cgs_tpu_torch.ops.upsample import (
-    upsample2x, upsample2x_bwd, upsample2x_bwd_plain, upsample2x_plain,
+    up_cat, upcat_bwd, upcat_bwd_plain, upcat_fwd, upcat_plain, upsample2x,
+    upsample2x_bwd, upsample2x_bwd_plain, upsample2x_plain,
 )
 
 STEPS = [(1, 1, 160), (2, 2, 160), (4, 4, 80), (8, 8, 40), (16, 16, 40),
          (32, 32, 40), (1, 1, 32), (2, 2, 32), (4, 4, 16), (8, 8, 8),
          (16, 16, 8), (32, 32, 8), (3, 5, 7), (5, 9, 3)]
+# the decoder's skip joins (Cs, Cu, H, W, factor) at chfak 5 and 1, and
+# ragged ones (odd Cs, Cu and W; no pixel or row 16-byte aligned)
+JOINS = [(80, 160, 1, 1, 4), (40, 80, 4, 4, 2), (40, 40, 8, 8, 2),
+         (40, 40, 16, 16, 2), (3, 40, 32, 32, 2), (16, 32, 1, 1, 4),
+         (8, 16, 4, 4, 2), (8, 8, 8, 8, 2), (8, 8, 16, 16, 2),
+         (3, 8, 32, 32, 2), (5, 7, 3, 9, 2), (3, 5, 2, 3, 4),
+         (0, 7, 3, 5, 2)]
 
 
 @pytest.fixture
@@ -86,7 +95,7 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
 
 @pytest.mark.cuda
 def test_pipeline_kernel_path_equals_plain_path(dev):
-    import cgs_tpu_torch.models.decoder as decoder_mod
+    import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
     from cgs_tpu_torch.models.critic import Critic
     from cgs_tpu_torch.models.decoder import UnetDecoder
@@ -99,10 +108,10 @@ def test_pipeline_kernel_path_equals_plain_path(dev):
                            device=dev)
     _build.launches.clear()
     pred, mask, _ = pipe.run_device(frames)
-    assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 6}
+    assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 5}
     with mock.patch.object(pipeline_mod, "normalize_u8",
                            normalize_u8_plain), \
-            mock.patch.object(decoder_mod, "upsample2x", upsample2x_plain):
+            mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain):
         ppred, pmask, _ = pipe.run_device(frames)
     torch.testing.assert_close(mask, pmask, atol=1e-5, rtol=0)
     torch.testing.assert_close(pred, ppred, atol=1e-5, rtol=0)
@@ -157,35 +166,61 @@ def test_upsample2x_bwd_bit_equal(dev, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_up2_gradient_through_cat_equals_plain(dev, dtype):
-    """A decoder up-step as the masker step runs it: up2, torch.cat
-    with a skip feature, a conv. The kernel path's input gradient
-    against autograd of the plain version (repeat_interleave's own
-    backward sums in another order, and in bf16 rounds after each of
-    its two pair sums where the kernel rounds once: 1e-6 in f32, two
-    bf16 ulps in bf16)."""
-    from cgs_tpu_torch.models.decoder import up2
+def test_upcat_and_bwd_bit_equal(dev, dtype):
+    """The fused pair at every join, a ragged shape, Cs = 0 and N = 0,
+    with the concat gradient in both memory formats cuDNN's dgrad may
+    hand over, with and without the skip's gradient."""
+    for cs, cu, h, w, f in JOINS:
+        for n in (3, 0):
+            skip = torch.rand((n, f * h, f * w, cs), device=dev).to(dtype)
+            x = torch.rand((n, h, w, cu), device=dev).to(dtype)
+            _build.launches.clear()
+            assert _same([upcat_fwd(skip, x, f)], [upcat_plain(skip, x, f)])
+            g = torch.rand((n, f * h, f * w, cs + cu), device=dev).to(dtype)
+            nchw = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+            for gg in (g, nchw):
+                for need in (True, False):
+                    got = upcat_bwd(gg, cs, f, need)
+                    want = upcat_bwd_plain(gg, cs, f, need)
+                    assert (got[0] is None) == (want[0] is None)
+                    assert _same([t for t in got if t is not None],
+                                 [t for t in want if t is not None]), (
+                        cs, cu, h, w, f, n, gg.stride(), need)
+            assert dict(_build.launches) == (
+                {"upsample2x": 1, "upsample2x_bwd": 4} if n else {})
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_up2_gradient_through_cat_equals_plain(dev, dtype):
+    """A decoder skip join as the masker step runs it: `up_cat` of a
+    skip feature and an upsampled activation, then a conv. The kernel
+    path's output and input gradients against autograd of `torch.cat`
+    and the plain upsample (repeat_interleave's own backward sums in
+    another order, and in bf16 rounds after each of its two pair sums
+    where the kernel rounds once: 1e-6 in f32, two bf16 ulps in bf16);
+    the skip's gradient is a copy, exact."""
     torch.manual_seed(0)
     conv = torch.nn.Conv2d(80, 40, 3, padding=1).to(
         dev, dtype, memory_format=torch.channels_last)
-    skip = torch.rand(4, 40, 32, 32, device=dev, dtype=dtype).contiguous(
+    skip0 = torch.rand(4, 40, 32, 32, device=dev, dtype=dtype).contiguous(
         memory_format=torch.channels_last)
     x0 = torch.rand(4, 40, 16, 16, device=dev, dtype=dtype).contiguous(
         memory_format=torch.channels_last)
 
-    def grad(up):
+    def grad(join):
+        skip = skip0.clone().requires_grad_()
         x = x0.clone().requires_grad_()
-        y = conv(torch.cat([skip, up(x)], dim=1))
+        y = conv(join(skip, x))
         y.float().square().sum().backward()
-        return y.detach(), x.grad
+        return y.detach(), skip.grad, x.grad
 
     _build.launches.clear()
-    y_k, g_k = grad(up2)
+    y_k, s_k, g_k = grad(up_cat)
     assert dict(_build.launches) == {"upsample2x": 1, "upsample2x_bwd": 1}
-    y_p, g_p = grad(lambda t: upsample2x_plain(
-        t.permute(0, 2, 3, 1)).permute(0, 3, 1, 2))
-    assert torch.equal(y_k, y_p)
+    y_p, s_p, g_p = grad(lambda s, t: torch.cat([s, upsample2x_plain(
+        t.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)], dim=1))
+    assert torch.equal(y_k, y_p) and torch.equal(s_k, s_p)
     tol = 1e-6 if dtype == torch.float32 else 2 ** -6
     torch.testing.assert_close(g_k.float(), g_p.float(), atol=tol,
                                rtol=tol)
@@ -230,15 +265,13 @@ def test_masker_step_kernel_path_equals_plain_path(dev, monkeypatch):
     terms, grads = run()
     assert dict(_build.launches) == {
         "normalize_u8": 2, "merge_pair": 1, "merge_pair_bwd": 1,
-        "upsample2x": 6, "upsample2x_bwd": 6}
+        "upsample2x": 5, "upsample2x_bwd": 5}
     with mock.patch.object(losses_mod, "normalize_u8", normalize_u8_plain), \
             mock.patch.object(merge_mod, "merge_pair", merge_pair_plain), \
             mock.patch.object(merge_mod, "merge_pair_bwd",
                               merge_pair_bwd_plain), \
-            mock.patch.object(upsample_mod, "upsample2x_fwd",
-                              upsample2x_plain), \
-            mock.patch.object(upsample_mod, "upsample2x_bwd",
-                              upsample2x_bwd_plain):
+            mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain), \
+            mock.patch.object(upsample_mod, "upcat_bwd", upcat_bwd_plain):
         p_terms, p_grads = run()
     assert terms == p_terms
     for g, pg in zip(grads, p_grads):

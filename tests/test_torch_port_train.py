@@ -45,7 +45,6 @@ from cgs_tpu.train.steps import make_optimizer as jax_make_optimizer
 from cgs_tpu.train.steps import trained_param_keys as jax_trained_keys
 import cgs_tpu_torch.ops.upsample as upsample_mod
 from cgs_tpu_torch.core.config import Config
-from cgs_tpu_torch.models.decoder import up2
 from cgs_tpu_torch.models.interop import adam_state_from_optax
 from cgs_tpu_torch.ops import _build
 from cgs_tpu_torch.ops.kernels import (
@@ -53,7 +52,7 @@ from cgs_tpu_torch.ops.kernels import (
 )
 from cgs_tpu_torch.ops.merge import inject_merge, merge_both, replace_merge
 from cgs_tpu_torch.ops.upsample import (
-    upsample2x, upsample2x_bwd, upsample2x_bwd_plain,
+    up_cat, upsample2x, upsample2x_bwd, upsample2x_bwd_plain,
 )
 from cgs_tpu_torch.train.losses import bce, build_masker_loss
 from cgs_tpu_torch.train.steps import (
@@ -216,16 +215,19 @@ def test_upsample_backward_bf16_sums_in_f32_and_rounds_once():
 def test_decoder_upsteps_are_differentiable_through_the_bwd_wrapper(
         monkeypatch):
     """The fault the training slice repaired: a ctypes launch into a
-    fresh tensor has no grad_fn, so the decoder's up-steps must go
-    through the autograd Function, whose backward is the sum-pool
-    wrapper (the kernel on the card): 6 calls per decoder backward."""
+    fresh tensor has no grad_fn, so the decoder's skip joins must go
+    through the autograd Function, whose backward is the fused
+    backward's wrapper (the kernel on the card): 5 calls per decoder
+    backward, one per join."""
     calls = []
-    real = upsample_mod.upsample2x_bwd
-    monkeypatch.setattr(upsample_mod, "upsample2x_bwd",
-                        lambda g: calls.append(g.shape) or real(g))
-    t = torch.rand(2, 8, 4, 4).contiguous(memory_format=torch.channels_last)
-    assert "Upsample2x" in type(up2(t.requires_grad_()).grad_fn
-                                .next_functions[0][0]).__name__
+    real = upsample_mod.upcat_bwd
+    monkeypatch.setattr(upsample_mod, "upcat_bwd",
+                        lambda g, *a, **k: calls.append(g.shape)
+                        or real(g, *a, **k))
+    s, t = (torch.rand(2, c, h, h).contiguous(
+        memory_format=torch.channels_last) for c, h in ((3, 8), (8, 4)))
+    assert "UpCat" in type(up_cat(s, t.requires_grad_()).grad_fn
+                           .next_functions[0][0]).__name__
     cfg, _ = _cfgs()
     critic, masker = port_models()
     rng = np.random.default_rng(2)
@@ -234,7 +236,7 @@ def test_decoder_upsteps_are_differentiable_through_the_bwd_wrapper(
     loss, _ = build_masker_loss(cfg)({"critic": critic, "masker": masker},
                                      a, y, b)
     loss.backward()
-    assert len(calls) == 6
+    assert len(calls) == 5
     for name, p in masker.named_parameters():
         assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
 
