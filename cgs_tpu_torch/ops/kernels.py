@@ -1,18 +1,20 @@
-"""The uint8 ingest, the fused counterfactual merges and their
-gradient, and the fused threshold+IoU count: CUDA kernel wrappers and
-their plain PyTorch versions.
+"""The uint8 ingest (gather by index, roll, normalise), the fused
+counterfactual merges and their gradient, and the fused threshold+IoU
+count: CUDA kernel wrappers and their plain PyTorch versions.
 
-Ports of `cgs_tpu/ops/pallas_kernels.py:normalize_u8`, `:merge_pair`,
-`:merge_pair_bwd` and `:threshold_iou`. On a CUDA tensor each wrapper
-launches its kernel (`csrc/normalize_u8.cu`, `csrc/merge_pair.cu`,
-`csrc/threshold_iou.cu`) or raises; on a CPU tensor it runs the plain
-version, which is also the oracle the kernel is held against on the
-card. There is no fallback from the kernel to the plain version.
+Ports of `cgs_tpu/ops/pallas_kernels.py:normalize_u8` (with the
+gather, concatenation and roll a JAX train step fuses around it),
+`:merge_pair`, `:merge_pair_bwd` and `:threshold_iou`. On a CUDA
+tensor each wrapper launches its kernel (`csrc/normalize_u8.cu`,
+`csrc/merge_pair.cu`, `csrc/threshold_iou.cu`) or raises; on a CPU
+tensor it runs the plain version, which is also the oracle the kernel
+is held against on the card. There is no fallback from the kernel to
+the plain version.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,31 +28,142 @@ INV255 = float(np.float32(1.0 / 255.0))
 
 
 # ---------------------------------------------------------------------
-# uint8 -> f32 ingest
+# uint8 ingest: gather by index, roll along W, normalise
 # ---------------------------------------------------------------------
 
-def normalize_u8_plain(x_u8: torch.Tensor) -> torch.Tensor:
-    return x_u8.to(torch.float32) * INV255
+MAX_SEGMENTS = 3        # csrc/normalize_u8.cu: kMaxSeg
+INGEST_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def normalize_u8(x_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 tensor of any shape -> float32 `x * float32(1/255)`, same
-    shape. Bit-equal to `normalize_u8_plain`."""
-    if x_u8.dtype != torch.uint8:
-        raise ValueError(f"normalize_u8: expected uint8, got {x_u8.dtype}")
-    if x_u8.device.type == "cpu":
-        return normalize_u8_plain(x_u8)
-    _build.require_cuda_tensor(x_u8, "normalize_u8")
-    out = torch.empty(x_u8.shape, dtype=torch.float32, device=x_u8.device)
-    n = x_u8.numel()
-    if n == 0:            # a grid of 0 blocks is an invalid launch
-        return out
+class Segment(NamedTuple):
+    """Frames for `gather_normalize_u8`: rows `idx` of `bank` (all of
+    its rows, in order, when idx is None), rolled by `shift` pixels
+    along W (`torch.roll`'s sign, any integer), with their `labels`
+    gathered beside them when labels (one float32 per bank row) are
+    given."""
+    bank: torch.Tensor                      # (M, H, W, C) uint8
+    idx: Optional[torch.Tensor] = None      # (n,) int64, values in [0, M)
+    shift: int = 0
+    labels: Optional[torch.Tensor] = None   # (M,) float32
+
+    @property
+    def rows(self) -> int:
+        return self.bank.shape[0] if self.idx is None else self.idx.shape[0]
+
+
+def normalize_u8_plain(x_u8: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (x_u8.to(torch.float32) * INV255).to(dtype)
+
+
+def gather_normalize_u8_plain(segments: Sequence[Segment],
+                              dtype: torch.dtype = torch.float32):
+    """The kernel's function in plain PyTorch: index_select, roll,
+    cat, normalise."""
+    frames, labels = [], []
+    for seg in segments:
+        x = seg.bank if seg.idx is None else seg.bank.index_select(0,
+                                                                   seg.idx)
+        frames.append(torch.roll(x, int(seg.shift), dims=2))
+        if seg.labels is not None:
+            labels.append(seg.labels if seg.idx is None
+                          else seg.labels.index_select(0, seg.idx))
+    return (normalize_u8_plain(torch.cat(frames), dtype),
+            torch.cat(labels) if labels else None)
+
+
+def _check_segments(segments: Sequence[Segment], dtype) -> None:
+    name = "gather_normalize_u8"
+    if not 1 <= len(segments) <= MAX_SEGMENTS:
+        raise ValueError(f"{name}: 1 to {MAX_SEGMENTS} segments, got "
+                         f"{len(segments)}")
+    if dtype not in INGEST_DTYPES:
+        raise ValueError(f"{name}: dtype {dtype} not in {INGEST_DTYPES}")
+    frame, dev = segments[0].bank.shape[1:], segments[0].bank.device
+    labelled = [seg.labels is not None for seg in segments]
+    if labelled != sorted(labelled, reverse=True):
+        raise ValueError(f"{name}: the segments with labels must come "
+                         "first")
+    for seg in segments:
+        b = seg.bank
+        if b.dtype != torch.uint8 or b.dim() != 4:
+            raise ValueError(f"{name}: a bank must be uint8 (M, H, W, C), "
+                             f"got {b.dtype} {tuple(b.shape)}")
+        if b.shape[1:] != frame or b.device != dev:
+            raise ValueError(f"{name}: banks differ in frame shape or "
+                             "device")
+        if seg.idx is not None and (seg.idx.dtype != torch.int64
+                                    or seg.idx.dim() != 1
+                                    or seg.idx.device != dev):
+            raise ValueError(f"{name}: idx must be 1-D int64 on the "
+                             "banks' device")
+        if seg.labels is not None and (
+                seg.labels.dtype != torch.float32
+                or tuple(seg.labels.shape) != (b.shape[0],)
+                or seg.labels.device != dev):
+            raise ValueError(f"{name}: labels must be float32 "
+                             f"({b.shape[0]},) on the banks' device")
+
+
+def gather_normalize_u8(segments: Sequence[Segment],
+                        dtype: torch.dtype = torch.float32):
+    """(frames, labels): the segments' frames gathered, rolled and
+    normalised (`x * float32(1/255)`, then rounded to `dtype`), laid end
+    to end in one (sum n, H, W, C) buffer, and the labels of the
+    labelled segments, which come first, or None. One kernel launch on
+    the card. Bit-equal to `gather_normalize_u8_plain`.
+
+    The kernel does not check the indices: a caller that builds them
+    validates them first (`train/loops.py:_upload`)."""
+    _check_segments(segments, dtype)
+    if segments[0].bank.device.type == "cpu":
+        return gather_normalize_u8_plain(segments, dtype)
+    for seg in segments:
+        _build.require_cuda_tensor(seg.bank, "gather_normalize_u8")
+        for t in (seg.idx, seg.labels):
+            if t is not None:
+                _build.require_cuda_tensor(t, "gather_normalize_u8")
+    dev = segments[0].bank.device
+    n = sum(seg.rows for seg in segments)
+    h, w, c = segments[0].bank.shape[1:]
+    out = torch.empty((n, h, w, c), dtype=dtype, device=dev)
+    n_lab = sum(seg.rows for seg in segments if seg.labels is not None)
+    labels = (torch.empty(n, dtype=torch.float32, device=dev)
+              if segments[0].labels is not None else None)
+    if out.numel() == 0:   # a grid of 0 blocks is an invalid launch
+        if n_lab:
+            raise ValueError("gather_normalize_u8: labels of empty frames")
+        return out, labels
+    desc = np.array([[seg.bank.data_ptr(),
+                      0 if seg.idx is None else seg.idx.data_ptr(),
+                      seg.rows, int(seg.shift),
+                      0 if seg.labels is None else seg.labels.data_ptr()]
+                     for seg in segments], dtype=np.int64)
     lib = _build.kernel("normalize_u8")
-    err = lib.cgs_normalize_u8(x_u8.data_ptr(), out.data_ptr(), n,
-                               _build.stream_ptr(x_u8.device))
+    err = lib.cgs_normalize_u8(
+        desc.ctypes.data, len(segments), h, w, c, out.data_ptr(),
+        0 if labels is None else labels.data_ptr(),
+        int(dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(err, "normalize_u8")
     _build.launches["normalize_u8"] += 1
-    return out
+    return out, (None if labels is None else labels[:n_lab])
+
+
+def normalize_u8(x_u8: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 tensor of any shape -> `x * float32(1/255)` rounded to
+    `dtype` (float32 or bfloat16), same shape: the one-segment case of
+    `gather_normalize_u8`. Bit-equal to `normalize_u8_plain`."""
+    if x_u8.dtype != torch.uint8:
+        raise ValueError(f"normalize_u8: expected uint8, got {x_u8.dtype}")
+    if x_u8.device.type == "cuda":
+        _build.require_cuda_tensor(x_u8, "normalize_u8")
+    shape = x_u8.shape
+    if x_u8.dim() != 4:    # as frames of one row each
+        lead = x_u8.shape[0] if x_u8.dim() else 1
+        x_u8 = x_u8.reshape(lead, 1, x_u8.numel() // max(lead, 1), 1)
+    out, _ = gather_normalize_u8([Segment(x_u8)], dtype)
+    return out.view(shape)
 
 
 # ---------------------------------------------------------------------
@@ -70,8 +183,10 @@ def blend(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor
 
 
 def merge_pair_plain(a: torch.Tensor, b: torch.Tensor, z: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return blend(a, b, z), blend(b, a, z)          # main.py:395,406
+                     ) -> torch.Tensor:
+    """replaced || injected (main.py:395,406), one (2N, C, H, W)
+    batch."""
+    return torch.cat([blend(a, b, z), blend(b, a, z)])
 
 
 def merge_pair_bwd_plain(a, b, z, gr, gi):
@@ -123,26 +238,29 @@ def _grad_strides(g: torch.Tensor, name: str) -> Tuple[int, int, int]:
 
 
 def merge_pair(a: torch.Tensor, b: torch.Tensor, z: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(replaced, injected) = (a(1-z) + zb, b(1-z) + za), both
-    channels_last like a. Bit-equal to `merge_pair_plain`."""
+               ) -> torch.Tensor:
+    """replaced || injected: one (2N, C, H, W) channels_last buffer,
+    a(1-z) + zb in its first half and b(1-z) + za in its second, the
+    batch the critic's fused pass reads. a and b may be halves of one
+    such buffer. Bit-equal to `merge_pair_plain`."""
     _check_merge_args("merge_pair", a, b, z)
     if a.device.type == "cpu":
         return merge_pair_plain(a, b, z)
     for t in (a, b):
         _build.require_cuda_tensor(t, "merge_pair", torch.channels_last)
     _build.require_cuda_tensor(z, "merge_pair")
-    rep, inj = _nchw_empty(a), _nchw_empty(a)
     n, c, h, w = a.shape
+    out = torch.empty((2 * n, c, h, w), device=a.device,
+                      memory_format=torch.channels_last)
     if a.numel() == 0:
-        return rep, inj
+        return out
     lib = _build.kernel("merge_pair")
     err = lib.cgs_merge_pair(a.data_ptr(), b.data_ptr(), z.data_ptr(),
-                             rep.data_ptr(), inj.data_ptr(), n * h * w, c,
-                             _build.stream_ptr(a.device))
+                             out.data_ptr(), out[n:].data_ptr(), n * h * w,
+                             c, _build.stream_ptr(a.device))
     _build.check(err, "merge_pair")
     _build.launches["merge_pair"] += 1
-    return rep, inj
+    return out
 
 
 def merge_pair_bwd(a, b, z, gr, gi):

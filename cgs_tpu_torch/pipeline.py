@@ -2,7 +2,9 @@
 port of `cgs_tpu/pipeline.py`; reference main.py:1130-1151 / 935-956).
 
 One forward per batch: uint8 NHWC frames are ingested by the
-`normalize_u8` kernel, viewed as NCHW channels_last with no copy, run
+`normalize_u8` kernel (straight into bf16 when critic and decoder
+compute in bf16 and no saliency is asked for, so neither model casts
+its input), viewed as NCHW channels_last with no copy, run
 through the critic (with its feature pyramid and, optionally, the
 input-gradient saliency from the same pass) and the decoder, whose 5
 skip joins are the fused upsample-into-concat kernel (`upsample2x`);
@@ -95,6 +97,13 @@ class MaskPipeline:
         self.max_in_flight = max(1, int(max_in_flight
                                         if max_in_flight is not None
                                         else self.MAX_IN_FLIGHT))
+        # the models cast their input to their compute dtype, and a
+        # bf16 ingest is the f32 one rounded to bf16: it saves both
+        # casts; saliency's input gradient stays f32
+        dt = critic.compute_dtype
+        self._ingest_dtype = (dt if not salience
+                              and masker.compute_dtype == dt
+                              else torch.float32)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._models: Dict[str, torch.nn.Module] = {}
@@ -117,8 +126,8 @@ class MaskPipeline:
 
     def _forward(self, u8: torch.Tensor) -> tuple:
         """(pred, mask, sal[, hard]) for one batch of device frames."""
-        # (N, H, W, 3) f32 -> NCHW view with channels_last strides
-        x = normalize_u8(u8).permute(0, 3, 1, 2)
+        # (N, H, W, 3) -> NCHW view with channels_last strides
+        x = normalize_u8(u8, self._ingest_dtype).permute(0, 3, 1, 2)
         gen = None if self.eval_mode else self.generator
         critic = self._models["critic"]
         if self.salience:   # fused forward + input-grad (main.py:949-953)

@@ -1,10 +1,12 @@
 """Chunks of training steps over device-resident uint8 banks (PyTorch
 port of `cgs_tpu/train/loops.py:68-271`).
 
-The frame banks stay on the card for the whole phase; a chunk uploads
-only its (S, B) index stack, gathers each batch on the card with
-`index_select`, and runs its S steps as a Python loop. The losses stay
-on the device and come down once per chunk (the caller's `.cpu()`).
+The frame banks stay on the card for the whole phase; a chunk checks
+its (S, B) index stacks on the host (a gather in a kernel does not
+check its indices) and uploads them, and runs its S steps as a Python
+loop; each step's ingest kernel gathers its batch from the banks by
+index. The losses stay on the device, are stacked once per chunk and
+come down once per chunk (the caller's `.cpu()`).
 A chunk runs only its real steps, so the JAX package's padded tail
 steps (`_masked_merge`) have no counterpart. Chunk sizes follow the
 viz cadence: the reference's hard-coded 100 batches in the critic
@@ -23,13 +25,22 @@ import numpy as np
 import torch
 
 from cgs_tpu_torch.ops.augment import shift_batch
+from cgs_tpu_torch.ops.kernels import Segment
 from cgs_tpu_torch.ops.merge import inject_merge
 from cgs_tpu_torch.train.losses import build_masker_loss, ingest
-from cgs_tpu_torch.train.steps import StepRng, critic_step, masker_step
+from cgs_tpu_torch.train.steps import (
+    StepRng, critic_step, masker_batch, masker_step,
+)
 
 
-def _upload(idx, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(idx, np.int64)).to(device)
+def _upload(idx, bound: int, device) -> torch.Tensor:
+    """An index stack on the device, after checking on the host that
+    every index lies in [0, bound)."""
+    idx = np.ascontiguousarray(idx, np.int64)
+    if idx.size and (idx.min() < 0 or idx.max() >= bound):
+        raise IndexError(f"index stack out of range [0, {bound}): "
+                         f"min {idx.min()}, max {idx.max()}")
+    return torch.from_numpy(idx).to(device)
 
 
 def critic_chunk(cfg, critic, optimizer, x_bank: torch.Tensor,
@@ -37,21 +48,18 @@ def critic_chunk(cfg, critic, optimizer, x_bank: torch.Tensor,
                  rng: StepRng) -> torch.Tensor:
     """S critic steps over the banks with idx (S, B); returns the (S,)
     losses on the device."""
-    idx_dev = _upload(idx, x_bank.device)
-    losses = torch.empty(idx_dev.shape[0], device=x_bank.device)
-    for s in range(idx_dev.shape[0]):
-        bidx = idx_dev[s]
-        losses[s] = critic_step(cfg, critic, optimizer,
-                                x_bank.index_select(0, bidx),
-                                y_bank.index_select(0, bidx), rng)
-    return losses
+    idx_dev = _upload(idx, x_bank.shape[0], x_bank.device)
+    losses = [critic_step(cfg, critic, optimizer,
+                          Segment(x_bank, bidx, labels=y_bank), rng)
+              for bidx in idx_dev]
+    return torch.stack(losses)
 
 
 def critic_viz(cfg, critic, x_bank, y_bank, bidx: np.ndarray,
                rng: StepRng):
     """(x_u8 shifted, y, pred) of one batch, the annotated-strip inputs
     (main.py:204-226); dropout as in training."""
-    bidx = _upload(bidx, x_bank.device)
+    bidx = _upload(bidx, x_bank.shape[0], x_bank.device)
     xb = x_bank.index_select(0, bidx)
     if cfg.shift:
         xb = shift_batch(xb, int(cfg.shift), rng.shift)
@@ -60,11 +68,17 @@ def critic_viz(cfg, critic, x_bank, y_bank, bidx: np.ndarray,
     return xb, y_bank.index_select(0, bidx), pred
 
 
-def _masker_batch(xpos, ypos, xneg, yneg, h, l, c):
-    """A = [pos[h] || neg[l]], Y likewise, B = neg[c] (main.py:344-361)."""
-    a_u8 = torch.cat([xpos.index_select(0, h), xneg.index_select(0, l)])
-    y = torch.cat([ypos.index_select(0, h), yneg.index_select(0, l)])
-    return a_u8, y, xneg.index_select(0, c)
+def _masker_segments(xpos, ypos, xneg, yneg, h, l, c):
+    """A = [pos[h] || neg[l]] with its labels, B = neg[c]
+    (main.py:344-361)."""
+    return ([Segment(xpos, h, labels=ypos), Segment(xneg, l, labels=yneg)],
+            Segment(xneg, c))
+
+
+def _upload_masker(xpos, xneg, hidx, lidx, cidx):
+    n_pos, n_neg, dev = xpos.shape[0], xneg.shape[0], xpos.device
+    return (_upload(hidx, n_pos, dev), _upload(lidx, n_neg, dev),
+            _upload(cidx, n_neg, dev))
 
 
 def masker_chunk(cfg, models: Dict[str, torch.nn.Module], optimizer,
@@ -74,15 +88,12 @@ def masker_chunk(cfg, models: Dict[str, torch.nn.Module], optimizer,
     """S masker steps with index stacks hidx (S, K), lidx (S, K), cidx
     (S, 2K); returns the (S, 4) loss terms (replace, inject, norm,
     critic) on the device."""
-    dev = xpos.device
-    h, l, c = (_upload(i, dev) for i in (hidx, lidx, cidx))
-    losses = torch.empty((h.shape[0], 4), device=dev)
+    h, l, c = _upload_masker(xpos, xneg, hidx, lidx, cidx)
+    terms = []
     for s in range(h.shape[0]):
-        a_u8, y, b_u8 = _masker_batch(xpos, ypos, xneg, yneg, h[s], l[s],
-                                      c[s])
-        losses[s] = masker_step(cfg, models, optimizer, a_u8, y, b_u8,
-                                rng)
-    return losses
+        a, b = _masker_segments(xpos, ypos, xneg, yneg, h[s], l[s], c[s])
+        terms.extend(masker_step(cfg, models, optimizer, a, b, rng))
+    return torch.stack(terms).view(-1, 4)
 
 
 def masker_viz(cfg, models, xpos, ypos, xneg, yneg, h: np.ndarray,
@@ -90,14 +101,13 @@ def masker_viz(cfg, models, xpos, ypos, xneg, yneg, h: np.ndarray,
     """The 7-row merge-viz tensors (main.py:466-530), NHWC: a, b, z,
     replaced, injected, and the annotation vectors y, pred, negpred,
     replacevalue, injectvalue."""
-    dev = xpos.device
-    a_u8, y, b_u8 = _masker_batch(xpos, ypos, xneg, yneg,
-                                  *(_upload(i, dev) for i in (h, l, c)))
-    if cfg.shift:
-        a_u8 = shift_batch(a_u8, int(cfg.shift), rng.shift)
-    a, b = ingest(a_u8), ingest(b_u8)
+    a, b = _masker_segments(xpos, ypos, xneg, yneg,
+                            *_upload_masker(xpos, xneg, h, l, c))
+    ab, y, n = masker_batch(cfg, a, b, rng)
+    a, b = ab[:n], ab[n:]
     with torch.no_grad():
-        _, aux = build_masker_loss(cfg)(models, a, y, b, rng.dropout)
+        _, aux = build_masker_loss(cfg)(models, a, y, b, rng.dropout,
+                                        ab=ab)
     z = aux["z"]
     # without -inject the loss makes no injected frame; the strip shows
     # one all the same, as in the JAX package

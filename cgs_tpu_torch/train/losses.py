@@ -23,19 +23,25 @@ fuse batches the data-independent critic passes into one call each:
 in all three (no cross-batch op in the critic); a fused pair draws its
 dropout once over the merged batch.
 
-With inject on, the two merges go through `ops.merge.merge_both`, the
-`merge_pair` / `merge_pair_bwd` kernels on the card. With inject off,
-the replace merge is plain PyTorch, as JAX falls back to jnp there
-(losses.py:150-154).
+The fused passes read joined batches without a `torch.cat` on the
+step's path: the (A, B) pass reads the ingest's joined batch `ab` when
+the caller passes it (`train/steps.py:masker_step` does), and with
+inject on the two merges go through `ops.merge.merge_both`, the
+`merge_pair` / `merge_pair_bwd` kernels on the card, which write
+replaced || injected as the one batch the (replaced, injected) pass
+reads. With inject off, the replace merge is plain PyTorch, as JAX
+falls back to jnp there (losses.py:150-154).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
-from cgs_tpu_torch.ops.kernels import normalize_u8
+from cgs_tpu_torch.ops.kernels import (
+    Segment, gather_normalize_u8, normalize_u8,
+)
 from cgs_tpu_torch.ops.merge import merge_both, replace_merge
 
 
@@ -65,6 +71,19 @@ def ingest(x_u8: torch.Tensor) -> torch.Tensor:
     channels_last (main.py:189 `.float()/255`). On the card this is the
     `normalize_u8` kernel, bit-equal to `x.float() * float32(1/255)`."""
     return normalize_u8(x_u8).permute(0, 3, 1, 2)
+
+
+def ingest_segments(segments: Sequence[Segment]):
+    """(frames, labels): the segments gathered, rolled and ingested into
+    one (N, 3, H, W) float32 batch stored channels_last, and the
+    labelled segments' labels (`ops.kernels.gather_normalize_u8`, one
+    kernel launch on the card)."""
+    x, y = gather_normalize_u8(segments)
+    return x.permute(0, 3, 1, 2), y
+
+
+def _zero(like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), device=like.device)
 
 
 def build_critic_loss(cfg):
@@ -98,13 +117,14 @@ def build_masker_loss(cfg, fuse: str = "both"):
     fuse_merge = fuse in ("merges", "both")
 
     def loss_fn(models: Dict[str, torch.nn.Module], a, y, b,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, ab=None):
+        """ab: optional (2N) batch whose halves are a and b; the fused
+        (A, B) critic pass reads it instead of `torch.cat([a, b])`."""
         critic = models["critic"]
         n = a.shape[0]
-        zero = torch.zeros((), device=a.device)
         if fuse_ab:
-            out, embeds = critic(torch.cat([a, b], dim=0), collect=True,
-                                 generator=generator)
+            out, embeds = critic(torch.cat([a, b]) if ab is None else ab,
+                                 collect=True, generator=generator)
             out = out.squeeze(-1)
             pred = out[:n]
             negpred = out[n:].detach()
@@ -115,13 +135,13 @@ def build_masker_loss(cfg, fuse: str = "both"):
             negpred = critic(b, generator=generator).squeeze(-1).detach()
 
         aux = {"pred": pred, "negpred": negpred}
-        loss = 0.0
+        terms = []          # the loss is their sum, in this order
         if live:  # main.py:378-385
             closs = bce(pred, y) if use_bce else mse(pred, y)
-            loss = loss + lfak * closs
+            terms.append(lfak * closs)
             aux["critic"] = closs
         else:
-            aux["critic"] = zero
+            aux["critic"] = _zero(a)
 
         if separate:  # main.py:389-390
             _, embeds = models["sepcrit"](a, collect=True,
@@ -130,14 +150,14 @@ def build_masker_loss(cfg, fuse: str = "both"):
         z = models["masker"](a, embeds)
         aux["z"] = z
 
-        if inject:
-            replaced, injected = merge_both(a, b, z)  # main.py:395,406
+        if inject:  # main.py:395,406: replaced || injected, one batch
+            merged = merge_both(a, b, z)
+            replaced, injected = merged[:n], merged[n:]
         else:
             replaced, injected = replace_merge(a, b, z), None
         aux["replaced"], aux["injected"] = replaced, injected
         if fuse_merge and inject:
-            vals = critic(torch.cat([replaced, injected], dim=0),
-                          generator=generator).squeeze(-1)
+            vals = critic(merged, generator=generator).squeeze(-1)
             replacevalue = vals[:n]
             injectvalue = vals[n:]
         else:
@@ -145,7 +165,7 @@ def build_masker_loss(cfg, fuse: str = "both"):
                                   generator=generator).squeeze(-1)
             injectvalue = None
         replaceloss = mse(replacevalue, negpred)  # main.py:400
-        loss = loss + replaceloss
+        terms.append(replaceloss)
         aux["replace"] = replaceloss
         aux["replacevalue"] = replacevalue
 
@@ -154,28 +174,32 @@ def build_masker_loss(cfg, fuse: str = "both"):
                 injectvalue = critic(injected,
                                      generator=generator).squeeze(-1)
             injectloss = mse(injectvalue, pred.detach())
-            loss = loss + injectloss
+            terms.append(injectloss)
             aux["inject"] = injectloss
             aux["injectvalue"] = injectvalue
         else:
-            aux["inject"] = zero
+            aux["inject"] = _zero(a)
             aux["injectvalue"] = torch.zeros_like(negpred)
 
-        # sparsity (main.py:415-429)
-        vf = 1.0 if staticnorm else (1.0 - pred.detach())[:, None, None,
-                                                          None]
-        norm = zero
-        logged_norm = zero
+        # sparsity (main.py:415-429); vf = 1 under staticnorm, where
+        # vf * z is z itself
+        vz = z if staticnorm else (1.0 - pred.detach())[:, None, None,
+                                                        None] * z
+        norm = logged_norm = None
         if l1:
-            logged_norm = l1 * (vf * z).abs().mean()
-            norm = norm + logged_norm
+            logged_norm = l1 * vz.abs().mean()
+            norm = logged_norm
         if l2:
             # when BOTH penalties are on, the reference's log shows
             # only the L2 term (`normloss` is overwritten,
             # main.py:421-429); the total loss still contains both
-            logged_norm = l2 * ((vf * z) ** 2).mean()
-            norm = norm + logged_norm
-        loss = loss + norm
+            logged_norm = l2 * (vz ** 2).mean()
+            norm = logged_norm if norm is None else norm + logged_norm
+        if norm is None:
+            norm = logged_norm = _zero(a)
+        loss = terms[0]
+        for t in terms[1:] + [norm]:
+            loss = loss + t
         aux["norm"] = logged_norm
         aux["loss"] = loss
         return loss, aux

@@ -1,11 +1,13 @@
 """One optimizer step of each training phase (PyTorch port of
 `cgs_tpu/train/steps.py:56-210`).
 
-Each step runs eagerly on the models' device: batch ingest (the
-`normalize_u8` kernel on the card), the shift augmentation, the
-forward passes and every loss branch (`train/losses.py`), backward,
-and the Adam update. The loss stays on the device; the chunk loops
-(`train/loops.py`) bring it down once per chunk.
+Each step runs eagerly on the models' device: the batch ingest (one
+`normalize_u8` kernel launch on the card gathers the step's frames and
+labels from the uint8 banks by index, applies the shift augmentation
+and normalises, into one joined batch), the forward passes and every
+loss branch (`train/losses.py`), backward, and the Adam update. The
+losses stay on the device; the chunk loops (`train/loops.py`) bring
+them down once per chunk.
 
 Random draws: the shift offset comes from a CPU `torch.Generator` (no
 device sync per step) and dropout from a generator on the device, both
@@ -17,13 +19,14 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
-from cgs_tpu_torch.ops.augment import shift_batch
+from cgs_tpu_torch.ops.augment import draw_shift
+from cgs_tpu_torch.ops.kernels import Segment
 from cgs_tpu_torch.train.losses import (
-    build_critic_loss, build_masker_loss, ingest,
+    build_critic_loss, build_masker_loss, ingest_segments,
 )
 
 LR, BETAS, EPS = 1e-3, (0.9, 0.999), 1e-8
@@ -82,30 +85,48 @@ def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
     optimizer.step()
 
 
+def shifted(cfg, segments: Sequence[Segment], rng: StepRng) -> list:
+    """The segments rolled by one shift draw for all of them (the
+    reference shifts a whole batch by one offset, main.py:585); no draw
+    when --shift is 0."""
+    if not cfg.shift:
+        return list(segments)
+    s = draw_shift(int(cfg.shift), rng.shift)
+    return [seg._replace(shift=s) for seg in segments]
+
+
 def critic_step(cfg, critic: torch.nn.Module,
-                optimizer: torch.optim.Optimizer, x_u8: torch.Tensor,
-                y: torch.Tensor, rng: StepRng) -> torch.Tensor:
-    """One critic step (main.py:182-199) on a (B, 64, 64, 3) uint8
-    batch and (B,) labels on the device; returns the detached loss."""
-    if cfg.shift:
-        x_u8 = shift_batch(x_u8, int(cfg.shift), rng.shift)
-    loss = build_critic_loss(cfg)(critic, ingest(x_u8), y, rng.dropout)
+                optimizer: torch.optim.Optimizer, x: Segment,
+                rng: StepRng) -> torch.Tensor:
+    """One critic step (main.py:182-199) on the (B, 64, 64, 3) uint8
+    frames and the labels that `x` names (its labels must be given);
+    returns the detached loss."""
+    xf, y = ingest_segments(shifted(cfg, [x], rng))
+    loss = build_critic_loss(cfg)(critic, xf, y, rng.dropout)
     _apply(optimizer, loss)
     return loss.detach()
 
 
+def masker_batch(cfg, a: Sequence[Segment], b: Segment, rng: StepRng):
+    """(ab, y, n): A (shifted by one draw; only A is shifted,
+    main.py:355-357) and B ingested into one joined batch, A's labels,
+    and A's frame count n, so a = ab[:n] and b = ab[n:]."""
+    ab, y = ingest_segments([*shifted(cfg, a, rng), b])
+    return ab, y, ab.shape[0] - b.rows
+
+
 def masker_step(cfg, models: Dict[str, torch.nn.Module],
-                optimizer: torch.optim.Optimizer, a_u8: torch.Tensor,
-                y: torch.Tensor, b_u8: torch.Tensor, rng: StepRng
-                ) -> torch.Tensor:
-    """One masker step (main.py:340-463): a_u8 is [K high || K low]
-    frames (main.py:350), b_u8 2K contrast-negatives, y the labels of
-    a. Only A is shifted (main.py:355-357). Returns the detached
-    (replace, inject, norm, critic) loss terms, shape (4,)."""
-    if cfg.shift:
-        a_u8 = shift_batch(a_u8, int(cfg.shift), rng.shift)
+                optimizer: torch.optim.Optimizer, a: Sequence[Segment],
+                b: Segment, rng: StepRng) -> Tuple[torch.Tensor, ...]:
+    """One masker step (main.py:340-463): `a` names the frames of A,
+    [K high || K low] (main.py:350), with their labels, `b` the 2K
+    contrast-negatives (`masker_batch`). The fused critic pass reads
+    the joined batch as it is. Returns the detached (replace, inject,
+    norm, critic) loss terms, four 0-dim tensors (stacked once per
+    chunk by the caller)."""
+    ab, y, n = masker_batch(cfg, a, b, rng)
     loss, aux = build_masker_loss(cfg)(
-        models, ingest(a_u8), y, ingest(b_u8), rng.dropout)
+        models, ab[:n], y, ab[n:], rng.dropout, ab=ab)
     _apply(optimizer, loss)
-    return torch.stack([aux["replace"], aux["inject"], aux["norm"],
-                        aux["critic"]]).detach()
+    return tuple(aux[t].detach() for t in
+                 ("replace", "inject", "norm", "critic"))

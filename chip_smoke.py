@@ -14,24 +14,32 @@ from `cgs_tpu_torch/csrc/`, then:
            (bit-equal / exactly equal), and times kernel, plain
            version, a PyTorch yardstick where one exists, and the
            least time the card could take (bytes / 3.35 TB/s, or
-           operations / peak); the fused upsample-into-concat pair
+           operations / peak); the gather-shift-normalise ingest
+           (`normalize_u8`) at the serve batch in f32 and bf16 and at
+           the masker and critic steps' segments (every shift -63..63),
+           with the device time of a step's one launch; the fused
+           upsample-into-concat pair
            (`upsample2x`, `upsample2x_bwd`) at the decoder's five skip
            joins, at batch 8192 (serve) and 64 (masker step), beside
            the unfused pair it replaced, with the device time from
-           torch.profiler at batch 64; the merges at the masker step's
-           shapes and at batch 8192;
+           torch.profiler at batch 64; the merges, writing the joined
+           (replaced || injected) batch, at the masker step's shapes
+           (with their device time) and at batch 8192;
   serve    runs `MaskPipeline` at chfak 5 (the published width), batch
            8192, on device-resident frames, in f32 (TF32 off) and
            bf16: kernel path against plain path, 1 `normalize_u8` and 5
            `upsample2x` launches per batch and no concat kernel,
            frames/s;
-  step     one chfak-5 masker step (default flags, f32, TF32 off,
-           deterministic cuDNN): loss terms and every gradient of the
-           kernel path bit-equal to the plain path, every decoder gradient
-           non-zero, the launches per step and the gradient layouts
-           the kernels were handed;
+  step     one chfak-5 masker step through `masker_step` (default
+           flags, f32, TF32 off, deterministic cuDNN, frames gathered
+           from uint8 banks by index): loss terms and every gradient
+           of the kernel path bit-equal to the plain path, every
+           decoder gradient non-zero, the launches per step (1 ingest,
+           1 + 1 merge, 5 + 5 upsample) and the gradient layouts the
+           kernels were handed;
   speed    critic and masker train steps/s at chfak 5, f32 and bf16,
-           and the device time of one masker step by category;
+           and the device time of one critic and one masker step by
+           category, with no concat kernel in either;
   eval     (serving main path) a `Handler` built from `-eval -salience
            -synthetic_data --chfak 5`: `evaluate(..., write=False)` on
            the 2450-frame synthetic set; the kernel IoU must equal a
@@ -91,7 +99,7 @@ PIX = 64 * 64
 SERVE_KERNELS = ("normalize_u8", "upsample2x", "threshold_iou")
 TRAIN_KERNELS = ("normalize_u8", "merge_pair", "merge_pair_bwd",
                  "upsample2x", "upsample2x_bwd", "threshold_iou")
-STEP_LAUNCHES = {"normalize_u8": 2, "merge_pair": 1, "merge_pair_bwd": 1,
+STEP_LAUNCHES = {"normalize_u8": 1, "merge_pair": 1, "merge_pair_bwd": 1,
                  "upsample2x": 5, "upsample2x_bwd": 5}
 PROTOCOL = ["-train", "-eval", "-synthetic_data", "--chfak", "5",
             "--dropout", "0.5", "--datasize", "20000", "--cepochs", "10",
@@ -251,9 +259,41 @@ def _name(dt) -> str:
     return "f32" if dt == torch.float32 else "bf16"
 
 
+def _step_banks(gen, n=2048):
+    """uint8 pos and neg banks with their labels, on the card, and one
+    masker step's index rows h, l (K = 32 each) and c (2K), with
+    repeated indices."""
+    def bank():
+        return torch.randint(0, 256, (n, 64, 64, 3), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+
+    def rows(k):
+        return torch.randint(0, n, (k,), device="cuda", generator=gen)
+
+    xpos, xneg = bank(), bank()
+    ypos = torch.rand(n, device="cuda", generator=gen)
+    yneg = torch.rand(n, device="cuda", generator=gen)
+    h, l, c = rows(MASKER_N // 2), rows(MASKER_N // 2), rows(MASKER_N)
+    h[:8] = h[0]
+    return xpos, ypos, xneg, yneg, h, l, c
+
+
+def _step_segments(banks, shift, critic=False):
+    """The ingest segments of a masker step, A = [pos[h] || neg[l]]
+    shifted with its labels and B = neg[c]; or of a critic step, 2K
+    frames with labels."""
+    from cgs_tpu_torch.ops.kernels import Segment
+    xpos, ypos, xneg, yneg, h, l, c = banks
+    if critic:
+        return [Segment(xpos, c, shift, ypos)]
+    return [Segment(xpos, h, shift, ypos), Segment(xneg, l, shift, yneg),
+            Segment(xneg, c)]
+
+
 def phase_kernels(_build, summary) -> None:
     from cgs_tpu_torch.ops.kernels import (
-        INV255, normalize_u8, normalize_u8_plain, threshold_iou,
+        INV255, Segment, gather_normalize_u8, gather_normalize_u8_plain,
+        normalize_u8, normalize_u8_plain, threshold_iou,
         threshold_iou_plain,
     )
     from cgs_tpu_torch.ops.upsample import upcat_fwd, upcat_plain
@@ -266,42 +306,82 @@ def phase_kernels(_build, summary) -> None:
         return torch.randint(0, 256, shape, dtype=torch.uint8,
                              device=dev, generator=gen)
 
-    # normalize_u8: bit-equal at the batch, a ragged N, odd numel, N=0
+    # normalize_u8, the gather-shift-normalise ingest: bit-equal to its
+    # plain version at the serve batch (f32 and bf16), the masker step's
+    # three segments at every shift -63..63, the critic step's batch,
+    # repeated indices, an empty segment, N = 0, and the any-shape case
     err = 0.0
-    for shape in [(BATCH, FRAME_F), (1001, FRAME_F), (3, 4097),
-                  (0, FRAME_F)]:
-        x = u8(shape)
-        got, want = normalize_u8(x), normalize_u8_plain(x)
-        check(got.shape == want.shape and torch.equal(_bits(got),
-                                                      _bits(want)),
-              f"normalize_u8 differs from plain at {shape}")
+
+    def same_ingest(segs, dt, what):
+        nonlocal err
+        (got, gy), (want, wy) = (gather_normalize_u8(segs, dt),
+                                 gather_normalize_u8_plain(segs, dt))
+        check(got.shape == want.shape
+              and torch.equal(_bits(got), _bits(want))
+              and ((gy is None and wy is None) or torch.equal(gy, wy)),
+              f"normalize_u8 differs from plain at {what}")
         if got.numel():
-            err = max(err, float((got - want).abs().max()))
-    x = u8((BATCH, FRAME_F))
+            err = max(err, float((got.float() - want.float()).abs().max()))
+
+    frames = u8((BATCH, 64, 64, 3))
+    banks = _step_banks(gen)
+    for dt in (torch.float32, torch.bfloat16):
+        same_ingest([Segment(frames)], dt, f"serve {BATCH} {_name(dt)}")
+        for shift in range(-63, 64):
+            same_ingest(_step_segments(banks, shift), dt,
+                        f"masker step, shift {shift} {_name(dt)}")
+        same_ingest(_step_segments(banks, 9, critic=True), dt,
+                    "critic step")
+        a, b = _step_segments(banks, 2)[:2], _step_segments(banks, 0)[2]
+        same_ingest([a[0], a[1]._replace(idx=a[1].idx[:0]), b], dt,
+                    "an empty segment")
+        same_ingest([Segment(banks[0], a[0].idx[:0])], dt, "N = 0")
+        x = u8((3, 4097))
+        check(torch.equal(_bits(normalize_u8(x, dt)),
+                          _bits(normalize_u8_plain(x, dt))),
+              "normalize_u8 differs from plain at (3, 4097)")
     nb = BATCH * FRAME_F
     b_ms, b_by = bound_ms(5 * nb, nb)
-    summary["normalize_u8"] = {
+    row = {
         "name": "normalize_u8", "route": "cuda",
         "source": "cgs_tpu_torch/csrc/normalize_u8.cu",
         "replaces": "cgs_tpu/ops/pallas_kernels.py:71",
         "launches": 0, "max_abs_err": err,
-        "ms": time_ms(lambda: normalize_u8(x)),
-        "plain_ms": time_ms(lambda: normalize_u8_plain(x)),
+        "ms": time_ms(lambda: normalize_u8(frames)),
+        "plain_ms": time_ms(lambda: normalize_u8_plain(frames)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(
-            lambda: x.to(torch.float32).mul_(INV255)),
-        "shape": f"uint8 ({BATCH}, {FRAME_F})"}
-    del x
-    # most of its launches are at the critic step's batch of 64
-    x = u8((MASKER_N, FRAME_F))
-    nb = MASKER_N * FRAME_F
-    log(f"[kernels] normalize_u8 at batch {MASKER_N} (ms):", json.dumps({
-        "ms": time_ms(lambda: normalize_u8(x), iters=50),
-        "plain_ms": time_ms(lambda: normalize_u8_plain(x), iters=50),
-        "device_ms": device_breakdown(lambda: normalize_u8(x),
-                                      reps=20)["ms_per_step"],
-        "bound_ms": bound_ms(5 * nb, nb)[0]}))
-    del x
+        "library_ms": time_ms(lambda: frames.mul(INV255)),
+        "library_two_pass_ms": time_ms(
+            lambda: frames.to(torch.float32).mul_(INV255)),
+        "bf16_ms": time_ms(lambda: normalize_u8(frames, torch.bfloat16)),
+        "bf16_plain_ms": time_ms(
+            lambda: normalize_u8_plain(frames, torch.bfloat16)),
+        "bf16_bound_ms": bound_ms(3 * nb, nb)[0],
+        "shape": f"uint8 ({BATCH}, 64, 64, 3) -> f32"}
+    del frames
+    # the train steps' ingests: the masker step's 3 segments (128
+    # frames, 64 labels) and the critic step's 64 frames with labels
+    for key, segs in (("masker_step", _step_segments(banks, 5)),
+                      ("critic_step", _step_segments(banks, 5,
+                                                     critic=True))):
+        n = sum(sg.rows for sg in segs)
+        n_lab = sum(sg.rows for sg in segs if sg.labels is not None)
+        nbytes = 5 * n * FRAME_F + 8 * n + 8 * n_lab
+        row[key] = {
+            "frames": n,
+            "ms": time_ms(lambda: gather_normalize_u8(segs), iters=50),
+            "device_ms": device_breakdown(lambda: gather_normalize_u8(segs),
+                                          reps=20)["ms_per_step"],
+            "plain_ms": time_ms(lambda: gather_normalize_u8_plain(segs),
+                                iters=50),
+            "plain_device_ms": device_breakdown(
+                lambda: gather_normalize_u8_plain(segs),
+                reps=20)["ms_per_step"],
+            "bound_ms": bound_ms(nbytes, n * FRAME_F)[0]}
+    summary["normalize_u8"] = row
+    log("[kernels] normalize_u8 (gather-shift-normalise):", json.dumps(row))
+    del banks
+    torch.cuda.empty_cache()
 
     # upsample2x, fused into the concat: bit-equal at the five skip
     # joins of chfak 1 and chfak 5, f32 and bf16, at the serve batch and
@@ -397,8 +477,8 @@ def phase_kernels(_build, summary) -> None:
 
 
 CATEGORIES = (   # first match wins, on the lower-cased kernel name
-    ("port kernels", ("normalize_u8", "upsample", "threshold_iou",
-                      "merge_pair")),
+    ("port kernels", ("normalize_u8", "ingest_", "upsample",
+                      "threshold_iou", "merge_pair")),
     ("concat", ("catarray", "cat_")),
     ("max-pool", ("max_pool",)),
     ("convolution", ("conv", "cudnn", "xmma", "gemm", "sm90", "wgrad",
@@ -636,28 +716,36 @@ def phase_train_kernels(summary) -> None:
                 errs[name] = max(errs[name], float(
                     (g.float() - w.float()).abs().max()))
 
-    # merges: the masker step, batch 8192, a ragged shape, N = 0; the
-    # gradients in both memory formats cuDNN's dgrad may hand over
+    # merges: the masker step, batch 8192, a ragged shape, N = 0, into
+    # the joined (2N) batch, with a and b separate, as the two halves of
+    # one joined batch (the ingest's) and off a 16-byte boundary; the
+    # gradient's two halves in both memory formats cuDNN's dgrad may
+    # hand over
     for n, h, w in [(MASKER_N, 64, 64), (BATCH, 64, 64), (7, 5, 9),
                     (0, 64, 64)]:
-        a, b, z = frames(n, h, w), frames(n, h, w), frames(n, h, w, 1)
-        same(merge_pair(a, b, z), merge_pair_plain(a, b, z),
-             f"merge_pair at {(n, h, w)}")
-        gr, gi = frames(n, h, w), frames(n, h, w)
+        ab, z = frames(2 * n, h, w), frames(n, h, w, 1)
+        a, b = frames(n, h, w), frames(n, h, w)
+        ua = _unaligned(a.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        for x, y, how in ((a, b, "separate"), (ab[:n], ab[n:], "joined"),
+                          (ua, b, "unaligned")):
+            same([merge_pair(x, y, z)], [merge_pair_plain(x, y, z)],
+                 f"merge_pair at {(n, h, w)} {how}")
+        g = frames(2 * n, h, w)
         for fmt in (torch.channels_last, torch.contiguous_format):
-            g_r = gr.contiguous(memory_format=fmt)
-            g_i = gi.contiguous(memory_format=fmt)
-            same(merge_pair_bwd(a, b, z, g_r, g_i),
-                 merge_pair_bwd_plain(a, b, z, g_r, g_i),
+            gg = g.contiguous(memory_format=fmt)
+            same(merge_pair_bwd(a, b, z, gg[:n], gg[n:]),
+                 merge_pair_bwd_plain(a, b, z, gg[:n], gg[n:]),
                  f"merge_pair_bwd at {(n, h, w)} {fmt}")
-        del a, b, z, gr, gi
+        del a, b, z, ab, ua, g, gg
     torch.cuda.empty_cache()
 
     rows = {}
     for n in (MASKER_N, BATCH):
-        a, b, z = frames(n), frames(n), frames(n, 64, 64, 1)
-        gr, gi = frames(n), frames(n)
-        gr_nchw, gi_nchw = gr.contiguous(), gi.contiguous()
+        ab, z = frames(2 * n), frames(n, 64, 64, 1)
+        a, b = ab[:n], ab[n:]
+        g = frames(2 * n)
+        gr, gi = g[:n], g[n:]
+        g_nchw = g.contiguous()
         px = n * PIX
         rows[n] = {
             "merge_pair": {
@@ -669,14 +757,20 @@ def phase_train_kernels(summary) -> None:
                 "ms": time_ms(lambda: merge_pair_bwd(a, b, z, gr, gi),
                               iters=50),
                 "ms_nchw_grads": time_ms(lambda: merge_pair_bwd(
-                    a, b, z, gr_nchw, gi_nchw), iters=50),
+                    a, b, z, g_nchw[:n], g_nchw[n:]), iters=50),
                 "plain_ms": time_ms(lambda: merge_pair_bwd_plain(
                     a, b, z, gr, gi), iters=50),
                 "bound": bound_ms(80 * px, 31 * px)}}
-        del a, b, z, gr, gi, gr_nchw, gi_nchw
+        if n == MASKER_N:
+            rows[n]["merge_pair"]["device_ms"] = device_breakdown(
+                lambda: merge_pair(a, b, z), reps=20)["ms_per_step"]
+            rows[n]["merge_pair_bwd"]["device_ms"] = device_breakdown(
+                lambda: merge_pair_bwd(a, b, z, gr, gi),
+                reps=20)["ms_per_step"]
+        del a, b, z, ab, g, gr, gi, g_nchw
         torch.cuda.empty_cache()
-    log("[kernels] merges (ms; N = 64 is the masker step):",
-        json.dumps(rows))
+    log("[kernels] merges (ms; N = 64 is the masker step; merge_pair "
+        "writes the joined 2N batch):", json.dumps(rows))
     for name, src_line in (("merge_pair", 110), ("merge_pair_bwd", 151)):
         r = rows[MASKER_N][name]
         summary[name] = {
@@ -686,7 +780,8 @@ def phase_train_kernels(summary) -> None:
             "launches": 0, "max_abs_err": errs[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None,
+            "library_ms": None, "device_ms": r["device_ms"],
+            "batch_8192_ms": rows[BATCH][name]["ms"],
             "shape": f"f32 ({MASKER_N}, 3, 64, 64) channels_last + mask "
                      f"({MASKER_N}, 1, 64, 64)"}
 
@@ -788,44 +883,39 @@ def _train_models(dtype, seed: int):
 
 
 def phase_train_step(_build) -> None:
-    """One chfak-5 masker step with default flags, kernel path against
-    plain path: loss terms and every gradient bit-equal, every decoder
-    gradient non-zero, launches per step as expected."""
+    """One chfak-5 masker step (`masker_step`, default flags: frames and
+    labels gathered from uint8 banks by index, A shifted), kernel path
+    against plain path: loss terms and every gradient bit-equal, every
+    decoder gradient non-zero, launches per step as expected. The
+    optimizer has lr 0, so both runs start from the same weights and
+    the step's gradients stay in .grad."""
     from unittest import mock
 
     import cgs_tpu_torch.ops.merge as merge_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.train.losses as losses_mod
     from cgs_tpu_torch.core.config import parse_args
-    from cgs_tpu_torch.ops.augment import shift_batch
     from cgs_tpu_torch.ops.kernels import (
-        merge_pair_bwd_plain, merge_pair_plain, normalize_u8_plain,
+        gather_normalize_u8_plain, merge_pair_bwd_plain, merge_pair_plain,
     )
-    from cgs_tpu_torch.train.steps import StepRng
+    from cgs_tpu_torch.train.steps import StepRng, masker_step
 
     t0 = time.time()
     dev = torch.device("cuda")
     cfg = parse_args(["-train", "--chfak", "5", "--dropout", "0.5"])
     check(cfg.live and cfg.inject, "default flags are live + inject")
     models = _train_models(torch.float32, seed=3)
-    g = torch.Generator(device=dev).manual_seed(4)
-    a_u8, b_u8 = (torch.randint(0, 256, (MASKER_N, 64, 64, 3),
-                                dtype=torch.uint8, device=dev, generator=g)
-                  for _ in range(2))
-    y = torch.rand(MASKER_N, device=dev, generator=g)
-    terms = ("loss", "replace", "inject", "norm", "critic")
+    opt = torch.optim.SGD([p for m in models.values()
+                           for p in m.parameters()], lr=0.0)
+    segs = _step_segments(_step_banks(
+        torch.Generator(device=dev).manual_seed(4), n=256), 0)
+    terms = ("replace", "inject", "norm", "critic")
 
     def run():
         rng = StepRng.seeded(0, dev)          # the same draws each run
-        for m in models.values():
-            m.zero_grad(set_to_none=True)
-        a = shift_batch(a_u8, cfg.shift, rng.shift)
-        loss, aux = losses_mod.build_masker_loss(cfg)(
-            models, losses_mod.ingest(a), y, losses_mod.ingest(b_u8),
-            rng.dropout)
-        loss.backward()
+        out = masker_step(cfg, models, opt, segs[:2], segs[2], rng)
         torch.cuda.synchronize()
-        return ({t: float(aux[t].detach()) for t in terms},
+        return ({t: float(v) for t, v in zip(terms, out)},
                 {f"{n}.{k}": p.grad.detach().clone()
                  for n, m in models.items()
                  for k, p in m.named_parameters()})
@@ -851,8 +941,8 @@ def phase_train_step(_build) -> None:
                 mock.patch.object(upsample_mod, "upcat_bwd", spy_ubwd):
             k_terms, k_grads = run()
         per_step = dict(_build.launches)
-        with mock.patch.object(losses_mod, "normalize_u8",
-                               normalize_u8_plain), \
+        with mock.patch.object(losses_mod, "gather_normalize_u8",
+                               gather_normalize_u8_plain), \
                 mock.patch.object(merge_mod, "merge_pair",
                                   merge_pair_plain), \
                 mock.patch.object(merge_mod, "merge_pair_bwd",
@@ -894,12 +984,15 @@ def phase_train_step(_build) -> None:
 def phase_train_speed() -> None:
     """Critic (batch 64) and masker (2K = 64) train steps/s at chfak 5,
     f32 (TF32 off) and bf16, on random uint8 banks on the card, and the
-    device time of one masker step."""
+    device time of one critic and one masker step (`critic_step`,
+    `masker_step`, frames gathered from the banks by index), with no
+    concat kernel left in either."""
     from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.ops.kernels import Segment
     from cgs_tpu_torch.train.contrastive import sample_index_stacks
     from cgs_tpu_torch.train.loops import critic_chunk, masker_chunk
     from cgs_tpu_torch.train.steps import (
-        StepRng, make_optimizer, masker_step,
+        StepRng, critic_step, make_optimizer, masker_step,
     )
 
     dev = torch.device("cuda")
@@ -923,6 +1016,9 @@ def phase_train_speed() -> None:
                               idx[5:], rng).cpu().numpy()
         c_sps = 200 / (time.time() - t1)
         check(bool(np.isfinite(losses).all()), "critic losses not finite")
+        x = Segment(bank, torch.from_numpy(idx[0]).to(dev), labels=ybank)
+        c_prof = device_breakdown(lambda: critic_step(
+            cfg, models["critic"], opt, x, rng))
 
         models = _train_models(dtype, seed=6)
         opt = make_optimizer(models)
@@ -937,12 +1033,20 @@ def phase_train_speed() -> None:
                               h[5:], l[5:], c[5:], rng).cpu().numpy()
         m_sps = 50 / (time.time() - t1)
         check(bool(np.isfinite(losses).all()), "masker losses not finite")
-        a_u8 = torch.cat([xpos[:32], xneg[:32]])
         log(f"[speed] chfak 5 {name}: critic {c_sps:.1f} steps/s (batch "
             f"64), masker {m_sps:.1f} steps/s (2K = 64)")
+        h0, l0, c0 = (torch.from_numpy(i[0].astype(np.int64)).to(dev)
+                      for i in (h, l, c))
+        a = [Segment(xpos, h0, labels=ypos), Segment(xneg, l0, labels=yneg)]
+        m_prof = device_breakdown(lambda: masker_step(
+            cfg, models, opt, a, Segment(xneg, c0), rng))
         log(f"[speed] device time of one masker step, chfak5 {name}:",
-            json.dumps(device_breakdown(lambda: masker_step(
-                cfg, models, opt, a_u8, ypos[:64], xneg[:64], rng))))
+            json.dumps(m_prof))
+        log(f"[speed] device time of one critic step, chfak5 {name}:",
+            json.dumps(c_prof))
+        for step, prof in (("masker", m_prof), ("critic", c_prof)):
+            check("concat" not in prof["by_category_ms"],
+                  f"the {step} step still runs concat kernels: {prof}")
         log(f"[speed] phase {name} {time.time() - t0:.1f} s")
         del models, opt
         torch.cuda.empty_cache()

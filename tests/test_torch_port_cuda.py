@@ -18,8 +18,9 @@ import torch
 
 from cgs_tpu_torch.ops import _build
 from cgs_tpu_torch.ops.kernels import (
-    merge_pair, merge_pair_bwd, merge_pair_bwd_plain, merge_pair_plain,
-    normalize_u8, normalize_u8_plain, threshold_iou, threshold_iou_plain,
+    Segment, gather_normalize_u8, gather_normalize_u8_plain, merge_pair,
+    merge_pair_bwd, merge_pair_bwd_plain, merge_pair_plain, normalize_u8,
+    normalize_u8_plain, threshold_iou, threshold_iou_plain,
 )
 from cgs_tpu_torch.ops.upsample import (
     up_cat, upcat_bwd, upcat_bwd_plain, upcat_fwd, upcat_plain, upsample2x,
@@ -50,15 +51,57 @@ def _bits(t):
                    torch.bfloat16: torch.int16}[t.dtype])
 
 
+def _unaligned(t):
+    """A copy of t whose data starts 1 element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return buf.copy_(t.flatten()).view(t.shape)
+
+
 @pytest.mark.cuda
-def test_normalize_u8_bit_equal(dev):
-    for shape in [(0, 12288), (7, 12288), (1001, 12288), (3, 4097)]:
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normalize_u8_bit_equal(dev, dtype):
+    for shape in [(0, 12288), (7, 12288), (1001, 12288), (3, 4097),
+                  (5, 64, 64, 3), (4, 5, 7, 3)]:
         u8 = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev)
-        assert torch.equal(_bits(normalize_u8(u8)),
-                           _bits(normalize_u8_plain(u8))), shape
-    # a buffer that is not 16-byte aligned takes the scalar path
+        assert torch.equal(_bits(normalize_u8(u8, dtype)),
+                           _bits(normalize_u8_plain(u8, dtype))), shape
+    # a buffer that is not 16-byte aligned takes the one-element path
     u8 = torch.randint(0, 256, (4099,), dtype=torch.uint8, device=dev)[3:]
-    assert torch.equal(normalize_u8(u8), normalize_u8_plain(u8))
+    assert torch.equal(normalize_u8(u8, dtype), normalize_u8_plain(u8, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_normalize_u8_bit_equal(dev, dtype):
+    """The masker step's three segments (repeated indices, one shift for
+    A, labels for A) at every shift -70..70, the critic step's one, an
+    empty segment, N = 0, rows that are not a multiple of 16 bytes and
+    banks off a 16-byte boundary."""
+    def bank(m, h=64, w=64):
+        return torch.randint(0, 256, (m, h, w, 3), dtype=torch.uint8,
+                             device=dev)
+
+    def idx(n, m):
+        return torch.randint(0, m, (n,), device=dev)
+
+    xpos, xneg = bank(40), bank(50)
+    ypos, yneg = torch.rand(40, device=dev), torch.rand(50, device=dev)
+    h, l, c = idx(32, 40), idx(32, 50), idx(64, 50)
+    h[:4] = 7                                    # repeated indices
+    cases = [[Segment(xpos, h, s, ypos), Segment(xneg, l, s, yneg),
+              Segment(xneg, c)] for s in range(-70, 71)]
+    cases += [[Segment(xpos, idx(64, 40), -12, ypos)],
+              [Segment(xpos, h, 3, ypos), Segment(xneg, c[:0], 3, yneg),
+               Segment(xneg, c)],
+              [Segment(xpos, c[:0])],
+              [Segment(bank(6, 5, 7), idx(9, 6), 4), Segment(bank(3, 5, 7))],
+              [Segment(_unaligned(xpos), h, -5, ypos), Segment(xneg, c)]]
+    for segs in cases:
+        (got, gy), (want, wy) = (gather_normalize_u8(segs, dtype),
+                                 gather_normalize_u8_plain(segs, dtype))
+        assert got.shape == want.shape and torch.equal(_bits(got),
+                                                        _bits(want))
+        assert (gy is None and wy is None) or torch.equal(gy, wy)
 
 
 @pytest.mark.cuda
@@ -129,20 +172,31 @@ def _same(got, want):
 
 @pytest.mark.cuda
 def test_merge_pair_and_bwd_bit_equal(dev):
+    """The joined output at the masker step's shape, a ragged one (a
+    pixel count not divisible by 4), N = 0, frames that are the halves
+    of one joined batch and frames off a 16-byte boundary; the
+    gradient's two halves in both memory formats."""
     for n, h, w in [(0, 64, 64), (7, 5, 9), (64, 64, 64)]:
-        a, b, z = _frames(dev, n, h, w), _frames(dev, n, h, w), \
-            _frames(dev, n, h, w, 1)
+        ab = _frames(dev, 2 * n, h, w)
+        z = _frames(dev, n, h, w, 1)
         _build.launches.clear()
-        assert _same(merge_pair(a, b, z), merge_pair_plain(a, b, z))
-        gr, gi = _frames(dev, n, h, w), _frames(dev, n, h, w)
+        for a, b in ((_frames(dev, n, h, w), _frames(dev, n, h, w)),
+                     (ab[:n], ab[n:])):
+            got = merge_pair(a, b, z)
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            assert _same([got], [merge_pair_plain(a, b, z)]), n
+        if n:
+            ua = _unaligned(a.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            assert _same([merge_pair(ua, b, z)],
+                         [merge_pair_plain(ua, b, z)])
+        g = _frames(dev, 2 * n, h, w)
         for fmt in (torch.channels_last, torch.contiguous_format):
-            g_r = gr.contiguous(memory_format=fmt)
-            g_i = gi.contiguous(memory_format=fmt)
-            assert _same(merge_pair_bwd(a, b, z, g_r, g_i),
-                         merge_pair_bwd_plain(a, b, z, g_r, g_i)), (n, fmt)
-        launched = 1 if n else 0
+            gg = g.contiguous(memory_format=fmt)
+            assert _same(merge_pair_bwd(a, b, z, gg[:n], gg[n:]),
+                         merge_pair_bwd_plain(a, b, z, gg[:n], gg[n:])), (
+                n, fmt)
         assert dict(_build.launches) == (
-            {"merge_pair": 1, "merge_pair_bwd": 2} if launched else {})
+            {"merge_pair": 3, "merge_pair_bwd": 2} if n else {})
     with pytest.raises(ValueError, match="channels_last"):
         a = torch.rand(2, 3, 8, 8, device=dev)          # NCHW frames
         merge_pair(a, a, torch.rand(2, 1, 8, 8, device=dev))
@@ -229,44 +283,49 @@ def test_up2_gradient_through_cat_equals_plain(dev, dtype):
 
 @pytest.mark.cuda
 def test_masker_step_kernel_path_equals_plain_path(dev, monkeypatch):
-    """One masker step's loss terms and gradients, kernel path against
-    the plain versions patched in, bit-equal under deterministic cuDNN
-    (the kernels are bit-equal to their plain versions); every decoder
-    gradient is non-zero (an upsample without a gradient would zero
-    them)."""
+    """One masker step (`train/steps.py:masker_step`, frames gathered
+    from uint8 banks by index and shifted), its loss terms and
+    gradients, kernel path against the plain versions patched in,
+    bit-equal under deterministic cuDNN (the kernels are bit-equal to
+    their plain versions); one ingest launch for the step's frames and
+    labels; every decoder gradient is non-zero (an upsample without a
+    gradient would zero them). The optimizer has lr 0, so both runs
+    start from the same weights and the gradients stay in .grad."""
     import cgs_tpu_torch.ops.merge as merge_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.train.losses as losses_mod
     from cgs_tpu_torch.core.config import Config
     from cgs_tpu_torch.models.critic import Critic
     from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.train.steps import StepRng, masker_step
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    cfg = Config(dropout=0.0, shift=0).derive()
+    cfg = Config(dropout=0.0).derive()
     models = {"critic": Critic(dropout=0.0), "masker": UnetDecoder()}
     for m in models.values():
         m.to(dev, memory_format=torch.channels_last)
-    a_u8, b_u8 = (torch.randint(0, 256, (16, 64, 64, 3), dtype=torch.uint8,
+    opt = torch.optim.SGD([p for m in models.values()
+                           for p in m.parameters()], lr=0.0)
+    xpos, xneg = (torch.randint(0, 256, (24, 64, 64, 3), dtype=torch.uint8,
                                 device=dev) for _ in range(2))
-    y = torch.rand(16, device=dev)
+    ypos, yneg = torch.rand(24, device=dev), torch.rand(24, device=dev)
+    h, l, c = (torch.randint(0, 24, (n,), device=dev) for n in (8, 8, 16))
+    a = [Segment(xpos, h, labels=ypos), Segment(xneg, l, labels=yneg)]
 
     def run():
-        for m in models.values():
-            m.zero_grad(set_to_none=True)
-        loss, aux = losses_mod.build_masker_loss(cfg)(
-            models, losses_mod.ingest(a_u8), y, losses_mod.ingest(b_u8))
-        loss.backward()
-        return ([float(aux[t].detach()) for t in
-                 ("loss", "replace", "inject", "norm", "critic")],
+        terms = masker_step(cfg, models, opt, a, Segment(xneg, c),
+                            StepRng.seeded(0, dev))
+        return ([float(t) for t in terms],
                 [p.grad.clone() for m in models.values()
                  for p in m.parameters()])
 
     _build.launches.clear()
     terms, grads = run()
     assert dict(_build.launches) == {
-        "normalize_u8": 2, "merge_pair": 1, "merge_pair_bwd": 1,
+        "normalize_u8": 1, "merge_pair": 1, "merge_pair_bwd": 1,
         "upsample2x": 5, "upsample2x_bwd": 5}
-    with mock.patch.object(losses_mod, "normalize_u8", normalize_u8_plain), \
+    with mock.patch.object(losses_mod, "gather_normalize_u8",
+                           gather_normalize_u8_plain), \
             mock.patch.object(merge_mod, "merge_pair", merge_pair_plain), \
             mock.patch.object(merge_mod, "merge_pair_bwd",
                               merge_pair_bwd_plain), \

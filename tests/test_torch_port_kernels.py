@@ -25,7 +25,7 @@ from cgs_tpu.ops.pallas_upsample import (
 )
 from cgs_tpu_torch.ops import _build
 from cgs_tpu_torch.ops.kernels import (
-    INV255, normalize_u8, normalize_u8_plain, threshold_iou,
+    INV255, MAX_SEGMENTS, normalize_u8, normalize_u8_plain, threshold_iou,
     threshold_iou_plain,
 )
 from cgs_tpu_torch.ops.upsample import upsample2x, upsample2x_plain
@@ -169,6 +169,9 @@ def test_binding_matches_the_c_entry_points(name):
                 _build.ctypes.c_int64: "int64_t",
                 _build.ctypes.c_float: "float"}[t]
             assert p.replace("const ", "").startswith(want), (fn, p, want)
+    if name == "normalize_u8":     # the segments one launch takes
+        assert int(re.search(r"kMaxSeg = (\d+);", src).group(1)) == \
+            MAX_SEGMENTS
     assert "-gencode" in _build.NVCC_FLAGS and \
         "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 

@@ -48,7 +48,8 @@ from cgs_tpu_torch.core.config import Config
 from cgs_tpu_torch.models.interop import adam_state_from_optax
 from cgs_tpu_torch.ops import _build
 from cgs_tpu_torch.ops.kernels import (
-    merge_pair, merge_pair_bwd, merge_pair_bwd_plain, merge_pair_plain,
+    Segment, merge_pair, merge_pair_bwd, merge_pair_bwd_plain,
+    merge_pair_plain,
 )
 from cgs_tpu_torch.ops.merge import inject_merge, merge_both, replace_merge
 from cgs_tpu_torch.ops.upsample import (
@@ -94,9 +95,12 @@ def test_merge_both_values_and_grads_equal_jax():
     a, b, w1, w2 = (_rand(rng, (6, 64, 64, 3)) for _ in range(4))
     z = _rand(rng, (6, 64, 64, 1))
     ta, tb, tz = (nchw(v).requires_grad_() for v in (a, b, z))
-    rep, inj = merge_both(ta, tb, tz)
-    assert rep.grad_fn is not None and "MergeBoth" in type(
-        rep.grad_fn).__name__
+    merged = merge_both(ta, tb, tz)          # replaced || injected
+    assert merged.grad_fn is not None and "MergeBoth" in type(
+        merged.grad_fn).__name__
+    assert merged.shape == (12, 3, 64, 64) and merged.is_contiguous(
+        memory_format=torch.channels_last)
+    rep, inj = merged[:6], merged[6:]
     ja, jb, jz = (jnp.asarray(v) for v in (a, b, z))
     jrep, jinj = jax_merge_both(ja, jb, jz)             # Pallas, interpret
     for ours, pallas, plain in ((rep, jrep, jax_replace_merge(ja, jb, jz)),
@@ -128,7 +132,8 @@ def test_merge_pair_and_bwd_plain_equal_jax_kernels():
     flat = [jnp.asarray(v.reshape(n, -1)) for v in (a, b)]
     zf = broadcast_mask(jnp.asarray(z))
     jrep, jinj = jax_merge_pair(*flat, zf)
-    rep, inj = merge_pair(nchw(a), nchw(b), nchw(z))
+    joined = merge_pair(nchw(a), nchw(b), nchw(z))
+    rep, inj = joined[:n], joined[n:]
     np.testing.assert_allclose(nhwc(rep).reshape(n, -1), np.asarray(jrep),
                                atol=1e-6)
     np.testing.assert_allclose(nhwc(inj).reshape(n, -1), np.asarray(jinj),
@@ -151,7 +156,7 @@ def test_merge_pair_and_bwd_plain_equal_jax_kernels():
     _, _, dz = merge_pair_bwd_plain(nchw(a), nchw(b), nchw(z), nchw(gr),
                                     nchw(gi))
     assert torch.equal(dz, (d[:, 0:1] + d[:, 1:2]) + d[:, 2:3])
-    assert torch.equal(merge_pair_plain(nchw(a), nchw(b), nchw(z))[0], rep)
+    assert torch.equal(merge_pair_plain(nchw(a), nchw(b), nchw(z)), joined)
 
 
 def test_merge_wrappers_reject_what_the_kernels_do_not_take():
@@ -371,8 +376,9 @@ def test_critic_trajectory_tracks_make_critic_step():
     critic = _port_modules(jp, names=("critic",))["critic"]
     opt = make_optimizer({"critic": critic})
     srng = StepRng.seeded(0, "cpu")
-    tl = [float(critic_step(cfg, critic, opt, torch.from_numpy(xs[i]),
-                            torch.from_numpy(ys[i]), srng))
+    tl = [float(critic_step(cfg, critic, opt,
+                            Segment(torch.from_numpy(xs[i]),
+                                    labels=torch.from_numpy(ys[i])), srng))
           for i in range(20)]
     np.testing.assert_allclose(tl[0], jl[0], rtol=1e-5)
     np.testing.assert_allclose(tl, jl, rtol=1e-3)
@@ -389,6 +395,16 @@ def _masker_batches(n_steps, k=4):
     a = rng.integers(0, 256, (n_steps, 2 * k, 64, 64, 3), dtype=np.uint8)
     b = rng.integers(0, 256, (n_steps, 2 * k, 64, 64, 3), dtype=np.uint8)
     return a, _rand(rng, (n_steps, 2 * k)), b
+
+
+def _masker_step(cfg, mods, opt, a, y, b, srng) -> np.ndarray:
+    """One port masker step on host batches a (2K frames, labels y) and
+    b; its four loss terms."""
+    terms = masker_step(cfg, mods, opt,
+                        [Segment(torch.from_numpy(a),
+                                 labels=torch.from_numpy(y))],
+                        Segment(torch.from_numpy(b)), srng)
+    return np.array([float(t) for t in terms])
 
 
 def _adam_moments(opt_state):
@@ -424,9 +440,8 @@ def test_masker_trajectory_and_mid_training_state_track_make_masker_step():
     mods = _port_modules(jp)
     opt = make_optimizer(mods)
     srng = StepRng.seeded(0, "cpu")
-    tl = [masker_step(cfg, mods, opt, torch.from_numpy(a[i]),
-                      torch.from_numpy(y[i]), torch.from_numpy(b[i]),
-                      srng).numpy() for i in range(20)]
+    tl = [_masker_step(cfg, mods, opt, a[i], y[i], b[i], srng)
+          for i in range(20)]
     np.testing.assert_allclose(tl[0], jl[0], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(tl), np.asarray(jl), rtol=1e-3,
                                atol=2e-5)
@@ -438,8 +453,7 @@ def test_masker_trajectory_and_mid_training_state_track_make_masker_step():
     mu, nu, count = _adam_moments(states[10].opt_state)
     assert count == 10
     opt.load_state_dict(adam_state_from_optax(opt, mods, mu, nu, count))
-    masker_step(cfg, mods, opt, torch.from_numpy(a[10]),
-                torch.from_numpy(y[10]), torch.from_numpy(b[10]), srng)
+    _masker_step(cfg, mods, opt, a[10], y[10], b[10], srng)
     want = _grads_to_torch(jax.tree.map(np.asarray, states[11].params))
     for name, m in mods.items():
         for k, p in m.named_parameters():
@@ -462,9 +476,8 @@ def test_critic_update_scale_scales_the_critic_group_only():
                   for n, m in mods.items()}
         opt = make_optimizer(mods, critic_update_scale=s)
         assert [g["lr"] for g in opt.param_groups] == [1e-3 * s, 1e-3]
-        masker_step(cfg, mods, opt, torch.from_numpy(a[0]),
-                    torch.from_numpy(y[0]), torch.from_numpy(b[0]),
-                    StepRng.seeded(0, "cpu"))
+        _masker_step(cfg, mods, opt, a[0], y[0], b[0],
+                     StepRng.seeded(0, "cpu"))
         deltas[s] = {n: {k: (p.detach() - before[n][k]).numpy()
                          for k, p in m.named_parameters()}
                      for n, m in mods.items()}
