@@ -14,25 +14,27 @@
 // channels_last, i.e. the memory is NHWC: element (n, p, c) of pixel
 // p = h * W + w at (n * P + p) * C + c. z and dz hold one float per
 // pixel, (N, 1, H, W). The TPU kernel took z pre-broadcast to (N, H*W*3)
-// (pallas_kernels.py:broadcast_mask); here each thread reads its
-// pixel's z once and uses it for every channel, so the 3x mask copy is
-// never made. The gradients gr and gi arrive in whatever layout
-// autograd hands over (cuDNN's data-gradient may come back NCHW or
-// NHWC), so the backward takes their element strides (n, c, p) and
-// reads either layout in place.
-//
-// Bound on an H100 SXM: bytes. The forward reads a, b (12 B/pixel
-// each) and z (4 B) and writes rep and inj: 52 B per pixel; the
-// backward reads a, b, gr, gi and z and writes da, db and dz: 80 B per
-// pixel. The masker step (N = 64, 4096 pixels) moves 13.6 MB and
-// 21.0 MB: 4.1 us and 6.3 us at 3.35 TB/s, so at that size a launch
-// costs more than the traffic. There are ~10 flops per pixel.
+// (pallas_kernels.py:broadcast_mask); here z is read once per pixel and
+// used for every channel, so the 3x mask copy is never made.
 //
 // Where the forward writes: rep and inj are two pointers, which the
 // wrapper (cgs_tpu_torch/ops/kernels.py:merge_pair) sets to the two halves
 // of one (2N, C, H, W) channels_last buffer, the critic's fused batch; a
 // and b may likewise be the halves of the ingest's joined batch. So the
-// masker step makes no torch.cat of either pair.
+// masker step makes no torch.cat of either pair. The backward takes the
+// gradient of that joined buffer as one pointer g with its (n, c, pixel)
+// element strides, as autograd hands it over: gr is its first N frames
+// and gi starts N frames later.
+//
+// Bound on an H100 SXM (3.35 TB/s): bytes; there are ~10 flops per
+// pixel. The forward reads a, b (12 B/pixel each) and z (4 B) and writes
+// rep and inj: 52 B per pixel, 0.00407 ms at the masker step's N = 64
+// (4096 pixels a frame) and 0.521 ms at N = 8192. The backward writes
+// only the gradients autograd asks for. The masker step asks for dz
+// alone (the frames need no gradient): it reads a, b, gr and gi and
+// writes dz, 52 B per pixel, 0.00407 ms at N = 64 and 0.521 ms at
+// N = 8192; all three outputs also read z and write da and db, 80 B per
+// pixel, 0.00626 ms and 0.801 ms.
 //
 // Design of the forward: a thread takes 4 consecutive floats of a and of
 // b (one float4 each) and writes one float4 of rep and of inj, so
@@ -44,13 +46,33 @@
 // 0.86 ms for one thread per pixel, most likely for those strided
 // 16-byte accesses.) The last numel % 4 elements go one at a time in the
 // same launch; another channel count or an unaligned frame buffer, one
-// pixel per thread. The backward: one thread per pixel, grid-stride, no
-// shared memory. Each input element is read once. Bit-equality with the
-// plain PyTorch version (cgs_tpu_torch/ops/kernels.py:merge_pair_plain
-// and merge_pair_bwd_plain): every product, difference and sum is an
+// pixel per thread.
+//
+// Design of the backward: one kernel per set of requested outputs (a
+// template on da, db, dz), so the dz-only kernel never reads z and never
+// writes da or db. With C == 3, a channels_last-dense gradient and every
+// buffer 16-byte aligned, a block of 256 threads takes a tile of 1024
+// pixels (3072 floats, 768 float4 per tensor): each thread loads float4
+// number t, t + 256 and t + 512 of the tile from a, b, gr and gi (12
+// loads in flight, consecutive lanes on consecutive 16 bytes), computes
+// the 12 products d = (gr - gi) * (b - a) and stages them in shared
+// memory; then thread t reads the 12 products of pixels 4t..4t+3 (float4
+// 3t, 3t+1, 3t+2: conflict-free, 8 lanes of a quarter-warp cover all 32
+// banks) and writes their four dz = ((d0 + d1) + d2) as one float4. When
+// da and db are asked for, they are written from the same float4s, each
+// element's z read from the tile's z staged in shared memory. Index
+// math inside a tile is 32-bit. Tiles may span frames; the last
+// npix % 1024 pixels are taken one per thread by one more block of the
+// same launch. An NCHW-dense gradient, another channel count or a buffer
+// off a 16-byte boundary take a per-pixel kernel (a block row per frame,
+// so no division per pixel) that reads the gradient through its strides.
+//
+// Bit-equality with the plain PyTorch version
+// (cgs_tpu_torch/ops/kernels.py:merge_pair_plain and
+// merge_pair_bwd_plain): every product, difference and sum is an
 // explicitly rounded intrinsic in the plain version's order (keep =
-// 1 - z, then a * keep and z * b, then the add; dz = (d0 + d1) + d2),
-// so nvcc cannot contract a multiply and an add into an FMA.
+// 1 - z, then a * keep and z * b, then the add; dz = (d0 + d1) + d2), so
+// nvcc cannot contract a multiply and an add into an FMA.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,34 +140,188 @@ __global__ void merge_pair_kernel(const float* __restrict__ a,
   }
 }
 
-__global__ void merge_pair_bwd_kernel(
-    const float* __restrict__ a, const float* __restrict__ b,
-    const float* __restrict__ z, const float* __restrict__ gr,
-    const float* __restrict__ gi, float* __restrict__ da,
-    float* __restrict__ db, float* __restrict__ dz, int64_t npix,
-    int64_t P, int64_t C, int64_t gr_sn, int64_t gr_sc, int64_t gr_sp,
-    int64_t gi_sn, int64_t gi_sc, int64_t gi_sp) {
-  for (int64_t p = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; p < npix;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t n = p / P;
-    const int64_t q = p - n * P;  // pixel within its frame
-    const float zp = z[p];
-    const float keep = __fsub_rn(1.0f, zp);
-    const float* grp = gr + n * gr_sn + q * gr_sp;
-    const float* gip = gi + n * gi_sn + q * gi_sp;
-    float acc = 0.0f;
-    for (int64_t c = 0; c < C; ++c) {
-      const int64_t i = p * C + c;
-      const float av = a[i];
-      const float bv = b[i];
-      const float r = grp[c * gr_sc];
-      const float g = gip[c * gi_sc];
-      da[i] = __fadd_rn(__fmul_rn(r, keep), __fmul_rn(g, zp));
-      db[i] = __fadd_rn(__fmul_rn(r, zp), __fmul_rn(g, keep));
-      const float d = __fmul_rn(__fsub_rn(r, g), __fsub_rn(bv, av));
+// ---- the backward ------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kTilePix = 4 * kThreads;  // pixels of a tile: 4 per thread
+constexpr int kTileVec = 3 * kThreads;  // float4 of a tile per tensor (C = 3)
+
+__device__ __forceinline__ float dprod(float r, float g, float av,
+                                       float bv) {
+  return __fmul_rn(__fsub_rn(r, g), __fsub_rn(bv, av));
+}
+
+__device__ __forceinline__ float da_of(float r, float g, float zp,
+                                       float keep) {
+  return __fadd_rn(__fmul_rn(r, keep), __fmul_rn(g, zp));
+}
+
+__device__ __forceinline__ float db_of(float r, float g, float zp,
+                                       float keep) {
+  return __fadd_rn(__fmul_rn(r, zp), __fmul_rn(g, keep));
+}
+
+// One pixel, any C: a, b, da and db point at its C elements (unit
+// stride, channels_last), gr and gi at its gradient elements (stride
+// sc); zp is its z, read only when da or db is asked for.
+template <bool DA, bool DB, bool DZ>
+__device__ __forceinline__ void bwd_pixel(const float* a, const float* b,
+                                          float zp, const float* gr,
+                                          const float* gi, int64_t sc,
+                                          float* da, float* db, float* dz,
+                                          int64_t C) {
+  const float keep = __fsub_rn(1.0f, zp);
+  float acc = 0.0f;
+  for (int64_t c = 0; c < C; ++c) {
+    const float r = gr[c * sc], g = gi[c * sc];
+    if (DA) da[c] = da_of(r, g, zp, keep);
+    if (DB) db[c] = db_of(r, g, zp, keep);
+    if (DZ) {
+      const float d = dprod(r, g, a[c], b[c]);
       acc = c == 0 ? d : __fadd_rn(acc, d);  // ((d0 + d1) + d2) ...
     }
-    dz[p] = acc;
+  }
+  if (DZ) *dz = acc;
+}
+
+// C == 3, the gradient channels_last-dense (so gr and gi share a's
+// element offsets), every buffer 16-byte aligned: block x < ntiles takes
+// tile x (module comment); block ntiles the npix % kTilePix pixels left.
+template <bool DA, bool DB, bool DZ>
+__global__ void __launch_bounds__(kThreads)
+    merge_pair_bwd_tile(const float4* __restrict__ a,
+                        const float4* __restrict__ b,
+                        const float4* __restrict__ z,
+                        const float4* __restrict__ gr,
+                        const float4* __restrict__ gi,
+                        float4* __restrict__ da, float4* __restrict__ db,
+                        float4* __restrict__ dz, int64_t npix) {
+  __shared__ float4 s_d[DZ ? kTileVec : 1];
+  __shared__ float4 s_z4[(DA || DB) ? kThreads : 1];
+  const int t = threadIdx.x;
+  const int64_t tile = blockIdx.x;
+  if (tile == npix / kTilePix) {
+    const float* zf = reinterpret_cast<const float*>(z);
+    for (int64_t p = tile * kTilePix + t; p < npix; p += kThreads) {
+      const int64_t e = 3 * p;
+      bwd_pixel<DA, DB, DZ>(
+          reinterpret_cast<const float*>(a) + e,
+          reinterpret_cast<const float*>(b) + e,
+          (DA || DB) ? zf[p] : 0.0f, reinterpret_cast<const float*>(gr) + e,
+          reinterpret_cast<const float*>(gi) + e, 1,
+          reinterpret_cast<float*>(da) + e, reinterpret_cast<float*>(db) + e,
+          reinterpret_cast<float*>(dz) + p, 3);
+    }
+    return;
+  }
+  const int64_t v0 = tile * kTileVec;  // the tile's first float4
+  float4 r[3], g[3], x[3], y[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int64_t v = v0 + k * kThreads + t;
+    r[k] = gr[v];
+    g[k] = gi[v];
+    if (DZ) {
+      x[k] = a[v];
+      y[k] = b[v];
+    }
+  }
+  if (DA || DB) {
+    s_z4[t] = z[tile * kThreads + t];
+    __syncthreads();
+  }
+  const float* s_z = reinterpret_cast<const float*>(s_z4);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int v = k * kThreads + t;  // float4 of the tile: elements 4v..4v+3
+    const float rv[4] = {r[k].x, r[k].y, r[k].z, r[k].w};
+    const float gv[4] = {g[k].x, g[k].y, g[k].z, g[k].w};
+    if (DZ) {
+      const float av[4] = {x[k].x, x[k].y, x[k].z, x[k].w};
+      const float bv[4] = {y[k].x, y[k].y, y[k].z, y[k].w};
+      s_d[v] = make_float4(dprod(rv[0], gv[0], av[0], bv[0]),
+                           dprod(rv[1], gv[1], av[1], bv[1]),
+                           dprod(rv[2], gv[2], av[2], bv[2]),
+                           dprod(rv[3], gv[3], av[3], bv[3]));
+    }
+    if (DA || DB) {
+      float dav[4], dbv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float zp = s_z[(4 * v + j) / 3];
+        const float keep = __fsub_rn(1.0f, zp);
+        dav[j] = da_of(rv[j], gv[j], zp, keep);
+        dbv[j] = db_of(rv[j], gv[j], zp, keep);
+      }
+      if (DA) da[v0 + v] = make_float4(dav[0], dav[1], dav[2], dav[3]);
+      if (DB) db[v0 + v] = make_float4(dbv[0], dbv[1], dbv[2], dbv[3]);
+    }
+  }
+  if (DZ) {
+    __syncthreads();
+    const float4 p0 = s_d[3 * t], p1 = s_d[3 * t + 1], p2 = s_d[3 * t + 2];
+    // pixel 4t + i's three products are q[3i], q[3i + 1], q[3i + 2]
+    const float q[12] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y,
+                         p1.z, p1.w, p2.x, p2.y, p2.z, p2.w};
+    float o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = __fadd_rn(__fadd_rn(q[3 * i], q[3 * i + 1]), q[3 * i + 2]);
+    dz[tile * kThreads + t] = make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// Any C, the gradient in any layout its strides describe (sn, sc, sp:
+// frame, channel, pixel), any alignment: one thread per pixel, block row
+// y walks the frames, so the frame index needs no division.
+template <bool DA, bool DB, bool DZ>
+__global__ void merge_pair_bwd_px(const float* __restrict__ a,
+                                  const float* __restrict__ b,
+                                  const float* __restrict__ z,
+                                  const float* __restrict__ g,
+                                  float* __restrict__ da,
+                                  float* __restrict__ db,
+                                  float* __restrict__ dz, int64_t N,
+                                  int64_t P, int64_t C, int64_t sn,
+                                  int64_t sc, int64_t sp) {
+  for (int64_t n = blockIdx.y; n < N; n += gridDim.y) {
+    for (int64_t q = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; q < P;
+         q += (int64_t)gridDim.x * blockDim.x) {
+      const int64_t p = n * P + q, e = p * C;
+      const float* gr = g + n * sn + q * sp;
+      bwd_pixel<DA, DB, DZ>(a + e, b + e, (DA || DB) ? z[p] : 0.0f, gr,
+                            gr + N * sn, sc, da + e, db + e, dz + p, C);
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+template <bool DA, bool DB, bool DZ>
+void launch_bwd(const float* a, const float* b, const float* z,
+                const float* g, float* da, float* db, float* dz, int64_t N,
+                int64_t P, int64_t C, int64_t sn, int64_t sc, int64_t sp,
+                cudaStream_t s) {
+  const int64_t npix = N * P;
+  const float* gi = g + N * sn;
+  const bool tiled =
+      C == 3 && sc == 1 && sp == 3 && sn == 3 * P && aligned16(g) &&
+      aligned16(gi) &&
+      (!DZ || (aligned16(a) && aligned16(b) && aligned16(dz))) &&
+      (!(DA || DB) || aligned16(z)) && (!DA || aligned16(da)) &&
+      (!DB || aligned16(db));
+  if (tiled) {
+    const int64_t blocks = npix / kTilePix + (npix % kTilePix != 0);
+    merge_pair_bwd_tile<DA, DB, DZ><<<(unsigned)blocks, kThreads, 0, s>>>(
+        (const float4*)a, (const float4*)b, (const float4*)z,
+        (const float4*)g, (const float4*)gi, (float4*)da, (float4*)db,
+        (float4*)dz, npix);
+  } else {
+    const int64_t bx = (P + kThreads - 1) / kThreads;
+    const dim3 grid((unsigned)(bx < 1024 ? bx : 1024),
+                    (unsigned)(N < 65535 ? N : 65535));
+    merge_pair_bwd_px<DA, DB, DZ><<<grid, kThreads, 0, s>>>(
+        a, b, z, g, da, db, dz, N, P, C, sn, sc, sp);
   }
 }
 
@@ -154,8 +330,6 @@ int grid_for(int64_t work, int threads) {
   const int64_t cap = (int64_t)132 * 32;  // enough blocks for 132 SMs
   return (int)(blocks < cap ? (blocks > 0 ? blocks : 1) : cap);
 }
-
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace
 
@@ -178,19 +352,32 @@ extern "C" int cgs_merge_pair(const void* a, const void* b, const void* z,
   return (int)cudaGetLastError();
 }
 
+// g: the (2N, C, H, W) gradient of merge_pair's joined output, element
+// strides (g_sn, g_sc, g_sp). da, db and dz are the outputs asked for; a
+// null pointer is one not asked for (at least one must be asked for, and
+// N * P > 0).
 extern "C" int cgs_merge_pair_bwd(const void* a, const void* b,
-                                  const void* z, const void* gr,
-                                  const void* gi, void* da, void* db,
-                                  void* dz, int64_t npix, int64_t P,
-                                  int64_t C, int64_t gr_sn, int64_t gr_sc,
-                                  int64_t gr_sp, int64_t gi_sn,
-                                  int64_t gi_sc, int64_t gi_sp,
-                                  void* stream) {
-  const int threads = 256;
-  merge_pair_bwd_kernel<<<grid_for(npix, threads), threads, 0,
-                          (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)b, (const float*)z, (const float*)gr,
-      (const float*)gi, (float*)da, (float*)db, (float*)dz, npix, P, C,
-      gr_sn, gr_sc, gr_sp, gi_sn, gi_sc, gi_sp);
+                                  const void* z, const void* g, void* da,
+                                  void* db, void* dz, int64_t N, int64_t P,
+                                  int64_t C, int64_t g_sn, int64_t g_sc,
+                                  int64_t g_sp, void* stream) {
+  const float *fa = (const float*)a, *fb = (const float*)b,
+              *fz = (const float*)z, *fg = (const float*)g;
+  float *fda = (float*)da, *fdb = (float*)db, *fdz = (float*)dz;
+  cudaStream_t s = (cudaStream_t)stream;
+#define CGS_BWD(DA, DB, DZ)                                                \
+  launch_bwd<DA, DB, DZ>(fa, fb, fz, fg, fda, fdb, fdz, N, P, C, g_sn, g_sc, \
+                         g_sp, s)
+  switch ((da != nullptr) | (db != nullptr) << 1 | (dz != nullptr) << 2) {
+    case 1: CGS_BWD(true, false, false); break;
+    case 2: CGS_BWD(false, true, false); break;
+    case 3: CGS_BWD(true, true, false); break;
+    case 4: CGS_BWD(false, false, true); break;
+    case 5: CGS_BWD(true, false, true); break;
+    case 6: CGS_BWD(false, true, true); break;
+    case 7: CGS_BWD(true, true, true); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CGS_BWD
   return (int)cudaGetLastError();
 }

@@ -41,10 +41,10 @@ SIGNATURES = {
                      + (_P, _P, _I64, _P)},
     "upsample2x": {"cgs_upsample2x": (_P,) * 3 + (_I64,) * 7 + (_P,),
                    "cgs_upsample2x_bwd": (_P,) * 3 + (_I64,) * 11 + (_P,)},
-    "threshold_iou": {"cgs_threshold_iou": (_P, _P, _I64, _F32, _P,
+    "threshold_iou": {"cgs_threshold_iou": (_P, _P, _I64, _F32, _P, _P,
                                             _P)},
     "merge_pair": {"cgs_merge_pair": (_P,) * 5 + (_I64, _I64, _P),
-                   "cgs_merge_pair_bwd": (_P,) * 8 + (_I64,) * 9 + (_P,)},
+                   "cgs_merge_pair_bwd": (_P,) * 7 + (_I64,) * 6 + (_P,)},
 }
 
 # one launch counter per C entry point, named without the `cgs_` prefix

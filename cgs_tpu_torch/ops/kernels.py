@@ -14,7 +14,7 @@ the plain version.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -189,32 +189,43 @@ def merge_pair_plain(a: torch.Tensor, b: torch.Tensor, z: torch.Tensor
     return torch.cat([blend(a, b, z), blend(b, a, z)])
 
 
-def merge_pair_bwd_plain(a, b, z, gr, gi):
-    """(da, db, dz): the merges' VJP, dz summed over the channels in
-    the order ((d0 + d1) + d2)."""
-    keep = 1.0 - z
-    da = gr * keep + gi * z
-    db = gr * z + gi * keep
-    d = (gr - gi) * (b - a)
-    dz = d[:, 0:1]
-    for c in range(1, d.shape[1]):
-        dz = dz + d[:, c:c + 1]
+NEED_ALL = (True, True, True)
+
+
+def merge_pair_bwd_plain(a, b, z, g, need: Sequence[bool] = NEED_ALL):
+    """(da, db, dz): the merges' VJP for the gradient g of their joined
+    (2N, C, H, W) output (gr its first N frames, gi the rest); an output
+    that `need` does not ask for is None. dz is summed over the channels
+    in the order ((d0 + d1) + d2)."""
+    n = a.shape[0]
+    gr, gi = g[:n], g[n:]
+    da = db = dz = None
+    if need[0] or need[1]:
+        keep = 1.0 - z
+        if need[0]:
+            da = gr * keep + gi * z
+        if need[1]:
+            db = gr * z + gi * keep
+    if need[2]:
+        d = (gr - gi) * (b - a)
+        dz = d[:, 0:1]
+        for c in range(1, d.shape[1]):
+            dz = dz + d[:, c:c + 1]
     return da, db, dz
 
 
-def _check_merge_args(name: str, a, b, z, *grads) -> None:
+def _check_merge_args(name: str, a, b, z, g=None) -> None:
     if a.dim() != 4 or a.shape != b.shape:
         raise ValueError(f"{name}: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)} must be one (N, C, H, W) shape")
-    n, _, h, w = a.shape
+    n, c, h, w = a.shape
     if tuple(z.shape) != (n, 1, h, w):
         raise ValueError(f"{name}: z {tuple(z.shape)} must be "
                          f"{(n, 1, h, w)}")
-    for g in grads:
-        if g.shape != a.shape:
-            raise ValueError(f"{name}: gradient {tuple(g.shape)} must be "
-                             f"{tuple(a.shape)}")
-    for t in (a, b, z) + grads:
+    if g is not None and tuple(g.shape) != (2 * n, c, h, w):
+        raise ValueError(f"{name}: gradient {tuple(g.shape)} must be the "
+                         f"joined {(2 * n, c, h, w)}")
+    for t in (a, b, z) + ((g,) if g is not None else ()):
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32, got {t.dtype}")
         if t.device != a.device:
@@ -263,33 +274,39 @@ def merge_pair(a: torch.Tensor, b: torch.Tensor, z: torch.Tensor
     return out
 
 
-def merge_pair_bwd(a, b, z, gr, gi):
-    """(da, db, dz) for cotangents gr, gi of (replaced, injected): da
-    and db channels_last like a, dz (N, 1, H, W) summed over the
-    channels. gr and gi may each be NCHW- or channels_last-dense (as
-    autograd hands them over); the kernel reads either in place.
-    Bit-equal to `merge_pair_bwd_plain`."""
-    _check_merge_args("merge_pair_bwd", a, b, z, gr, gi)
+def merge_pair_bwd(a, b, z, g, need: Sequence[bool] = NEED_ALL):
+    """(da, db, dz) for the gradient g of `merge_pair`'s joined (2N, C,
+    H, W) output, as autograd hands it over: da and db channels_last
+    like a, dz (N, 1, H, W) summed over the channels, and None for an
+    output `need` does not ask for (`MergeBoth.backward` passes
+    `ctx.needs_input_grad`; the masker step asks for dz alone). g may be
+    NCHW- or channels_last-dense; the kernel reads either in place, the
+    latter on its fast path. One launch writes only the outputs asked
+    for. Bit-equal to `merge_pair_bwd_plain`."""
+    _check_merge_args("merge_pair_bwd", a, b, z, g)
+    need = tuple(bool(x) for x in need)
+    if len(need) != 3:
+        raise ValueError(f"merge_pair_bwd: need has 3 flags, got {need}")
     if a.device.type == "cpu":
-        return merge_pair_bwd_plain(a, b, z, gr, gi)
+        return merge_pair_bwd_plain(a, b, z, g, need)
     for t in (a, b):
         _build.require_cuda_tensor(t, "merge_pair_bwd", torch.channels_last)
     _build.require_cuda_tensor(z, "merge_pair_bwd")
-    for t in (gr, gi):
-        if t.device.type != "cuda":
-            raise ValueError("merge_pair_bwd: expected CUDA gradients")
-    gr_s = _grad_strides(gr, "merge_pair_bwd")
-    gi_s = _grad_strides(gi, "merge_pair_bwd")
-    da, db = _nchw_empty(a), _nchw_empty(a)
-    dz = torch.empty_like(z, memory_format=torch.contiguous_format)
+    if g.device.type != "cuda":
+        raise ValueError("merge_pair_bwd: expected a CUDA gradient")
+    g_s = _grad_strides(g, "merge_pair_bwd")
+    da = _nchw_empty(a) if need[0] else None
+    db = _nchw_empty(a) if need[1] else None
+    dz = (torch.empty_like(z, memory_format=torch.contiguous_format)
+          if need[2] else None)
     n, c, h, w = a.shape
-    if a.numel() == 0:
+    if a.numel() == 0 or not any(need):
         return da, db, dz
     lib = _build.kernel("merge_pair")
     err = lib.cgs_merge_pair_bwd(
-        a.data_ptr(), b.data_ptr(), z.data_ptr(), gr.data_ptr(),
-        gi.data_ptr(), da.data_ptr(), db.data_ptr(), dz.data_ptr(),
-        n * h * w, h * w, c, *gr_s, *gi_s, _build.stream_ptr(a.device))
+        a.data_ptr(), b.data_ptr(), z.data_ptr(), g.data_ptr(),
+        *(0 if t is None else t.data_ptr() for t in (da, db, dz)),
+        n, h * w, c, *g_s, _build.stream_ptr(a.device))
     _build.check(err, "merge_pair_bwd")
     _build.launches["merge_pair_bwd"] += 1
     return da, db, dz
@@ -322,24 +339,48 @@ def threshold_iou_plain(masks: torch.Tensor, gt: torch.Tensor,
     return (hard & g).sum(), (hard | g).sum()
 
 
+# csrc/threshold_iou.cu: kMaxBlocks, the per-block slots of its scratch
+IOU_MAX_BLOCKS = 2048
+# (device index, stream) -> the kernel's scratch on that stream
+_iou_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _iou_scratch_for(device: torch.device) -> Tuple[torch.Tensor, int]:
+    """The kernel's scratch for the current stream of `device` (per-block
+    partial counts and the last-block ticket), made and zeroed on the
+    stream's first call, and the stream. The kernel leaves the ticket at
+    0, but two launches that shared a scratch at once would mix their
+    slots: calls on one stream run in order, and a call on another
+    stream gets a scratch of its own."""
+    stream = _build.stream_ptr(device)
+    key = (device.index, stream)
+    scratch = _iou_scratch.get(key)
+    if scratch is None:
+        scratch = _iou_scratch[key] = torch.zeros(
+            2 * IOU_MAX_BLOCKS + 1, dtype=torch.int64, device=device)
+    return scratch, stream
+
+
 def threshold_iou(masks: torch.Tensor, gt: torch.Tensor,
                   thresh: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(inter, union) int64 0-dim tensors on the masks' device: counts
     of (masks > thresh) AND / OR (gt > 0). masks float32 and gt bool or
-    uint8 of one shape, e.g. (N, H*W). Does not synchronise."""
+    uint8 of one shape, e.g. (N, H*W). On the card one kernel launch
+    per call, which writes both counts (no fill, no second launch; the
+    first call on a stream also zeroes that stream's scratch). Does not
+    synchronise."""
     gt_u8 = _check_iou_args(masks, gt)
     if masks.device.type == "cpu":
         return threshold_iou_plain(masks, gt_u8, thresh)
     _build.require_cuda_tensor(masks, "threshold_iou")
     _build.require_cuda_tensor(gt_u8, "threshold_iou")
-    counts = torch.zeros(2, dtype=torch.int64, device=masks.device)
-    n = masks.numel()
-    if n == 0:            # empty set: (0, 0) without a launch
-        return counts[0], counts[1]
+    scratch, stream = _iou_scratch_for(masks.device)
+    counts = torch.empty(2, dtype=torch.int64, device=masks.device)
     lib = _build.kernel("threshold_iou")
-    err = lib.cgs_threshold_iou(masks.data_ptr(), gt_u8.data_ptr(), n,
-                                float(thresh), counts.data_ptr(),
-                                _build.stream_ptr(masks.device))
+    err = lib.cgs_threshold_iou(masks.data_ptr(), gt_u8.data_ptr(),
+                                masks.numel(), float(thresh),
+                                counts.data_ptr(), scratch.data_ptr(),
+                                stream)
     _build.check(err, "threshold_iou")
     _build.launches["threshold_iou"] += 1
     return counts[0], counts[1]

@@ -13,9 +13,10 @@ pass as a `torch.autograd.Function` and returns them as one (2N, 3, H,
 W) channels_last batch, replaced || injected, which the critic's fused
 pass reads as it is: its forward is the `merge_pair` kernel, writing
 the two halves, and its backward the `merge_pair_bwd` kernel, reading
-the two halves of the batch's gradient in place and summing dz over
-RGB (the JAX VJP does that sum after its kernel,
-`cgs_tpu/ops/merge.py:64-67`). On CPU tensors both run their plain
+the batch's gradient in place as one buffer, summing dz over RGB (the
+JAX VJP does that sum after its kernel, `cgs_tpu/ops/merge.py:64-67`)
+and writing only the gradients autograd asks for (the masker step's
+frames need none: dz alone). On CPU tensors both run their plain
 versions.
 """
 
@@ -51,11 +52,7 @@ class MergeBoth(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b, z = ctx.saved_tensors
-        n = a.shape[0]
-        da, db, dz = merge_pair_bwd(a, b, z, g[:n], g[n:])
-        need = ctx.needs_input_grad
-        return (da if need[0] else None, db if need[1] else None,
-                dz if need[2] else None)
+        return merge_pair_bwd(a, b, z, g, ctx.needs_input_grad)
 
 
 def merge_both(a: torch.Tensor, b: torch.Tensor, z: torch.Tensor

@@ -23,8 +23,12 @@ from `cgs_tpu_torch/csrc/`, then:
            joins, at batch 8192 (serve) and 64 (masker step), beside
            the unfused pair it replaced, with the device time from
            torch.profiler at batch 64; the merges, writing the joined
-           (replaced || injected) batch, at the masker step's shapes
-           (with their device time) and at batch 8192;
+           (replaced || injected) batch, and their gradient, for dz
+           alone (what the masker step asks for) and for all three
+           outputs, at the masker step's shapes (with their device
+           time) and at batch 8192; `threshold_iou` at the eval set
+           (exact counts, one device operation per call, device time
+           with the L2 flushed before each call);
   serve    runs `MaskPipeline` at chfak 5 (the published width), batch
            8192, on device-resident frames, in f32 (TF32 off) and
            bf16: kernel path against plain path, 1 `normalize_u8` and 5
@@ -35,15 +39,17 @@ from `cgs_tpu_torch/csrc/`, then:
            from uint8 banks by index): loss terms and every gradient
            of the kernel path bit-equal to the plain path, every
            decoder gradient non-zero, the launches per step (1 ingest,
-           1 + 1 merge, 5 + 5 upsample) and the gradient layouts the
-           kernels were handed;
+           1 + 1 merge, 5 + 5 upsample), merge_pair_bwd asked for dz
+           alone, and the gradient layouts the kernels were handed;
   speed    critic and masker train steps/s at chfak 5, f32 and bf16,
            and the device time of one critic and one masker step by
            category, with no concat kernel in either;
   eval     (serving main path) a `Handler` built from `-eval -salience
            -synthetic_data --chfak 5`: `evaluate(..., write=False)` on
            the 2450-frame synthetic set; the kernel IoU must equal a
-           host numpy IoU of the same masks;
+           host numpy IoU of the same masks; then `evaluate` again
+           with its parts timed (pipeline, the masks' upload, the
+           `threshold_iou` call, the saliency normalisation, the rest);
   process  (serving main path) `_mask_variants` with the u8 wire and
            the device-side binarisation against the f32 wire
            thresholded on the host;
@@ -101,6 +107,9 @@ TRAIN_KERNELS = ("normalize_u8", "merge_pair", "merge_pair_bwd",
                  "upsample2x", "upsample2x_bwd", "threshold_iou")
 STEP_LAUNCHES = {"normalize_u8": 1, "merge_pair": 1, "merge_pair_bwd": 1,
                  "upsample2x": 5, "upsample2x_bwd": 5}
+# the outputs of merge_pair_bwd checked (da, db, dz): the masker step's
+# (its frames need no gradient), all three, and da with dz
+BWD_NEEDS = [(False, False, True), (True, True, True), (True, False, True)]
 PROTOCOL = ["-train", "-eval", "-synthetic_data", "--chfak", "5",
             "--dropout", "0.5", "--datasize", "20000", "--cepochs", "10",
             "--mepochs", "12", "-frozen", "--model", "chip-smoke-train"]
@@ -445,33 +454,68 @@ def phase_kernels(_build, summary) -> None:
         "shape": f"the 5 chfak-5 skip joins (upsample into concat), f32, "
                  f"batch {BATCH} (sum)"}
 
-    # threshold_iou: exact counts at the eval set, ragged N, odd numel, 0
-    err = 0.0
+    # threshold_iou: exact counts at the eval set, ragged N, odd numel,
+    # N = 0, a mask and a gt off their 16-byte boundaries (the element
+    # path), and calls back to back (each leaves the last-block ticket at
+    # 0 for the next); one device operation per call
+    def same_counts(got, m, g, thr, what):
+        got = [int(v) for v in got]
+        want = [int(v) for v in threshold_iou_plain(m, g, thr)]
+        check(got == want, f"threshold_iou {got} != plain {want} at {what}")
+
     for shape in [(EVAL_N, MASK_F), (1001, MASK_F), (3, 4095),
                   (0, MASK_F)]:
         m = torch.rand(shape, device=dev, generator=gen)
         g = torch.rand(shape, device=dev, generator=gen) > 0.7
-        got = [int(v) for v in threshold_iou(m, g, 0.05)]
-        want = [int(v) for v in threshold_iou_plain(m, g, 0.05)]
-        check(got == want, f"threshold_iou {got} != plain {want} at "
-                           f"{shape}")
-        err = max(err, float(max((abs(a - b) for a, b in zip(got, want)),
-                                 default=0)))
+        same_counts(threshold_iou(m, g, 0.05), m, g, 0.05, shape)
+        if shape[0]:
+            same_counts(threshold_iou(_unaligned(m), g, 0.05), m, g, 0.05,
+                        f"{shape}, mask off a 16-byte boundary")
+            same_counts(threshold_iou(m, _unaligned(g), 0.05), m, g, 0.05,
+                        f"{shape}, gt off a 16-byte boundary")
     m = torch.rand((EVAL_N, MASK_F), device=dev, generator=gen)
     g = (torch.rand((EVAL_N, MASK_F), device=dev, generator=gen) > 0.7)
+    thrs = (0.05, 0.5, 0.05, 0.95)
+    outs = [threshold_iou(m, g, t) for t in thrs]      # no sync between
+    for out, t in zip(outs, thrs):
+        same_counts(out, m, g, t, f"back-to-back call, threshold {t}")
+    ops = device_breakdown(lambda: threshold_iou(m, g, 0.05),
+                           reps=20)["device_ops_per_step"]
+    check(ops == 1, f"threshold_iou made {ops} device operations per "
+                    "call, want 1")
+    # device time with the L2 flushed before each call (`evaluate`'s
+    # masks arrive by a 50 MB upload): by reading 256 MB, which leaves
+    # the L2 clean, and by writing them, which leaves it full of dirty
+    # lines the kernel's reads must write back; and warm, back to back
+    flush = torch.zeros(2 ** 28 // 4, device=dev)
+    cold_ms, per_call = kernel_device_ms(
+        lambda: threshold_iou(m, g, 0.05), "threshold_iou",
+        before=flush.sum)
+    check(per_call == 1, f"threshold_iou: {per_call} kernels per call")
     ne = EVAL_N * MASK_F
     b_ms, b_by = bound_ms(5 * ne + 16, ne)
     summary["threshold_iou"] = {
         "name": "threshold_iou", "route": "cuda",
         "source": "cgs_tpu_torch/csrc/threshold_iou.cu",
         "replaces": "cgs_tpu/ops/pallas_kernels.py:221",
-        "launches": 0, "max_abs_err": err,
-        "ms": time_ms(lambda: threshold_iou(m, g, 0.05), iters=50),
+        "launches": 0, "max_abs_err": 0.0,        # exact, checked above
+        "ms": cold_ms,
         "plain_ms": time_ms(
             lambda: threshold_iou_plain(m, g, 0.05), iters=50),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"f32 + bool ({EVAL_N}, {MASK_F})"}
-    del m, g
+        "device_ms": cold_ms,
+        "dirty_l2_device_ms": kernel_device_ms(
+            lambda: threshold_iou(m, g, 0.05), "threshold_iou",
+            before=flush.zero_)[0],
+        "warm_device_ms": kernel_device_ms(
+            lambda: threshold_iou(m, g, 0.05), "threshold_iou")[0],
+        "host_ms_per_call": time_ms(lambda: threshold_iou(m, g, 0.05),
+                                    iters=50),
+        "device_ops_per_call": ops,
+        "shape": f"f32 + bool ({EVAL_N}, {MASK_F}); ms is device time "
+                 "with the L2 flushed (by a read) before each call"}
+    log("[kernels] threshold_iou:", json.dumps(summary["threshold_iou"]))
+    del m, g, flush
     torch.cuda.empty_cache()
     log(f"[kernels] ok in {time.time() - t0:.1f} s")
 
@@ -529,6 +573,31 @@ def device_breakdown(step, reps: int = 2) -> dict:
             "by_category_ms": {c: us / reps / 1e3 for c, us in
                                sorted(cats.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms": [[k[:90], us / reps / 1e3] for k, us in top]}
+
+
+def kernel_device_ms(step, match: str, reps: int = 20, before=None):
+    """(device ms per call, launches per call) of the kernels whose name
+    holds `match`, from torch.profiler over `reps` calls of `step`, with
+    `before()` (an L2 flush, say) enqueued ahead of each call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if before is not None:
+                before()
+            step()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and match in e.key.lower()):
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+            count += e.count
+    return us / reps / 1e3, count / reps
 
 
 def _random_params(critic, masker, seed: int):
@@ -641,9 +710,61 @@ def phase_eval(_build) -> None:
     check(len(ious) == 2 and all(0.0 <= v <= 1.0 for v in ious),
           f"ious {ious}")
     check(bool(np.isfinite(result["preds"]).all()), "preds not finite")
+    again, parts = _eval_breakdown(cfg, pipe, x, gt)
+    check(again["ious"] == ious, f"second evaluate: {again['ious']}")
     log(f"[eval] chfak 5 f32, {EVAL_N} frames: IoU {ious} (host numpy "
         f"IoU {host}); evaluate wall {wall:.3f} s; phase "
         f"{time.time() - t0:.1f} s")
+    log("[eval] evaluate again, by part (s, host clock, synchronised "
+        "around each part):", json.dumps(parts))
+
+
+def _eval_breakdown(cfg, pipe, x, gt):
+    """`evaluate` once more with each part timed on the host clock, the
+    card synchronised before and after it: `pipeline.run`,
+    `mask_iou_on_device` (the masks' upload, then the `threshold_iou`
+    call, timed on its own), the saliency normalisation, and the rest
+    (host numpy: the u8 frames, the hard masks, the saliency IoU).
+    Measurement only: the same calls run in the same order."""
+    from unittest import mock
+
+    import cgs_tpu_torch.eval.harness as harness
+
+    times = {}
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key] = times.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    norm = ("normalize_saliency_global" if cfg.salglobal
+            else "normalize_saliency_topk")
+    with mock.patch.object(pipe, "run", timed("pipeline.run", pipe.run)), \
+            mock.patch.object(harness, "mask_iou_on_device",
+                              timed("mask_iou_on_device",
+                                    harness.mask_iou_on_device)), \
+            mock.patch.object(harness, "threshold_iou",
+                              timed("threshold_iou call",
+                                    harness.threshold_iou)), \
+            mock.patch.object(harness, norm,
+                              timed("saliency normalisation",
+                                    getattr(harness, norm))):
+        t = time.perf_counter()
+        result = harness.evaluate(cfg, pipe, x, gt, write=False)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+    times["upload (mask_iou_on_device less the threshold_iou call)"] = (
+        times["mask_iou_on_device"] - times["threshold_iou call"])
+    times["rest of evaluate (host numpy)"] = total - sum(
+        times[k] for k in ("pipeline.run", "mask_iou_on_device",
+                           "saliency normalisation"))
+    times["evaluate"] = total
+    return result, times
 
 
 def phase_process() -> None:
@@ -719,60 +840,83 @@ def phase_train_kernels(summary) -> None:
     # merges: the masker step, batch 8192, a ragged shape, N = 0, into
     # the joined (2N) batch, with a and b separate, as the two halves of
     # one joined batch (the ingest's) and off a 16-byte boundary; the
-    # gradient's two halves in both memory formats cuDNN's dgrad may
-    # hand over
+    # backward for each set of outputs in BWD_NEEDS, with the joined
+    # gradient in both memory formats cuDNN's dgrad may hand over
     for n, h, w in [(MASKER_N, 64, 64), (BATCH, 64, 64), (7, 5, 9),
                     (0, 64, 64)]:
         ab, z = frames(2 * n, h, w), frames(n, h, w, 1)
         a, b = frames(n, h, w), frames(n, h, w)
         ua = _unaligned(a.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        for x, y, how in ((a, b, "separate"), (ab[:n], ab[n:], "joined"),
-                          (ua, b, "unaligned")):
+        pairs = ((a, b, "separate"), (ab[:n], ab[n:], "joined"),
+                 (ua, b, "unaligned"))
+        for x, y, how in pairs:
             same([merge_pair(x, y, z)], [merge_pair_plain(x, y, z)],
                  f"merge_pair at {(n, h, w)} {how}")
         g = frames(2 * n, h, w)
         for fmt in (torch.channels_last, torch.contiguous_format):
             gg = g.contiguous(memory_format=fmt)
-            same(merge_pair_bwd(a, b, z, gg[:n], gg[n:]),
-                 merge_pair_bwd_plain(a, b, z, gg[:n], gg[n:]),
-                 f"merge_pair_bwd at {(n, h, w)} {fmt}")
-        del a, b, z, ab, ua, g, gg
+            for x, y, how in pairs:
+                for need in BWD_NEEDS:
+                    got = merge_pair_bwd(x, y, z, gg, need)
+                    want = merge_pair_bwd_plain(x, y, z, gg, need)
+                    what = f"merge_pair_bwd at {(n, h, w)} {how} {fmt} {need}"
+                    check(all((t is not None) == k
+                              for t, k in zip(got, need)),
+                          f"{what}: outputs not as asked")
+                    same([t for t in got if t is not None],
+                         [t for t in want if t is not None], what)
+            del gg
+        del a, b, z, ab, ua, g, pairs
     torch.cuda.empty_cache()
 
+    # timed with a and b the halves of one joined batch and the joined
+    # gradient channels_last-dense, as in the masker step, and NCHW;
+    # merge_pair_bwd for dz alone (what the step asks for, 52 B a
+    # pixel) and for all three outputs (80 B a pixel)
+    dz_only, every = (False, False, True), (True, True, True)
     rows = {}
     for n in (MASKER_N, BATCH):
         ab, z = frames(2 * n), frames(n, 64, 64, 1)
         a, b = ab[:n], ab[n:]
         g = frames(2 * n)
-        gr, gi = g[:n], g[n:]
         g_nchw = g.contiguous()
         px = n * PIX
-        rows[n] = {
+        row = {
             "merge_pair": {
                 "ms": time_ms(lambda: merge_pair(a, b, z), iters=50),
                 "plain_ms": time_ms(lambda: merge_pair_plain(a, b, z),
                                     iters=50),
                 "bound": bound_ms(52 * px, 19 * px)},
-            "merge_pair_bwd": {
-                "ms": time_ms(lambda: merge_pair_bwd(a, b, z, gr, gi),
+            "merge_pair_bwd": {}}
+        bwd = row["merge_pair_bwd"]
+        for key, need, nbytes, ops in (("dz", dz_only, 52, 11),
+                                       ("all", every, 80, 31)):
+            bwd[key] = {
+                "ms": time_ms(lambda: merge_pair_bwd(a, b, z, g, need),
                               iters=50),
                 "ms_nchw_grads": time_ms(lambda: merge_pair_bwd(
-                    a, b, z, g_nchw[:n], g_nchw[n:]), iters=50),
+                    a, b, z, g_nchw, need), iters=50),
                 "plain_ms": time_ms(lambda: merge_pair_bwd_plain(
-                    a, b, z, gr, gi), iters=50),
-                "bound": bound_ms(80 * px, 31 * px)}}
+                    a, b, z, g, need), iters=50),
+                "bound": bound_ms(nbytes * px, ops * px)}
+            if n == MASKER_N:
+                bwd[key]["device_ms"] = kernel_device_ms(
+                    lambda: merge_pair_bwd(a, b, z, g, need),
+                    "merge_pair_bwd")[0]
         if n == MASKER_N:
-            rows[n]["merge_pair"]["device_ms"] = device_breakdown(
-                lambda: merge_pair(a, b, z), reps=20)["ms_per_step"]
-            rows[n]["merge_pair_bwd"]["device_ms"] = device_breakdown(
-                lambda: merge_pair_bwd(a, b, z, gr, gi),
-                reps=20)["ms_per_step"]
-        del a, b, z, ab, g, gr, gi, g_nchw
+            row["merge_pair"]["device_ms"] = kernel_device_ms(
+                lambda: merge_pair(a, b, z), "merge_pair")[0]
+        rows[n] = row
+        del a, b, z, ab, g, g_nchw
         torch.cuda.empty_cache()
     log("[kernels] merges (ms; N = 64 is the masker step; merge_pair "
-        "writes the joined 2N batch):", json.dumps(rows))
+        "writes the joined 2N batch; merge_pair_bwd for dz alone, as the "
+        "step asks, and for all three outputs):", json.dumps(rows))
     for name, src_line in (("merge_pair", 110), ("merge_pair_bwd", 151)):
         r = rows[MASKER_N][name]
+        r8 = rows[BATCH][name]
+        if name == "merge_pair_bwd":
+            r, r8 = r["dz"], r8["dz"]
         summary[name] = {
             "name": name, "route": "cuda",
             "source": "cgs_tpu_torch/csrc/merge_pair.cu",
@@ -781,9 +925,18 @@ def phase_train_kernels(summary) -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None, "device_ms": r["device_ms"],
-            "batch_8192_ms": rows[BATCH][name]["ms"],
+            "batch_8192_ms": r8["ms"], "batch_8192_bound_ms": r8["bound"][0],
             "shape": f"f32 ({MASKER_N}, 3, 64, 64) channels_last + mask "
                      f"({MASKER_N}, 1, 64, 64)"}
+    summary["merge_pair_bwd"]["shape"] += (
+        f", joined gradient ({2 * MASKER_N}, 3, 64, 64) channels_last; dz "
+        "alone, as the masker step asks")
+    summary["merge_pair_bwd"]["all_outputs"] = {
+        "device_ms": rows[MASKER_N]["merge_pair_bwd"]["all"]["device_ms"],
+        "bound_ms": rows[MASKER_N]["merge_pair_bwd"]["all"]["bound"][0],
+        "batch_8192_ms": rows[BATCH]["merge_pair_bwd"]["all"]["ms"],
+        "batch_8192_bound_ms":
+            rows[BATCH]["merge_pair_bwd"]["all"]["bound"][0]}
 
     # upsample backward, fused: the five joins of chfak 5 and chfak 1 at
     # batch 128 and the ragged joins at N = 3 and 0, f32 and bf16, the
@@ -923,9 +1076,12 @@ def phase_train_step(_build) -> None:
     layouts = {}
     real_mbwd, real_ubwd = merge_mod.merge_pair_bwd, upsample_mod.upcat_bwd
 
-    def spy_mbwd(a, b, z, gr, gi):
-        layouts["merge_pair_bwd (gr, gi)"] = [_layout(gr), _layout(gi)]
-        return real_mbwd(a, b, z, gr, gi)
+    needs = []
+
+    def spy_mbwd(a, b, z, g, need):
+        layouts["merge_pair_bwd (joined g)"] = _layout(g)
+        needs.append(tuple(need))
+        return real_mbwd(a, b, z, g, need)
 
     def spy_ubwd(gg, cs, factor, need_skip):
         layouts.setdefault("upsample2x_bwd (shape, strides, Cs, d_skip)",
@@ -960,6 +1116,11 @@ def phase_train_step(_build) -> None:
     log("[step] launches per masker step:", per_step)
     check(per_step == STEP_LAUNCHES,
           f"launches per masker step {per_step}, want {STEP_LAUNCHES}")
+    # the frames need no gradient: the step asks merge_pair_bwd for dz
+    log("[step] merge_pair_bwd asked for (da, db, dz):", needs)
+    check(needs == [(False, False, True)],
+          f"the masker step asked merge_pair_bwd for {needs}, want "
+          "[(False, False, True)]")
     log("[step] gradient layouts the kernels were handed:",
         json.dumps(layouts))
     d_terms = max(abs(k_terms[t] - p_terms[t]) for t in terms)

@@ -115,11 +115,25 @@ def test_upsample2x_bit_equal(dev, dtype):
 
 @pytest.mark.cuda
 def test_threshold_iou_exact(dev):
+    """Exact counts at the eval set, ragged N, an odd numel (the tail
+    element by element), N = 0, a mask and a gt off their 16-byte
+    boundaries (the element path), and calls back to back (each leaves
+    the last-block ticket at 0 for the next)."""
     for shape in [(0, 4096), (5, 4096), (2450, 4096), (3, 4095)]:
         m = torch.rand(shape, device=dev)
         g = torch.rand(shape, device=dev) > 0.7
         got = [int(v) for v in threshold_iou(m, g, 0.05)]
         assert got == [int(v) for v in threshold_iou_plain(m, g, 0.05)]
+        if shape[0]:
+            um, ug = _unaligned(m), _unaligned(g)
+            assert [int(v) for v in threshold_iou(um, g, 0.05)] == got
+            assert [int(v) for v in threshold_iou(m, ug, 0.05)] == got
+    m = torch.rand((2450, 4096), device=dev)
+    g = torch.rand((2450, 4096), device=dev) > 0.5
+    outs = [threshold_iou(m, g, t) for t in (0.05, 0.5, 0.05, 0.95)]
+    for (i, u), t in zip(outs, (0.05, 0.5, 0.05, 0.95)):
+        assert [int(i), int(u)] == [int(v) for v in
+                                    threshold_iou_plain(m, g, t)], t
 
 
 @pytest.mark.cuda
@@ -170,13 +184,24 @@ def _same(got, want):
                for g, w in zip(got, want))
 
 
+NEEDS = [(False, False, True), (True, True, True), (True, False, True)]
+
+
+def _same_or_none(got, want):
+    return all((g is None) == (w is None) for g, w in zip(got, want)) and \
+        _same([g for g in got if g is not None],
+              [w for w in want if w is not None])
+
+
 @pytest.mark.cuda
 def test_merge_pair_and_bwd_bit_equal(dev):
     """The joined output at the masker step's shape, a ragged one (a
-    pixel count not divisible by 4), N = 0, frames that are the halves
-    of one joined batch and frames off a 16-byte boundary; the
-    gradient's two halves in both memory formats."""
-    for n, h, w in [(0, 64, 64), (7, 5, 9), (64, 64, 64)]:
+    pixel count not divisible by 4 or by the backward's 1024-pixel
+    tile), N = 0, frames that are the halves of one joined batch and
+    frames off a 16-byte boundary; the backward for the outputs the
+    masker step asks for (dz), all three and (da, dz), with the joined
+    gradient in both memory formats."""
+    for n, h, w in [(0, 64, 64), (7, 5, 9), (64, 64, 64), (3, 64, 65)]:
         ab = _frames(dev, 2 * n, h, w)
         z = _frames(dev, n, h, w, 1)
         _build.launches.clear()
@@ -185,18 +210,23 @@ def test_merge_pair_and_bwd_bit_equal(dev):
             got = merge_pair(a, b, z)
             assert got.is_contiguous(memory_format=torch.channels_last)
             assert _same([got], [merge_pair_plain(a, b, z)]), n
+        ua = _unaligned(a.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         if n:
-            ua = _unaligned(a.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             assert _same([merge_pair(ua, b, z)],
                          [merge_pair_plain(ua, b, z)])
         g = _frames(dev, 2 * n, h, w)
         for fmt in (torch.channels_last, torch.contiguous_format):
             gg = g.contiguous(memory_format=fmt)
-            assert _same(merge_pair_bwd(a, b, z, gg[:n], gg[n:]),
-                         merge_pair_bwd_plain(a, b, z, gg[:n], gg[n:])), (
-                n, fmt)
+            for x, y in ((a, b), (ab[:n], ab[n:]), (ua, b)):
+                for need in NEEDS:
+                    got = merge_pair_bwd(x, y, z, gg, need)
+                    assert all((t is not None) == k
+                               for t, k in zip(got, need))
+                    assert _same_or_none(
+                        got, merge_pair_bwd_plain(x, y, z, gg, need)), (
+                        n, h, w, fmt, need)
         assert dict(_build.launches) == (
-            {"merge_pair": 3, "merge_pair_bwd": 2} if n else {})
+            {"merge_pair": 3, "merge_pair_bwd": 18} if n else {})
     with pytest.raises(ValueError, match="channels_last"):
         a = torch.rand(2, 3, 8, 8, device=dev)          # NCHW frames
         merge_pair(a, a, torch.rand(2, 1, 8, 8, device=dev))

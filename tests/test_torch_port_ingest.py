@@ -178,8 +178,8 @@ def test_merge_both_joined_batch_and_grads(grad_format):
     """a and b as the two halves of one joined batch (the ingest's),
     the merges into one joined batch: values equal the plain blends
     (exactly) and JAX's merge_both (Pallas, interpret); gradients
-    equal merge_pair_bwd_plain on the two halves of the joined
-    gradient (exactly), autograd of the blends (1e-6) and JAX's VJP
+    equal merge_pair_bwd_plain on the joined gradient (exactly),
+    autograd of the blends (1e-6) and JAX's VJP
     (1e-5)."""
     rng = np.random.default_rng(9)
     n = 3
@@ -204,7 +204,7 @@ def test_merge_both_joined_batch_and_grads(grad_format):
     if grad_format == "nchw":
         g = g.contiguous()
     merged.backward(g)
-    _, _, dz = merge_pair_bwd_plain(a, b, z.detach(), g[:n], g[n:])
+    _, _, dz = merge_pair_bwd_plain(a, b, z.detach(), g)
     assert torch.equal(z.grad, dz)
     zz = z.detach().clone().requires_grad_()
     torch.cat([replace_merge(a, b, zz), inject_merge(a, b, zz)]).backward(g)

@@ -25,7 +25,7 @@ from cgs_tpu.ops.pallas_upsample import (
 )
 from cgs_tpu_torch.ops import _build
 from cgs_tpu_torch.ops.kernels import (
-    INV255, MAX_SEGMENTS, normalize_u8, normalize_u8_plain, threshold_iou,
+    INV255, IOU_MAX_BLOCKS, MAX_SEGMENTS, normalize_u8, normalize_u8_plain, threshold_iou,
     threshold_iou_plain,
 )
 from cgs_tpu_torch.ops.upsample import upsample2x, upsample2x_plain
@@ -172,6 +172,9 @@ def test_binding_matches_the_c_entry_points(name):
     if name == "normalize_u8":     # the segments one launch takes
         assert int(re.search(r"kMaxSeg = (\d+);", src).group(1)) == \
             MAX_SEGMENTS
+    if name == "threshold_iou":    # the slots of the wrapper's scratch
+        assert int(re.search(r"kMaxBlocks = (\d+);", src).group(1)) == \
+            IOU_MAX_BLOCKS
     assert "-gencode" in _build.NVCC_FLAGS and \
         "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 

@@ -142,10 +142,11 @@ def test_merge_pair_and_bwd_plain_equal_jax_kernels():
         *flat, zf, jnp.asarray(gr.reshape(n, -1)),
         jnp.asarray(gi.reshape(n, -1)))
     jdz = np.asarray(jdz3).reshape(a.shape).sum(-1, keepdims=True)
-    # gradients in either memory format give the same result
+    # the joined gradient in either memory format gives the same result
+    g = nchw(np.concatenate([gr, gi]))
     for fmt in (torch.channels_last, torch.contiguous_format):
-        g_r, g_i = (nchw(v).contiguous(memory_format=fmt) for v in (gr, gi))
-        da, db, dz = merge_pair_bwd(nchw(a), nchw(b), nchw(z), g_r, g_i)
+        da, db, dz = merge_pair_bwd(nchw(a), nchw(b), nchw(z),
+                                    g.contiguous(memory_format=fmt))
         np.testing.assert_allclose(nhwc(da).reshape(n, -1), np.asarray(jda),
                                    atol=1e-6)
         np.testing.assert_allclose(nhwc(db).reshape(n, -1), np.asarray(jdb),
@@ -153,8 +154,7 @@ def test_merge_pair_and_bwd_plain_equal_jax_kernels():
         np.testing.assert_allclose(nhwc(dz), jdz, atol=1e-6)
     # the channel sum is ((d0 + d1) + d2), in that order
     d = (nchw(gr) - nchw(gi)) * (nchw(b) - nchw(a))
-    _, _, dz = merge_pair_bwd_plain(nchw(a), nchw(b), nchw(z), nchw(gr),
-                                    nchw(gi))
+    _, _, dz = merge_pair_bwd_plain(nchw(a), nchw(b), nchw(z), g)
     assert torch.equal(dz, (d[:, 0:1] + d[:, 1:2]) + d[:, 2:3])
     assert torch.equal(merge_pair_plain(nchw(a), nchw(b), nchw(z)), joined)
 
@@ -166,8 +166,12 @@ def test_merge_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="float32"):
         merge_pair(a.double(), a.double(), torch.zeros(2, 1, 8, 8).double())
     with pytest.raises(ValueError, match="gradient"):
-        merge_pair_bwd(a, a, torch.zeros(2, 1, 8, 8), a, torch.zeros(2, 3,
-                                                                      4, 4))
+        merge_pair_bwd(a, a, torch.zeros(2, 1, 8, 8), torch.zeros(4, 3, 4, 4))
+    with pytest.raises(ValueError, match="joined"):     # one half only
+        merge_pair_bwd(a, a, torch.zeros(2, 1, 8, 8), a)
+    with pytest.raises(ValueError, match="3 flags"):
+        merge_pair_bwd(a, a, torch.zeros(2, 1, 8, 8), torch.cat([a, a]),
+                       (True, True))
     _build.launches.clear()
     replace_merge(a, a, torch.zeros(2, 1, 8, 8))
     inject_merge(a, a, torch.zeros(2, 1, 8, 8))
