@@ -8,8 +8,8 @@
 the CUDA card; `--device cpu` runs on the CPU. In f32 mode both TF32
 switches are turned off, so f32 convs run in full f32 (`--bf16` is the
 fast mode). With `-train`, cuDNN runs deterministically, so one seed
-trains to the same result on every run. The visualisers are not ported
-yet and raise.
+trains to the same result on every run. `--profile DIR` traces every
+dispatched phase into one trace (`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -33,7 +33,10 @@ def main(argv: Optional[list] = None, primary: bool = True) -> Handler:
               tf32_state() if cfg.bf16 else disable_tf32())
         if cfg.train:
             print("[cgs-tpu-torch] cudnn:", deterministic_cudnn())
-    _dispatch(cfg, handler)
+    # --profile: one trace over every dispatched phase, stopped and
+    # written however the phases end
+    with handler.profiler.trace():
+        _dispatch(cfg, handler)
     return handler
 
 

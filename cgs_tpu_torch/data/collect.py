@@ -1,4 +1,4 @@
-"""Dataset collection (port of `cgs_tpu/data/collect.py:22-193`;
+"""Dataset collection (port of `cgs_tpu/data/collect.py:22-239`;
 reference main.py:1272-1458).
 
 The trajectory filters and labelling are pure numpy functions, copied
@@ -6,7 +6,7 @@ as they are. The gzip-pickle cache `(X, Y, I)`, its filename scheme
 (main.py:1277-1284) and the sha256 sidecar are the JAX package's, so a
 cache written by either package loads in the other. The MineRL
 download and iteration run only where `minerl` is importable.
-`clean_data` (`-cleaned`) is not ported yet.
+`clean_data` is the `-cleaned` chunking that `--trainasvis` reads.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import gzip
 import hashlib
 import os
 import pickle
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -88,15 +88,17 @@ def load_cache(path: str):
 
 def save_cache(path: str, x, y, i) -> None:
     """Gzip-pickle + sha256 sidecar, published atomically: data to a
-    temp name, sidecar first, then rename, so a crash mid-save never
-    leaves a truncated cache that a later run accepts."""
+    per-process temp name, sidecar first, then rename, so a crash
+    mid-save never leaves a truncated cache that a later run accepts,
+    and processes that write the same cache at once never mix their
+    bytes."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
+    tmp = f"{path}.{os.getpid()}.tmp"
     with gzip.GzipFile(tmp, "wb") as fp:
         pickle.dump((x, y, i), fp)
     with open(path + ".sha256", "w") as fp:
         fp.write(_digest(tmp))
-    os.rename(tmp, path)
+    os.replace(tmp, path)
 
 
 def collect_data(cfg, datadir: str = "runs/data/straight/",
@@ -183,3 +185,49 @@ def _collect_minerl(cfg, size: int, path: str, gammas, write: bool):
     if write:
         save_cache(path, X[:runidx], Y[:, :runidx], I[:runidx])
     return X[:runidx], Y[:, :runidx], I[:runidx]
+
+
+def clean_data(cfg, datadir: str = "train/data/straight/",
+               x: Optional[np.ndarray] = None,
+               y: Optional[np.ndarray] = None,
+               i: Optional[np.ndarray] = None, write: bool = True):
+    """Reward-event "chop" chunking (main.py:1361-1458): dedupe rewards
+    closer than 100 frames, shift chops back by 20, take the 100-frame
+    chunk ending at each chop, re-label the last 5 frames as reward.
+    Cached as `{datadir}/{[synthetic-]datasize}-clean.pickle`, the JAX
+    package's name and format; write=False skips the cache."""
+    chunklen = 100
+    min_delta = chunklen
+    shift = 20
+    # the collect_data namespace rule: fixture and real cleaned data
+    # never shadow each other
+    stem = f"synthetic-{cfg.datasize}" if cfg.synthetic_data \
+        else f"{cfg.datasize}"
+    path = os.path.join(datadir, f"{stem}-clean.pickle")
+    if os.path.exists(path):
+        return load_cache(path)
+
+    if x is None:
+        x, y, i = collect_data(cfg, write=write)
+    yrow = y[0]
+
+    chops = np.nonzero(yrow)[0]
+    if len(chops) == 0:
+        raise RuntimeError("clean_data: dataset contains no rewards")
+    choptimes = i[chops].astype(np.int64)
+    deltas = choptimes[1:] - choptimes[:-1]
+    accepted = (deltas > min_delta) | (deltas < 0)
+    clean_chops = np.concatenate((chops[:1], chops[1:][accepted]))
+
+    shift_chops = clean_chops[i[clean_chops] >= shift] - shift
+    chunk_chops = shift_chops[i[shift_chops] >= chunklen]
+    clean_idxs = np.concatenate(
+        [1 + np.arange(c - chunklen, c) for c in chunk_chops])
+    yrow = yrow.copy()
+    for k in range(5):
+        yrow[chunk_chops - k] = 1
+
+    out = (x[clean_idxs], yrow[clean_idxs], i[clean_idxs])
+    if write:
+        save_cache(path, *out)
+    return out

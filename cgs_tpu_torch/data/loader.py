@@ -1,9 +1,10 @@
 """Host -> device data staging (port of `cgs_tpu/data/loader.py`).
 
 The uint8 dataset goes to the card once (100k x 64x64x3 = 1.2 GB), and
-each epoch draws only shuffled index stacks; the trainers gather their
-batches on the card with `index_select` (`train/loops.py`).
-`EpochLoader` is the JAX package's numpy code as it is, so one numpy
+each epoch draws only shuffled index stacks; the trainers' ingest
+kernel gathers each batch from the bank by those indices as it
+normalises it (`ops/kernels.py:gather_normalize_u8`, through
+`train/losses.py:ingest_segments`). `EpochLoader` is the JAX package's numpy code as it is, so one numpy
 seed gives both packages the same batch order.
 """
 

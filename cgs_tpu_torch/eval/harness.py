@@ -7,8 +7,9 @@ report the IoU of every variant (main.py:1005-1015). The mask IoU is
 counted on the pipeline's device by the `threshold_iou` kernel (strict
 `>` at --eval-thresh, main.py:964); the masks are uploaded to it once.
 The `hard` and saliency variants stay host numpy, as in the JAX
-package. A new best IoU renders the TP/FN/FP comparison video
-(main.py:1027-1087); PIL, cv2 and ffmpeg are imported only there.
+package, and so does the CRF refinement under -crf (`eval/crf.py`). A
+new best IoU renders the TP/FN/FP comparison video (main.py:1027-1087);
+PIL, cv2 and ffmpeg are imported only there.
 
 Training never sees these labels: they enter only here.
 """
@@ -85,17 +86,16 @@ def mask_iou_on_device(masks: np.ndarray, gt: np.ndarray, thresh: float,
 
 
 def evaluate(cfg, pipeline, x: np.ndarray, gt: np.ndarray,
-             best_iou: float = 0.0,
+             crf_fn=None, best_iou: float = 0.0,
              out_dir: str = "eval-results", write: bool = True) -> Dict:
     """Returns {'ious': [...], 'preds': ..., 'variants': ...} in the
-    reference's variant order: [mask, (saliency)] (main.py:1005-1015).
+    reference's variant order: [mask, (crf), (saliency), (saliency+crf)]
+    (main.py:1005-1015). The CRF variants (-crf with a `crf_fn`, such
+    as `eval.crf.DenseCRF`) refine the f32 masks on the host; their IoU
+    is the host `iou` of the refined bool masks.
 
     write=False skips the file artifacts (resimages PNG dumps, best-IoU
-    video). CRF refinement is not ported yet."""
-    if cfg.crf:
-        raise NotImplementedError(
-            "-crf: the denseCRF binding is not ported yet (ROADMAP.md "
-            "queue 1 item 9)")
+    video)."""
     x_u8 = (x * 255).astype(np.uint8)
     out = pipeline.run(x_u8)
     preds, masks, sal = out.preds, out.masks, out.saliency
@@ -105,6 +105,12 @@ def evaluate(cfg, pipeline, x: np.ndarray, gt: np.ndarray,
                                pipeline.device)]
     variants = {"mask": masks.squeeze(-1), "hard": hard}
 
+    with_crf = cfg.crf and crf_fn is not None
+    if with_crf:                                          # main.py:969
+        crf_hard = crf_fn(x_u8, masks.squeeze(-1))
+        ious.append(iou(crf_hard, gt))
+        variants["crf"] = crf_hard
+
     if cfg.salience and sal is not None:                  # main.py:976
         norm_fn = normalize_saliency_global if cfg.salglobal \
             else normalize_saliency_topk
@@ -113,6 +119,10 @@ def evaluate(cfg, pipeline, x: np.ndarray, gt: np.ndarray,
         ious.append(iou(sal_hard, gt))
         variants["sal"] = sal_soft.squeeze(-1)
         variants["sal_hard"] = sal_hard
+        if with_crf:
+            sal_crf = crf_fn(x_u8, sal_soft.squeeze(-1))
+            ious.append(iou(sal_crf, gt))
+            variants["sal_crf"] = sal_crf
 
     result = {"ious": ious, "preds": preds, "variants": variants}
 

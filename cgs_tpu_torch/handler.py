@@ -20,9 +20,16 @@ stacks go up and the losses come down once per chunk
 split, and the masker phase draws its index stacks from
 `SeedSequence([seed, 0x6d61736b, epoch, done])`, so for one seed both
 packages see the same batches. The shift and dropout draws come from
-`torch.Generator`s seeded with --seed. The visualisers, CRF, video
-`-process`, the ensemble, `-orbax` and `--profile` are not ported yet;
-they raise `NotImplementedError` naming their ROADMAP.md item.
+`torch.Generator`s seeded with --seed.
+
+Inference extensions, as in the JAX package: `-crf` refines the eval
+and `-process` masks on the host (`eval/crf.py`); `--ensemble N` serves
+the mean of the N per-seed runs `{model}-seed{s}`, loaded once per
+Handler; a video file as --source-imgs goes to `segment_video`;
+`-viscritic`/`-vismasker`/`--trainasvis` render the curve videos;
+`--profile DIR` traces the run (`utils/profiling.py:Profiler`, started
+by `cli.main`). `-orbax` is not ported yet and raises
+`NotImplementedError` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -40,13 +47,16 @@ from cgs_tpu_torch.core.device import resolve_device
 from cgs_tpu_torch.data.collect import collect_data
 from cgs_tpu_torch.data.loader import DataBundle, EpochLoader
 from cgs_tpu_torch.eval.harness import evaluate, load_eval_set
-from cgs_tpu_torch.eval.segment import segment_folder
+from cgs_tpu_torch.eval.segment import (
+    VIDEO_EXTS, segment_folder, segment_video,
+)
 from cgs_tpu_torch.models.critic import Critic
 from cgs_tpu_torch.models.decoder import UnetDecoder
 from cgs_tpu_torch.models.interop import init_torch_default
 from cgs_tpu_torch.pipeline import MaskPipeline
 from cgs_tpu_torch.train.checkpoints import (
-    checkpoint_paths, load_model_pt, save_model_pt)
+    checkpoint_paths, load_model_pt, load_seed_ensemble, save_model_pt,
+)
 from cgs_tpu_torch.train.contrastive import (
     extract_contrastive_sets, sample_index_stacks,
 )
@@ -60,13 +70,12 @@ from cgs_tpu_torch.utils.artifacts import (
     annotate_strip, save_histogram, save_loss_plot,
 )
 from cgs_tpu_torch.utils.metrics import MetricsWriter, write_log_header
-from cgs_tpu_torch.utils.profiling import nan_guard
+from cgs_tpu_torch.utils.profiling import Profiler, nan_guard
 
 CRITIC = "critic"
 MASKER = "masker"
 SEPCRIT = "sepcrit"
 
-VIDEO_EXTS = (".mp4", ".avi", ".mov", ".mkv", ".webm")
 MASK_STREAM = 0x6d61736b        # 'mask': the masker phase's numpy stream
 
 
@@ -79,14 +88,9 @@ def _not_ported(what: str, item: str):
 class Handler:
     def __init__(self, cfg: Config, primary: bool = True):
         self.cfg = cfg
-        if cfg.ensemble:
-            raise _not_ported("--ensemble", "queue 1 item 9")
         if cfg.orbax:
             raise _not_ported("-orbax (train-state resume)",
-                              "queue 1 item 9")
-        if cfg.profile:
-            raise _not_ported("--profile (a torch.profiler trace)",
-                              "queue 1 item 9")
+                              "queue 1 item 2, -orbax resume")
         self.device = resolve_device(cfg.device)
         self.primary = primary      # gates every file write
         self.rng = np.random.default_rng(cfg.seed)
@@ -106,6 +110,8 @@ class Handler:
         self.path = f"{cfg.name}/"
         self.save_paths = checkpoint_paths(cfg)
         self.metrics = MetricsWriter(self.path, enabled=self.primary)
+        # --profile: the trace is written whatever `primary` says
+        self.profiler = Profiler(cfg.profile or None, device=self.device)
         self.data: Optional[DataBundle] = None
         self.contrastive = None
         # per-step losses of the last training phases: critic (S,),
@@ -113,6 +119,7 @@ class Handler:
         self.loss_log: Dict[str, np.ndarray] = {}
         self._pipes: Dict = {}       # inference pipelines per config
         self._eval_sets: Dict = {}   # folder -> (x, gt) eval data
+        self._ensemble_params = None  # --ensemble members, loaded once
 
     # -- model/param management ------------------------------------
 
@@ -157,41 +164,69 @@ class Handler:
     def _pipeline(self, salience: bool, wire: str = "f32",
                   hard_threshold=None) -> MaskPipeline:
         """One pipeline per (salience, wire, hard_threshold); a reused
-        pipeline only copies in the current weights."""
+        pipeline only copies in the current weights.
+
+        --ensemble N serves the mean of the N per-seed runs
+        `{model}-seed{s}` (cgs_tpu/handler.py:548-580): the members are
+        read from disk once per Handler and never refreshed from
+        self.params."""
+        ensemble = self.cfg.ensemble > 0
         cache_key = (salience, wire, hard_threshold)
         pipe = self._pipes.get(cache_key)
         if pipe is not None:
-            pipe.update_params(self.params)
+            if not ensemble:
+                pipe.update_params(self.params)
             return pipe
         batch = self.cfg.infer_batch or (
             8192 if self.device.type == "cuda" else 128)
+        params = self.params
+        if ensemble:
+            if self._ensemble_params is None:
+                self._ensemble_params = load_seed_ensemble(
+                    self.cfg, self.cfg.ensemble)
+            params = self._ensemble_params
         pipe = MaskPipeline(
-            self.critic, self.masker, self.params,
+            self.critic, self.masker, params,
             batch_size=batch,
             salience=salience,
             eval_mode=not self.cfg.noevalmode,   # main.py:900-909
-            separate=self.cfg.separate,
+            separate=self.cfg.separate and not ensemble,
             seed=self.cfg.seed,
+            ensemble=ensemble,
             wire=wire,
             hard_threshold=hard_threshold,
             device=self.device)
         self._pipes[cache_key] = pipe
         return pipe
 
+    def _crf_fn(self):
+        """The DenseCRF under -crf; None without it, or, with a message,
+        when the library cannot be built or loaded
+        (cgs_tpu/handler.py:582-592)."""
+        if not self.cfg.crf:
+            return None
+        try:
+            from cgs_tpu_torch.eval.crf import DenseCRF
+            return DenseCRF(rescale=self.cfg.crf_rescale)
+        except (OSError, RuntimeError) as e:
+            print(f"[cgs-tpu-torch] CRF unavailable ({e}); skipping "
+                  "refinement (the reference ships with its pydensecrf "
+                  "import commented out, main.py:8,23)")
+            return None
+
     def eval(self, folder: str = "") -> List[float]:
         """IoU eval (main.py:891-1101); with `folder`, evaluates a
         directory of images against an all-zero GT (main.py:917-918)."""
         cfg = self.cfg
-        if cfg.crf:
-            raise _not_ported("-crf", "queue 1 item 9")
         out_dir = f"eval-results/{cfg.name}/"
         if folder not in self._eval_sets:
             self._eval_sets[folder] = load_eval_set(
                 cfg, evaldatapath=cfg.evaldatapath, folder=folder)
         x, gt = self._eval_sets[folder]
         pipe = self._pipeline(salience=cfg.salience)
-        result = evaluate(cfg, pipe, x, gt, best_iou=self.ious[0],
-                          out_dir=out_dir, write=self.primary)
+        result = evaluate(cfg, pipe, x, gt, crf_fn=self._crf_fn(),
+                          best_iou=self.ious[0], out_dir=out_dir,
+                          write=self.primary)
         ious = result["ious"]
         # the best-tracker update is absent on purpose, as in the
         # reference (main.py:1018)
@@ -201,22 +236,46 @@ class Handler:
         return ious
 
     def segment(self, folder: str) -> Dict:
-        """-process (main.py:1103-1223) on a folder of 64x64 images.
-        The mask comes down the reduced wire: PNG-space uint8 plus the
-        device-side binarisation (bit-identical PNGs, 1/4 the bytes)."""
+        """-process (main.py:1103-1223) on a folder of 64x64 images, or
+        on a video file (`segment_video`). Without -crf the mask comes
+        down the reduced wire: PNG-space uint8 plus the device-side
+        binarisation (bit-identical PNGs, 1/4 the bytes); the CRF reads
+        f32 masks, so -crf keeps the f32 wire."""
         cfg = self.cfg
-        if cfg.crf:
-            raise _not_ported("-crf", "queue 1 item 9")
-        if os.path.isfile(folder) and folder.lower().endswith(VIDEO_EXTS):
-            raise _not_ported("video-file -process", "queue 1 item 9")
-        hard = cfg.binarymaskthreshold or None
+        wire = "f32" if cfg.crf else "u8"
+        hard = (cfg.binarymaskthreshold
+                if wire == "u8" and cfg.binarymaskthreshold else None)
         pipe = self._pipeline(salience=cfg.process_salience,
-                              wire="u8", hard_threshold=hard)
-        return segment_folder(cfg, pipe, folder, write=self.primary)
+                              wire=wire, hard_threshold=hard)
+        driver = (segment_video if os.path.isfile(folder)
+                  and folder.lower().endswith(VIDEO_EXTS)
+                  else segment_folder)
+        return driver(cfg, pipe, folder, crf_fn=self._crf_fn(),
+                      write=self.primary)
 
     def visualize(self) -> List[str]:
-        raise _not_ported("-viscritic/-vismasker/--trainasvis",
-                          "queue 1 item 9")
+        """-viscritic/-vismasker curve videos (main.py:702-885).
+        --trainasvis N shows the first N train frames instead of the
+        test split, from clean_data under -cleaned (main.py:736-742)."""
+        from cgs_tpu_torch.data.collect import clean_data
+        from cgs_tpu_torch.eval.visualize import visualize as vis
+        cfg = self.cfg
+        if cfg.trainasvis:
+            if cfg.cleaned:
+                x, y, _ = clean_data(cfg, write=self.primary)
+                y = np.tile(y, (7, 1)) if y.ndim == 1 else y
+            else:
+                x, y, _ = collect_data(cfg, write=self.primary)
+            x = x[: cfg.trainasvis]
+            y_mat = y[:, : cfg.trainasvis]
+        else:
+            if self.data is None:
+                self.load_data()
+            x = self.data.x_test
+            y_mat = self.data.y_test
+        pipe = self._pipeline(salience=False)
+        return vis(cfg, pipe, x, y_mat[cfg.rewidx], self.path,
+                   y_matrix=y_mat, write=self.primary)
 
     # -- data --------------------------------------------------------
 
@@ -284,8 +343,9 @@ class Handler:
             # hard-coded 100 batches (main.py:204); --visevery drives
             # only the masker phase (main.py:466)
             for idx in loader.chunks(100):
-                losses = critic_chunk(cfg, critic, opt, x_dev, y_dev, idx,
-                                      rng).cpu().numpy()
+                with self.profiler.annotate("critic_chunk"):
+                    losses = critic_chunk(cfg, critic, opt, x_dev, y_dev,
+                                          idx, rng).cpu().numpy()
                 steps += len(idx)
                 if cfg.debug_nan:
                     nan_guard({"losses": losses,
@@ -382,9 +442,10 @@ class Handler:
                     [cfg.seed, MASK_STREAM, epoch, done]))
                 h, l, c = sample_index_stacks(crng, sets.n_pos,
                                               sets.n_neg, s, k)
-                losses = masker_chunk(
-                    cfg, models, opt, sets.xpos, sets.ypos, sets.xneg,
-                    sets.yneg, h, l, c, rng).cpu().numpy()   # (s, 4)
+                with self.profiler.annotate("masker_chunk"):
+                    losses = masker_chunk(
+                        cfg, models, opt, sets.xpos, sets.ypos, sets.xneg,
+                        sets.yneg, h, l, c, rng).cpu().numpy()  # (s, 4)
                 steps += s
                 if cfg.debug_nan:
                     nan_guard({"losses": losses,

@@ -15,13 +15,20 @@ frames (N, H, W, 3) uint8, masks (N, H, W, 1).
 `run` chunks host frames into fixed batches, zero-pads the last one,
 and keeps at most `max_in_flight` chunks of outputs on the device.
 `run_device` is the device-resident path.
+
+With `ensemble=True` (port of `cgs_tpu/pipeline.py:81-86,213-254`) the
+pipeline holds R members and outputs the mean over them of pred, soft
+mask and saliency: the batch is ingested once, each member's critic and
+decoder run in turn (1 + 5R kernel launches per batch), the outputs are
+summed in f32 in member order and divided by R, and only then encoded
+for the wire, so the u8 wire and the hard plane see the mean mask.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -48,12 +55,15 @@ class MaskPipeline:
 
     critic, masker: the `Critic` / `UnetDecoder` modules that fix the
     architecture and compute dtype; params: {'critic', 'masker'[,
-    'sepcrit']} state_dicts. The pipeline keeps its own copies on
-    `device` (default cuda; raises without a card).
+    'sepcrit']} state_dicts, or with ensemble=True a sequence of R such
+    dicts, one per member (`train/checkpoints.py:load_seed_ensemble`).
+    The pipeline keeps its own copies on `device` (default cuda; raises
+    without a card).
 
     eval_mode=True disables dropout (reference `.eval()`,
     main.py:900-909); False (`-noevalmode`) keeps it live, drawing
-    from a `torch.Generator` seeded with `seed`.
+    from a `torch.Generator` seeded with `seed` (an ensemble's members
+    draw from it in member order).
 
     wire: 'f32' returns soft masks; 'u8' returns floor(255*clip(m,0,1))
     as uint8 (what the -process PNG writers compute from f32 masks) in
@@ -63,7 +73,9 @@ class MaskPipeline:
 
     MAX_IN_FLIGHT = 3   # run(): chunks of outputs alive on the device
 
-    def __init__(self, critic, masker, params: Dict, batch_size: int = 16384,
+    def __init__(self, critic, masker,
+                 params: Union[Dict, Sequence[Dict]],
+                 batch_size: int = 16384,
                  salience: bool = False, eval_mode: bool = True,
                  separate: bool = False, seed: int = 0,
                  wire: str = "f32", hard_threshold: Optional[float] = None,
@@ -73,15 +85,11 @@ class MaskPipeline:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device inference is not ported yet "
-                "(ROADMAP.md queue 1 item 9, parallel/mesh.py)")
-        if ensemble:
-            raise NotImplementedError(
-                "ensemble: the mean-mask ensemble is not ported yet "
-                "(ROADMAP.md queue 1 item 9)")
+                "(ROADMAP.md queue 1 item 4, multi-GPU)")
         if quantize is not None:
             raise NotImplementedError(
                 "quantize: int8 inference is not ported yet (ROADMAP.md "
-                "queue 1 item 9, ops/quant.py)")
+                "queue 1 item 6, int8)")
         if wire not in ("f32", "u8"):
             raise ValueError(f"wire={wire!r} not in ('f32', 'u8')")
         self.device = resolve_device(device)
@@ -91,6 +99,7 @@ class MaskPipeline:
         self.salience = salience
         self.eval_mode = eval_mode
         self.separate = separate
+        self.ensemble = bool(ensemble)
         self.wire = wire
         self.hard_threshold = (float(hard_threshold)
                                if hard_threshold is not None else None)
@@ -106,30 +115,38 @@ class MaskPipeline:
                               else torch.float32)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        self._models: Dict[str, torch.nn.Module] = {}
+        # one {name: device module} dict per member (one without ensemble)
+        self._members: List[Dict[str, torch.nn.Module]] = []
         self.update_params(params)
 
-    def update_params(self, params: Dict) -> None:
-        """Copy new weights into the pipeline's device modules."""
+    def update_params(self, params: Union[Dict, Sequence[Dict]]) -> None:
+        """Copy new weights into the pipeline's device modules (with
+        ensemble=True, one dict per member)."""
+        members = list(params) if self.ensemble else [params]
+        if not members:
+            raise ValueError("ensemble=True needs at least one member")
         names = ["critic", "masker"] + (["sepcrit"] if self.separate
                                         else [])
-        for name in names:
-            model = self._models.get(name)
-            if model is None:
-                template = self.masker if name == "masker" else self.critic
-                model = copy.deepcopy(template).to(
-                    self.device, memory_format=torch.channels_last)
-                model.requires_grad_(False)
-                model.train(not self.eval_mode)
-                self._models[name] = model
-            model.load_state_dict(params[name])
+        del self._members[len(members):]
+        while len(self._members) < len(members):
+            self._members.append({})
+        for models, member in zip(self._members, members):
+            for name in names:
+                model = models.get(name)
+                if model is None:
+                    template = (self.masker if name == "masker"
+                                else self.critic)
+                    model = copy.deepcopy(template).to(
+                        self.device, memory_format=torch.channels_last)
+                    model.requires_grad_(False)
+                    model.train(not self.eval_mode)
+                    models[name] = model
+                model.load_state_dict(member[name])
 
-    def _forward(self, u8: torch.Tensor) -> tuple:
-        """(pred, mask, sal[, hard]) for one batch of device frames."""
-        # (N, H, W, 3) -> NCHW view with channels_last strides
-        x = normalize_u8(u8, self._ingest_dtype).permute(0, 3, 1, 2)
-        gen = None if self.eval_mode else self.generator
-        critic = self._models["critic"]
+    def _member_forward(self, models: Dict[str, torch.nn.Module],
+                        x: torch.Tensor, gen) -> tuple:
+        """(pred (N,), mask, sal or None) of one member, NHWC."""
+        critic = models["critic"]
         if self.salience:   # fused forward + input-grad (main.py:949-953)
             pred, embeds, sal = critic_with_saliency(critic, x, gen)
             sal = sal.permute(0, 2, 3, 1)
@@ -137,10 +154,25 @@ class MaskPipeline:
             pred, embeds = critic(x, collect=True, generator=gen)
             sal = None
         if self.separate:   # masker reads sepcrit features (main.py:946)
-            _, embeds = self._models["sepcrit"](x, collect=True,
-                                                generator=gen)
-        mask = self._models["masker"](x, embeds).permute(0, 2, 3, 1)
-        out = (pred.squeeze(-1), mask, sal)
+            _, embeds = models["sepcrit"](x, collect=True, generator=gen)
+        mask = models["masker"](x, embeds).permute(0, 2, 3, 1)
+        return pred.squeeze(-1), mask, sal
+
+    def _forward(self, u8: torch.Tensor) -> tuple:
+        """(pred, mask, sal[, hard]) for one batch of device frames."""
+        # (N, H, W, 3) -> NCHW view with channels_last strides
+        x = normalize_u8(u8, self._ingest_dtype).permute(0, 3, 1, 2)
+        gen = None if self.eval_mode else self.generator
+        out = self._member_forward(self._members[0], x, gen)
+        if self.ensemble:
+            # the mean over members, before the wire encoding
+            # (cgs_tpu/pipeline.py:216-222): f32 sums in member order
+            for models in self._members[1:]:
+                out = tuple(None if a is None else a.add_(b) for a, b in
+                            zip(out, self._member_forward(models, x, gen)))
+            r = float(len(self._members))
+            out = tuple(None if a is None else a.div_(r) for a in out)
+        mask = out[1]
         if self.hard_threshold is not None:       # main.py:1164 (>=)
             out += ((mask >= self.hard_threshold).to(torch.uint8),)
         if self.wire == "u8":

@@ -5,14 +5,17 @@ Filenames are the arg fingerprints `critic-<args>.pt` /
 `masker-<args>.pt` under `{name}/saves/` (main.py:86-102) and contents
 are state_dicts in the reference layout, so files move freely between
 the reference, `cgs_tpu` and this port. A missing file loads as None
-(the caller keeps its weights, main.py:141-147). The Orbax train state
-and `load_seed_ensemble` wait for later slices (ROADMAP.md).
+(the caller keeps its weights, main.py:141-147). `load_seed_ensemble`
+(port of `cgs_tpu/train/checkpoints.py:108-148`) reads the per-seed
+runs that `sandbox/multirun.py` writes. The Orbax train state waits for
+a later slice (ROADMAP.md queue 1, `-orbax` resume).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -62,3 +65,32 @@ def load_model_pt(kind: str, path: str
         raise KeyError(f"{path} is not a {kind} checkpoint: lacks "
                        f"{sorted(missing)}")
     return state
+
+
+def load_seed_ensemble(cfg, n: int, base_seed: int = 0
+                       ) -> List[Dict[str, Dict[str, torch.Tensor]]]:
+    """{critic, masker} CPU state_dicts of the n per-seed runs
+    `{model}-seed{base_seed..base_seed+n-1}`, one dict per member, in
+    seed order, for MaskPipeline(ensemble=True). A missing member
+    raises FileNotFoundError naming it: an ensemble with a random member
+    would corrupt the mean mask. -separate is refused: its sepcrit is
+    never saved (reference quirk, main.py:1554-1564)."""
+    if cfg.separate:
+        raise ValueError(
+            "--ensemble cannot serve -separate runs: the sepcrit the "
+            "masker was trained on is never saved (reference quirk, "
+            "main.py:1554-1564)")
+    members = []
+    for s in range(base_seed, base_seed + n):
+        cfg_s = dataclasses.replace(cfg, model=f"{cfg.model}-seed{s}"
+                                    ).derive()
+        paths = checkpoint_paths(cfg_s)
+        member = {}
+        for name in ("critic", "masker"):
+            state = load_model_pt(name, paths[name])
+            if state is None:
+                raise FileNotFoundError(
+                    f"ensemble member missing: {paths[name]}")
+            member[name] = state
+        members.append(member)
+    return members

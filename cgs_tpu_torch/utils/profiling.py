@@ -1,13 +1,74 @@
-"""Debug-mode NaN/Inf guard (port of `cgs_tpu/utils/profiling.py:nan_guard`).
+"""Tracing and the debug-mode NaN/Inf guard (PyTorch port of
+`cgs_tpu/utils/profiling.py:19-64`).
 
-The JAX package's `Profiler` (`--profile`, an xplane trace) waits for
-its `torch.profiler` port (ROADMAP.md queue 1 item 9).
+`Profiler` is `--profile DIR`: one `torch.profiler` trace over every
+phase the CLI dispatches, written as one Chrome trace JSON into DIR
+(viewable in Perfetto or chrome://tracing), with named regions around
+the train chunks. It records CPU activity, plus the card's kernels
+when the run is on `cuda`. torch.profiler holds every event in host
+memory until the trace stops: a trace of a whole `-train` run (millions
+of kernel launches) takes gigabytes, so trace a short run.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
+from typing import Optional
+
 import numpy as np
 import torch
+
+
+class Profiler:
+    """start/stop a trace into `trace_dir` (None: every call is a
+    no-op); `annotate` names a region while a trace is active."""
+
+    def __init__(self, trace_dir: Optional[str] = None, device=None):
+        self.trace_dir = trace_dir
+        self.device = torch.device(device or "cpu")
+        self.path: Optional[str] = None    # the last trace written
+        self._prof = None
+
+    def start(self) -> None:
+        if not self.trace_dir or self._prof is not None:
+            return
+        from torch.profiler import ProfilerActivity, profile
+        os.makedirs(self.trace_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+
+    def stop(self) -> None:
+        if self._prof is None:
+            return
+        prof, self._prof = self._prof, None
+        prof.stop()
+        self.path = os.path.join(
+            self.trace_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+        prof.export_chrome_trace(self.path)
+
+    @contextlib.contextmanager
+    def annotate(self, name: str):
+        """A named region on the trace's timeline; a no-op with no
+        trace active."""
+        if self._prof is None:
+            yield
+            return
+        with torch.profiler.record_function(name):
+            yield
+
+    @contextlib.contextmanager
+    def trace(self):
+        """start(), and stop() however the body ends."""
+        self.start()
+        try:
+            yield self
+        finally:
+            self.stop()
 
 
 def _leaves(tree, prefix: str = ""):

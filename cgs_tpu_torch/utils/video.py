@@ -1,6 +1,7 @@
-"""MP4 writing (copy of `cgs_tpu/utils/video.py`; reference main.py:44-63
-pipes raw RGB into an ffmpeg subprocess). The ffmpeg binary is used when
-present, else cv2.VideoWriter; cv2 is imported only when needed."""
+"""MP4 writing (copy of `cgs_tpu/utils/video.py`: `VideoSink`,
+`vidwrite`; reference main.py:44-63 pipes raw RGB into an ffmpeg
+subprocess). The ffmpeg binary is used when present, else
+cv2.VideoWriter; cv2 is imported only when needed."""
 
 from __future__ import annotations
 
@@ -108,3 +109,12 @@ class VideoSink:
     def __exit__(self, *exc):
         self.close()
 
+
+def vidwrite(fn: str, images, framerate: int = 32) -> None:
+    """Write (N, H, W, 3) RGB frames to an MP4 file."""
+    images = np.asarray(images)
+    if images.dtype != np.uint8:
+        images = np.clip(images, 0, 255).astype(np.uint8)
+    with VideoSink(fn, framerate=framerate) as sink:
+        for frame in images:
+            sink.append(frame)

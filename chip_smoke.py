@@ -50,21 +50,44 @@ from `cgs_tpu_torch/csrc/`, then:
            host numpy IoU of the same masks; then `evaluate` again
            with its parts timed (pipeline, the masks' upload, the
            `threshold_iou` call, the saliency normalisation, the rest);
+           then `evaluate` under `-crf` (f32 wire): the dense-CRF
+           library must build and load, and its `crf` variant must
+           equal `DenseCRF` on the plain path's masks; the CRF's host
+           seconds for the 2450 frames;
   process  (serving main path) `_mask_variants` with the u8 wire and
            the device-side binarisation against the f32 wire
            thresholded on the host;
-  train    (training main path) `cli.main(["-train", "-eval",
-           "-synthetic_data", "--chfak", "5", "--dropout", "0.5",
-           ...])`: the paper's synthetic protocol (20k frames, critic 10
-           / masker 12 epochs) with `-frozen` (the CLI's `-train` makes
-           cuDNN deterministic), in a temporary directory, writing no
-           files; the eval IoU must reach 0.70.
+  ensemble (ensemble main path) 3 random-weight members saved as
+           `{model}-seed{s}` runs in a temporary directory, a `Handler`
+           from `-eval --ensemble 3 -synthetic_data --chfak 5`,
+           `evaluate(..., write=False)`: 1 `normalize_u8`, 15
+           `upsample2x` and 1 `threshold_iou` launch, masks bit-equal
+           to the plain path's ensemble and within 1e-6 of the mean of
+           three single-member pipelines; frames/s at batch 8192 (f32)
+           beside one model's;
+  profile  (profile main path) `cli.main([... "-eval", "--profile",
+           DIR], primary=False)`: the trace file exists and names the
+           port's device kernels (`ingest_*`, `upsample_cat_fwd`,
+           `threshold_iou_kernel`);
+  video    (video main path; cv2 and PIL) a 48-frame 128x128 mp4
+           through `cli.main(["-process", "--source-imgs", clip])`:
+           the two mask videos of 48 frames; then `-vismasker` on a
+           64-frame synthetic test split: the three curve videos;
+           `normalize_u8` and `upsample2x` launch (no IoU is computed);
+  train    (training main path) the N-seed runner
+           `sandbox.multirun.run_seeds(["-train", "-eval",
+           "-synthetic_data", "--chfak", "5", "--dropout", "0.5", ...],
+           primary=False)`, one seed per call, with a temporary
+           `results.txt`: the paper's synthetic protocol (20k frames,
+           critic 10 / masker 12 epochs) with `-frozen` (the CLI's
+           `-train` makes cuDNN deterministic), writing no files but
+           the runner's line; the eval IoU must reach 0.70.
 
 Launch counts are set to 0 just before each main path (eval + process;
-train) and read just after it; every kernel of a path must have
-launched there. Weights are random, from a seed. Any failed check exits
-non-zero. Without CUDA, or without the rest of the checkout, it fails
-and prints no result. The next-to-last lines are a JSON `kernels`
+ensemble; profile; video; train) and read just after it; every kernel of a
+path must have launched there. Weights are random, from a seed. Any
+failed check exits non-zero. Without CUDA, or without the rest of the
+checkout, it fails and prints no result. The next-to-last lines are a JSON `kernels`
 summary and the card's name and power limit from nvidia-smi; the last
 line is {"ok": true, "device": {...}}.
 """
@@ -103,6 +126,15 @@ EVAL_N, FRAME_F, MASK_F = 2450, 64 * 64 * 3, 64 * 64
 MASKER_N = 64        # frames a masker step merges and decodes (2K)
 PIX = 64 * 64
 SERVE_KERNELS = ("normalize_u8", "upsample2x", "threshold_iou")
+# video -process and -vismasker compute no IoU
+VIDEO_KERNELS = ("normalize_u8", "upsample2x")
+ENSEMBLE_R = 3
+# one ensemble evaluate of the 2450-frame set: one batch, ingested once,
+# each member's five decoder joins, one IoU count
+ENSEMBLE_LAUNCHES = {"normalize_u8": 1, "upsample2x": 5 * ENSEMBLE_R,
+                     "threshold_iou": 1}
+# the names of the port's device kernels a --profile trace must show
+TRACE_KERNELS = ("ingest_", "upsample_cat_fwd", "threshold_iou_kernel")
 TRAIN_KERNELS = ("normalize_u8", "merge_pair", "merge_pair_bwd",
                  "upsample2x", "upsample2x_bwd", "threshold_iou")
 STEP_LAUNCHES = {"normalize_u8": 1, "merge_pair": 1, "merge_pair_bwd": 1,
@@ -152,15 +184,22 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     t_start = time.time()
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from cgs_tpu_torch.core.device import disable_tf32
+    from cgs_tpu_torch.eval import crf
     from cgs_tpu_torch.ops import _build
 
     # -- set-up -----------------------------------------------------------
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "python", sys.version.split()[0])
     t0 = time.time()
-    _build.build_kernels(verbose=True)
-    log(f"[setup] kernels built in {time.time() - t0:.1f} s")
+    # the host CRF library (g++) builds while nvcc builds the kernels
+    with ThreadPoolExecutor(1) as pool:
+        crf_build = pool.submit(crf.build_library)
+        _build.build_kernels(verbose=True)
+        log(f"[setup] kernels built in {time.time() - t0:.1f} s; densecrf "
+            f"library {crf_build.result()} in {time.time() - t0:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -184,6 +223,21 @@ def main(argv=None) -> int:
     for name in SERVE_KERNELS:
         check(serve_launches.get(name, 0) > 0,
               f"{name} never launched on the serving main path")
+    # the ensemble and profile paths clear and read the counts around
+    # their own main-path call
+    ensemble_launches = phase_ensemble(_build)
+    log("[main path: ensemble] launches:", ensemble_launches)
+    profile_launches = phase_profile(_build)
+    log("[main path: profile] launches:", profile_launches)
+    video_launches = phase_video(_build)
+    log("[main path: video] launches:", video_launches)
+    for path, counts, kernels in (
+            ("ensemble", ensemble_launches, SERVE_KERNELS),
+            ("profile", profile_launches, SERVE_KERNELS),
+            ("video", video_launches, VIDEO_KERNELS)):
+        for name in kernels:
+            check(counts.get(name, 0) > 0,
+                  f"{name} never launched on the {path} main path")
 
     train_launches = {}
     for seed in seeds:
@@ -196,8 +250,10 @@ def main(argv=None) -> int:
         check(train_launches.get(name, 0) > 0,
               f"{name} never launched on the training main path")
     for name in _build.KERNELS:
-        summary[name]["launches"] = (serve_launches.get(name, 0)
-                                     + train_launches.get(name, 0))
+        summary[name]["launches"] = sum(
+            counts.get(name, 0) for counts in (
+                serve_launches, ensemble_launches, profile_launches,
+                video_launches, train_launches))
         check(summary[name]["launches"] > 0,
               f"{name} never launched on a main path")
 
@@ -717,6 +773,63 @@ def phase_eval(_build) -> None:
         f"{time.time() - t0:.1f} s")
     log("[eval] evaluate again, by part (s, host clock, synchronised "
         "around each part):", json.dumps(parts))
+    _eval_crf(_build, x, gt)
+
+
+def _eval_crf(_build, x, gt) -> None:
+    """`evaluate` under -crf through a Handler's own CRF: [mask, crf]
+    IoUs; the crf variant equals `DenseCRF` of the plain path's masks
+    (checked on every 10th frame: frames are refined independently);
+    the CRF's host seconds for the whole set."""
+    from unittest import mock
+
+    import cgs_tpu_torch.ops.upsample as upsample_mod
+    import cgs_tpu_torch.pipeline as pipeline_mod
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.eval.crf import DenseCRF
+    from cgs_tpu_torch.eval.harness import evaluate
+    from cgs_tpu_torch.handler import Handler
+    from cgs_tpu_torch.ops.kernels import normalize_u8_plain
+
+    t0 = time.time()
+    cfg = parse_args(["-eval", "-crf", "-synthetic_data", "--chfak", "5",
+                      "--model", "chip-smoke"])
+    handler = Handler(cfg, primary=False)
+    crf_fn = handler._crf_fn()
+    check(isinstance(crf_fn, DenseCRF),
+          "-crf: the densecrf library did not build or load")
+    pipe = handler._pipeline(salience=False)
+    check(pipe.wire == "f32", f"-crf eval on the {pipe.wire} wire")
+    crf_s = []
+
+    def timed_crf(imgs, masks):
+        t = time.perf_counter()
+        out = crf_fn(imgs, masks)
+        crf_s.append(time.perf_counter() - t)
+        return out
+
+    result = evaluate(cfg, pipe, x, gt, crf_fn=timed_crf, write=False)
+    ious = result["ious"]
+    check(len(ious) == 2 and all(0.0 <= v <= 1.0 for v in ious),
+          f"-crf ious {ious}")
+    x_u8 = (x * 255).astype(np.uint8)
+    with mock.patch.object(pipeline_mod, "normalize_u8",
+                           normalize_u8_plain), \
+            mock.patch.object(upsample_mod, "upcat_fwd",
+                              upsample_mod.upcat_plain):
+        plain = pipe.run(x_u8).masks.squeeze(-1)
+    check(np.array_equal(plain, result["variants"]["mask"]),
+          "-crf: kernel-path masks differ from the plain path's")
+    sub = slice(0, EVAL_N, 10)
+    want = DenseCRF()(x_u8[sub], plain[sub])
+    check(np.array_equal(want, result["variants"]["crf"][sub]),
+          "-crf: the crf variant differs from DenseCRF of the plain "
+          "path's masks")
+    log(f"[eval] -crf chfak 5 f32, {EVAL_N} frames: IoU [mask, crf] "
+        f"{ious}; crf variant equals DenseCRF of the plain path's masks "
+        f"({len(want)} frames checked); CRF host time {crf_s[0]:.3f} s "
+        f"for {EVAL_N} frames ({os.cpu_count()} host cores); phase "
+        f"{time.time() - t0:.1f} s")
 
 
 def _eval_breakdown(cfg, pipe, x, gt):
@@ -797,6 +910,196 @@ def phase_process() -> None:
         f"equal the host-thresholded f32 wire; _mask_variants wall "
         f"{wall:.3f} s; hard fraction {float(m_u8[1].mean()):.4f}; phase "
         f"{time.time() - t0:.1f} s")
+
+
+def phase_ensemble(_build) -> dict:
+    """--ensemble 3 through a Handler on random members saved as
+    `{model}-seed{s}` runs; returns the launches of its main-path
+    `evaluate`."""
+    from unittest import mock
+
+    import cgs_tpu_torch.ops.upsample as upsample_mod
+    import cgs_tpu_torch.pipeline as pipeline_mod
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.eval.harness import evaluate, load_eval_set
+    from cgs_tpu_torch.handler import Handler
+    from cgs_tpu_torch.ops.kernels import normalize_u8_plain
+    from cgs_tpu_torch.pipeline import MaskPipeline
+    from cgs_tpu_torch.train.checkpoints import (
+        checkpoint_paths, save_model_pt,
+    )
+
+    t0 = time.time()
+    argv = ["-eval", "--ensemble", str(ENSEMBLE_R), "-synthetic_data",
+            "--chfak", "5", "--model", "chip-smoke-ens"]
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            cfg = parse_args(argv)
+            handler = Handler(cfg, primary=False)
+            members = [_random_params(handler.critic, handler.masker,
+                                      seed=10 + s)
+                       for s in range(ENSEMBLE_R)]
+            for s, member in enumerate(members):
+                paths = checkpoint_paths(parse_args(
+                    argv + ["--model", f"chip-smoke-ens-seed{s}"]))
+                for name, state in member.items():
+                    save_model_pt(state, name, paths[name])
+            pipe = handler._pipeline(salience=cfg.salience)
+        finally:
+            os.chdir(old)
+    check(pipe.ensemble and len(pipe._members) == ENSEMBLE_R,
+          "the Handler did not build a 3-member ensemble")
+    x, gt = load_eval_set(cfg)
+    torch.cuda.synchronize()
+    _build.launches.clear()                 # ensemble main path starts
+    t1 = time.time()
+    result = evaluate(cfg, pipe, x, gt, write=False)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    launches = dict(_build.launches)        # ensemble main path ends
+    check(launches == ENSEMBLE_LAUNCHES,
+          f"ensemble evaluate launched {launches}, want "
+          f"{ENSEMBLE_LAUNCHES}")
+    mask = result["variants"]["mask"]
+    x_u8 = (x * 255).astype(np.uint8)
+    with mock.patch.object(pipeline_mod, "normalize_u8",
+                           normalize_u8_plain), \
+            mock.patch.object(upsample_mod, "upcat_fwd",
+                              upsample_mod.upcat_plain):
+        plain = pipe.run(x_u8).masks.squeeze(-1)
+    check(np.array_equal(mask, plain),
+          "ensemble: kernel-path masks differ from the plain path's")
+    singles = [MaskPipeline(handler.critic, handler.masker, m,
+                            batch_size=BATCH, device="cuda")
+               for m in members]
+    mean = sum(p.run(x_u8).masks.squeeze(-1) for p in singles) / ENSEMBLE_R
+    d = float(np.abs(mean - mask).max())
+    check(d <= 1e-6, f"ensemble mask differs from the mean of the "
+          f"single-member pipelines by {d}")
+    ious = result["ious"]
+    check(len(ious) == 1 and 0.0 <= ious[0] <= 1.0, f"ious {ious}")
+
+    # frames/s, device-resident, batch 8192, f32
+    dev = torch.device("cuda")
+    frames = torch.randint(0, 256, (BATCH, 64, 64, 3), dtype=torch.uint8,
+                           device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(2))
+    rates = {}
+    for what, p in (("ensemble R=3", pipe), ("one model", singles[0])):
+        p.run_device(frames)
+        reps = 5
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(reps):
+            out = p.run_device(frames)
+        torch.cuda.synchronize()
+        rates[what] = reps * BATCH / (time.time() - t)
+        del out
+    log(f"[ensemble] chfak 5 f32, R={ENSEMBLE_R}, {EVAL_N} frames: IoU "
+        f"{ious}; launches {launches}; masks bit-equal to the plain path, "
+        f"max |diff| to the mean of {ENSEMBLE_R} single pipelines "
+        f"{d:.3g}; evaluate wall {wall:.3f} s")
+    log(f"[ensemble] frames/s chfak5 f32 batch {BATCH} device-resident: "
+        + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+        + f"; phase {time.time() - t0:.1f} s")
+    del pipe, singles, frames
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_profile(_build) -> dict:
+    """`-eval --profile DIR` through the CLI, writing no file but the
+    trace; the trace must name the port's device kernels. Returns the
+    launches of the run."""
+    from cgs_tpu_torch import cli
+
+    t0 = time.time()
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            _build.launches.clear()         # profile main path starts
+            handler = cli.main(["-eval", "-synthetic_data", "--chfak",
+                                "5", "--model", "chip-smoke-prof",
+                                "--profile", os.path.join(d, "trace")],
+                               primary=False)
+            launches = dict(_build.launches)  # ... and ends
+            path = handler.profiler.path
+            check(path is not None and os.path.isfile(path),
+                  f"--profile wrote no trace ({path})")
+            size = os.path.getsize(path)
+            with open(path) as fp:
+                events = json.load(fp)["traceEvents"]
+        finally:
+            os.chdir(old)
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    for want in TRACE_KERNELS:
+        check(any(want in k for k in kernels),
+              f"--profile trace names no {want}* kernel")
+    log(f"[profile] -eval --profile: one trace of {size} bytes, "
+        f"{len(events)} events, {len(kernels)} distinct device kernels, "
+        f"the port's: "
+        f"{sorted(k[:60] for k in kernels if any(w in k for w in TRACE_KERNELS))}"
+        f"; IoU {handler.last_ious}; phase {time.time() - t0:.1f} s")
+    return launches
+
+
+def _frame_count(path) -> int:
+    import cv2
+    cap = cv2.VideoCapture(str(path))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def phase_video(_build) -> dict:
+    """Video-file `-process` and `-vismasker` through the CLI, writing
+    their videos (cv2, PIL) in a temporary directory. Returns the
+    launches of the two runs."""
+    from cgs_tpu_torch import cli
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.utils.video import vidwrite
+
+    t0 = time.time()
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            frames, _ = synthetic_eval_set(n_frames=48, seed=3)
+            # 128x128, so load_video resizes
+            vidwrite("clip.mp4", frames.repeat(2, 1).repeat(2, 2),
+                     framerate=16)
+            _build.launches.clear()         # video main path starts
+            cli.main(["-process", "--source-imgs", "clip.mp4",
+                      "--mask-output-imgs", "out", "--chfak", "5",
+                      "--model", "chip-smoke-video"])
+            cli.main(["-vismasker", "-synthetic_data", "--datasize", "600",
+                      "--testsize", "64", "--chfak", "5", "--visname",
+                      "cv", "--model", "chip-smoke-vis"])
+            launches = dict(_build.launches)  # ... and ends
+            masks = {n: _frame_count(Path("out") / n)
+                     for n in sorted(os.listdir("out"))}
+            curves = {n: _frame_count(Path("chip-smoke-vis") / n)
+                      for n in sorted(os.listdir("chip-smoke-vis"))
+                      if n.endswith(".mp4")}
+        finally:
+            os.chdir(old)
+    check(masks == {"clip-raw-mask.mp4": 48,
+                    "clip-thresholded-mask.mp4": 48},
+          f"video -process wrote {masks}")
+    check(curves == {"cv.mp4": 64, "cv-pred-sorted.mp4": 64,
+                     "cv-GT-sorted.mp4": 64},
+          f"-vismasker wrote {curves}")
+    log(f"[video] chfak 5: -process on a 48-frame 128x128 mp4 wrote "
+        f"{masks}; -vismasker wrote {curves}; phase "
+        f"{time.time() - t0:.1f} s")
+    return launches
 
 
 def _layout(t) -> str:
@@ -1214,19 +1517,32 @@ def phase_train_speed() -> None:
 
 
 def phase_train(seed: int) -> None:
-    """The paper's synthetic protocol through the CLI, -frozen, at
-    chfak 5, writing no files."""
-    from cgs_tpu_torch import cli
+    """The paper's synthetic protocol, -frozen, at chfak 5, through the
+    N-seed runner and the CLI, writing no files but the runner's
+    `results.txt` line (in a temporary directory)."""
+    from cgs_tpu_torch.sandbox.multirun import run_seeds
 
     t0 = time.time()
     old = os.getcwd()
+    seen = {}
     with tempfile.TemporaryDirectory() as d:
         os.chdir(d)
         try:
-            handler = cli.main(PROTOCOL + ["--seed", str(seed)],
-                               primary=False)
+            summary = run_seeds(
+                PROTOCOL, 1, results_path="results.txt", base_seed=seed,
+                primary=False,
+                on_seed=lambda s, h: seen.update(seed=s, handler=h))
+            with open("results.txt") as fp:
+                line = fp.read()
+            files = sorted(os.listdir(d))
         finally:
             os.chdir(old)
+    handler = seen["handler"]
+    check(seen["seed"] == seed and files == ["results.txt"],
+          f"run_seeds ran seed {seen['seed']} and left {files}")
+    check(line.startswith(f"runs=1 args={' '.join(PROTOCOL)} ious=[")
+          and summary["ious"] == handler.last_ious[:1],
+          f"results.txt line {line!r}, summary {summary}")
     check(handler.device.type == "cuda", f"handler on {handler.device}")
     check(torch.backends.cudnn.deterministic,
           "the CLI's -train did not make cuDNN deterministic")
@@ -1243,7 +1559,7 @@ def phase_train(seed: int) -> None:
         f"masker steps; contrastive {sets.n_pos} pos / {sets.n_neg} neg; "
         f"critic loss first/last chunk {closs[:100].mean():.5f} / "
         f"{closs[-100:].mean():.5f}; eval IoU {handler.last_ious}; "
-        f"phase {time.time() - t0:.1f} s")
+        f"results.txt: {line.strip()!r}; phase {time.time() - t0:.1f} s")
     check(iou >= MIN_IOU, f"seed {seed}: eval IoU {iou} < {MIN_IOU}")
 
 

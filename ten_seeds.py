@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""The paper's multi-seed protocol on the PyTorch port, for comparison
+with the JAX package's published spreads (`RESULTS.md`).
+
+    python3 ten_seeds.py --protocol A B --out runs/ten_seeds
+
+runs, on the CUDA card, each protocol over seeds base..base+runs-1
+through `cgs_tpu_torch.sandbox.multirun.run_seeds(..., primary=False)`:
+
+  A  the default (live) model, chfak 1, easy fixture, 20k frames,
+     critic 10 / masker 12 epochs (`RESULTS.md:90-99`: JAX 0.707 +-
+     0.080 over seeds 0-9);
+  B  chfak 5, dropout 0.5, -frozen, hard fixture, 40k frames, critic
+     15 / masker 12 epochs (`RESULTS.md:641-661`: JAX 0.860 +- 0.030
+     over 20 seeds, 0.868 over seeds 0-9 and 0.852 over 10-19), then
+     the `--ensemble N` eval, raw, with `-crf` and with `-crf_rescale`,
+     on its N checkpoints (`RESULTS.md:689-698`: seeds 0-9 raw 0.857,
+     CRF 0.741, rescaled 0.743; seeds 10-19 raw 0.838).
+
+Every seed trains on the dataset of seed 0, as the JAX package's runs
+did: its multirun's first seed writes the dataset cache that later
+seeds load, and its seed-parallel runner collects once. So the cache
+(`runs/data/straight/`, under the working directory) is written once
+here before the seeds run. Each seed evaluates in its run on its own
+eval set (`--seed` + 99), as the JAX multirun does (A's comparison);
+B's seeds are also evaluated on seed 99's, the one eval set the JAX
+seed-parallel runner scored every seed and the ensemble on (B's
+comparison).
+
+Nothing but checkpoints (B's, under `{model}-seed{s}/saves/`, for the
+ensemble) and the data cache is written in the working directory; the
+results go to --out: `results.txt` (the runner's lines), `seeds.jsonl`
+(one line per seed, written as each seed ends) and `summary.jsonl`
+(one line per protocol). Every line carries the card's name and power
+limit from nvidia-smi.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+COMMON = ["-train", "-eval", "-synthetic_data", "--mepochs", "12"]
+PROTOCOLS = {
+    "A": COMMON + ["--datasize", "20000", "--cepochs", "10",
+                   "--model", "ten-seeds-A"],
+    "B": COMMON + ["--chfak", "5", "--dropout", "0.5",
+                   "--synthetic-variant", "hard", "--datasize", "40000",
+                   "--cepochs", "15", "-frozen", "--model", "ten-seeds-B"],
+}
+# the JAX figures each protocol is compared with (RESULTS.md)
+JAX = {"A": {"mean": 0.707, "std": 0.080, "line": "RESULTS.md:90-99"},
+       "B": {"mean": 0.860, "std": 0.030, "line": "RESULTS.md:641-661",
+             "ensemble_raw": 0.857, "ensemble_crf": 0.741,
+             "ensemble_crf_rescale": 0.743,
+             "ensemble_line": "RESULTS.md:689-698"}}
+DATA_SEED = 0
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def append_json(path: Path, rec: dict) -> None:
+    with open(path, "a") as fp:
+        fp.write(json.dumps(rec) + "\n")
+
+
+def write_data_cache(argv) -> float:
+    """The dataset of DATA_SEED into the cache every seed reads."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.data.collect import collect_data
+    t = time.time()
+    collect_data(parse_args(argv + ["--seed", str(DATA_SEED)]), write=True)
+    return time.time() - t
+
+
+def run_protocol(name: str, base_seed: int, runs: int, out: Path,
+                 gpu: str) -> dict:
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.eval.harness import evaluate, load_eval_set
+    from cgs_tpu_torch.sandbox.multirun import run_seeds
+    from cgs_tpu_torch.train.checkpoints import save_model_pt
+
+    argv = PROTOCOLS[name]
+    # seed 99's eval set: the eval set of --seed DATA_SEED
+    cfg99 = parse_args(argv + ["--seed", str(DATA_SEED)])
+    x99, gt99 = load_eval_set(cfg99) if name == "B" else (None, None)
+    cache_s = write_data_cache(argv)
+    print(f"[ten_seeds] {name}: data cache written in {cache_s:.1f} s",
+          flush=True)
+    t_seed = [time.time()]
+    e99 = []
+
+    def on_seed(seed, handler):
+        extra = {}
+        if name == "B":     # the ensemble's members; under -frozen the
+            # critic is the one phase 1 trained
+            for kind in ("critic", "masker"):
+                save_model_pt(handler.params[kind], kind,
+                              handler.save_paths[kind])
+            pipe = handler._pipeline(salience=False)
+            extra["iou_eval99"] = evaluate(cfg99, pipe, x99, gt99,
+                                           write=False)["ious"][0]
+            e99.append(extra["iou_eval99"])
+        now = time.time()
+        sets = handler.contrastive
+        rec = {"protocol": name, "seed": seed,
+               "iou": handler.last_ious[0], "ious": handler.last_ious,
+               **extra,
+               "critic_steps": int(handler.loss_log["critic"].shape[0]),
+               "masker_steps": int(handler.loss_log["masker"].shape[0]),
+               "contrastive": [int(sets.n_pos), int(sets.n_neg)],
+               "seconds": round(now - t_seed[0], 1), "card": gpu}
+        t_seed[0] = now
+        append_json(out / "seeds.jsonl", rec)
+        print(f"[ten_seeds] {json.dumps(rec)}", flush=True)
+
+    summary = run_seeds(argv, runs, results_path=str(out / "results.txt"),
+                        base_seed=base_seed, primary=False,
+                        on_seed=on_seed)
+    summary.update(protocol=name, seeds=[base_seed, base_seed + runs - 1],
+                   argv=argv, jax=JAX[name], card=gpu,
+                   data_cache_s=round(cache_s, 1))
+    if e99:
+        summary["eval99"] = {"ious": e99, "mean": float(np.mean(e99)),
+                             "std": float(np.std(e99))}
+    return summary
+
+
+def run_ensemble(base_seed: int, runs: int, gpu: str) -> dict:
+    """The `--ensemble N` eval of B's checkpoints of seeds base_seed..,
+    through a Handler, raw, with -crf and with -crf_rescale."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.handler import Handler
+    from cgs_tpu_torch.train.checkpoints import load_seed_ensemble
+
+    argv = [a for a in PROTOCOLS["B"] if a not in ("-train", "-eval")]
+    res = {"members": [base_seed, base_seed + runs - 1], "card": gpu,
+           "jax": JAX["B"]}
+    for key, extra in (("raw", []), ("crf", ["-crf"]),
+                       ("crf_rescale", ["-crf", "-crf_rescale"])):
+        t = time.time()
+        handler = Handler(parse_args(argv + ["-eval", "--ensemble",
+                                             str(runs)] + extra),
+                          primary=False)
+        # `--ensemble N` reads seeds 0..N-1; other bases load here
+        handler._ensemble_params = load_seed_ensemble(
+            handler.cfg, runs, base_seed=base_seed)
+        res[key] = handler.eval()
+        res[f"{key}_s"] = round(time.time() - t, 1)
+        print(f"[ten_seeds] ensemble {key}: {res[key]}", flush=True)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--protocol", nargs="+", choices=sorted(PROTOCOLS),
+                    default=["A", "B"])
+    ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--base-seed", type=int, default=0)
+    ap.add_argument("--out", default="runs/ten_seeds")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("ten_seeds: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    out = Path(args.out).resolve()
+    out.mkdir(parents=True, exist_ok=True)
+    gpu = card()
+    print(f"[ten_seeds] {gpu}; torch {torch.__version__}", flush=True)
+    for name in args.protocol:
+        t = time.time()
+        summary = run_protocol(name, args.base_seed, args.runs, out, gpu)
+        summary["seconds"] = round(time.time() - t, 1)
+        if name == "B":
+            summary["ensemble"] = run_ensemble(args.base_seed, args.runs,
+                                               gpu)
+        append_json(out / "summary.jsonl", summary)
+        print(f"[ten_seeds] {json.dumps(summary)}", flush=True)
+    print(gpu)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

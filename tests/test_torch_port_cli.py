@@ -226,13 +226,41 @@ def test_train_eval_slice_runs_and_tracks_jax(tmp_path, monkeypatch,
     np.testing.assert_allclose(ours, np.asarray(jl), rtol=3e-3)
 
 
-@pytest.mark.parametrize("argv", [["-orbax"], ["--profile", "trace"],
-                                  ["-vismasker"], ["-eval", "-crf"],
-                                  ["--ensemble", "2"]])
+@pytest.mark.parametrize("argv", [["-orbax"]])
 def test_unported_modes_raise(argv, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         cli.main(argv + ["--device", "cpu", "-synthetic_data"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--profile", "trace"],
+    ["-vismasker", "--datasize", "300", "--testsize", "40"],
+    ["-eval", "-crf", "-resimages", "--eval-video-max-frames", "2"],
+    ["-eval", "--ensemble", "2"],
+])
+def test_formerly_unported_modes_run(argv, tmp_path, monkeypatch,
+                                    one_torch_thread):
+    """The modes ported since run through the CLI on the CPU (-crf on
+    the 5 frames of a small ./resimgs.npy; the ensemble finds no
+    members here and names the one that is missing)."""
+    monkeypatch.chdir(tmp_path)
+    argv = argv + ["--device", "cpu", "-synthetic_data", "--model", "m"]
+    if "--ensemble" in argv:
+        with pytest.raises(FileNotFoundError, match="m-seed0/saves/critic"):
+            cli.main(argv)
+        return
+    frames, _ = synthetic_eval_set(n_frames=110, seed=2)
+    np.save("resimgs.npy", frames / 255.0)
+    handler = cli.main(argv)
+    if "--profile" in argv:
+        assert len(os.listdir(tmp_path / "trace")) == 1
+    elif "-vismasker" in argv:
+        assert sorted(p.name for p in (tmp_path / "m").glob("*.mp4")) == [
+            "curves-GT-sorted.mp4", "curves-pred-sorted.mp4",
+            "curves.mp4"]
+    else:
+        assert len(handler.last_ious) == 2    # [mask, crf]
 
 
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "cgs_tpu")

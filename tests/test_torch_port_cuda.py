@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain
-version, the pipeline's and the masker step's kernel path against
-their plain paths, and the gradient of a fused upsample-into-concat
-join through a conv.
+version, the pipeline's, the R = 3 ensemble's and the masker step's
+kernel path against their plain paths, the dense CRF on kernel-path
+masks, and the gradient of a fused upsample-into-concat join through a
+conv.
 
 Marked `cuda`; every test skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -172,6 +173,56 @@ def test_pipeline_kernel_path_equals_plain_path(dev):
         ppred, pmask, _ = pipe.run_device(frames)
     torch.testing.assert_close(mask, pmask, atol=1e-5, rtol=0)
     torch.testing.assert_close(pred, ppred, atol=1e-5, rtol=0)
+
+
+def _ensemble_masks(dev, salience=False):
+    """(kernel-path outputs, plain-path outputs, launches per batch) of a
+    3-member chfak-1 ensemble on 40 frames at batch 32 (2 batches)."""
+    import cgs_tpu_torch.ops.upsample as upsample_mod
+    import cgs_tpu_torch.pipeline as pipeline_mod
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.models.interop import init_torch_default
+    from cgs_tpu_torch.pipeline import MaskPipeline
+
+    critic, masker = Critic(dropout=0.0), UnetDecoder()
+    gen = torch.Generator().manual_seed(3)
+    members = [{name: {k: v.clone() for k, v in
+                       init_torch_default(mod, gen).state_dict().items()}
+                for name, mod in (("critic", critic), ("masker", masker))}
+               for _ in range(3)]
+    pipe = MaskPipeline(critic, masker, members, batch_size=32,
+                        salience=salience, ensemble=True)
+    frames = torch.randint(0, 256, (40, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(4))
+    _build.launches.clear()
+    out = pipe.run(frames.numpy())
+    per_batch = {k: v / 2 for k, v in _build.launches.items()}
+    with mock.patch.object(pipeline_mod, "normalize_u8",
+                           normalize_u8_plain), \
+            mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain):
+        plain = pipe.run(frames.numpy())
+    return out, plain, per_batch, frames.numpy()
+
+
+@pytest.mark.cuda
+def test_ensemble_kernel_path_equals_plain_path(dev):
+    out, plain, per_batch, _ = _ensemble_masks(dev, salience=True)
+    assert per_batch == {"normalize_u8": 1, "upsample2x": 15}
+    assert (out.preds == plain.preds).all()
+    assert (out.masks == plain.masks).all()
+    assert (out.saliency == plain.saliency).all()
+
+
+@pytest.mark.cuda
+def test_densecrf_on_kernel_masks_equals_plain(dev):
+    from cgs_tpu_torch.eval.crf import DenseCRF
+
+    out, plain, _, frames = _ensemble_masks(dev)
+    crf = DenseCRF()
+    refined = crf(frames, out.masks)
+    assert refined.shape == (40, 64, 64)
+    assert (refined == crf(frames, plain.masks)).all()
 
 
 def _frames(dev, n, h=64, w=64, c=3):

@@ -160,8 +160,7 @@ def test_empty_input_and_unported_modes(both):
     out = pipe.run(np.zeros((0, 64, 64, 3), np.uint8))
     assert out.masks is None
     assert out.masks_u8.shape == out.hard.shape == (0, 64, 64, 1)
-    for kw in ({"mesh": object()}, {"ensemble": True},
-               {"quantize": "int8"}):
+    for kw in ({"mesh": object()}, {"quantize": "int8"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MaskPipeline(pc, pm, pp, device="cpu", **kw)
     with pytest.raises(ValueError, match="wire"):
