@@ -17,22 +17,19 @@ from __future__ import annotations
 from typing import Optional
 
 from cgs_tpu_torch.core.config import parse_args
-from cgs_tpu_torch.core.device import (
-    deterministic_cudnn, disable_tf32, tf32_state,
-)
+from cgs_tpu_torch.core.device import train_switches
 from cgs_tpu_torch.handler import CRITIC, MASKER, Handler
 
 
 def main(argv: Optional[list] = None, primary: bool = True) -> Handler:
     """Parse argv and run it. primary=False runs every phase but writes
-    no file (no checkpoints, data cache, plots or videos)."""
+    no file (no checkpoints, data cache, plots or videos) except the
+    train states that -orbax asks for."""
     cfg = parse_args(argv)
     handler = Handler(cfg, primary=primary)
     if handler.device.type == "cuda":
-        print("[cgs-tpu-torch] tf32:",
-              tf32_state() if cfg.bf16 else disable_tf32())
-        if cfg.train:
-            print("[cgs-tpu-torch] cudnn:", deterministic_cudnn())
+        print("[cgs-tpu-torch] switches:",
+              train_switches(cfg.bf16, train=cfg.train))
     # --profile: one trace over every dispatched phase, stopped and
     # written however the phases end
     with handler.profiler.trace():

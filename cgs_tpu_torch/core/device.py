@@ -53,3 +53,13 @@ def deterministic_cudnn() -> dict:
     the same losses and IoU on every run."""
     torch.backends.cudnn.deterministic = True
     return {"cudnn.deterministic": torch.backends.cudnn.deterministic}
+
+
+def train_switches(bf16: bool, train: bool = True) -> dict:
+    """The switches a run on the card sets, `cli.main` and the sandbox
+    trainers alike: TF32 off unless bf16 (so f32 means f32), and, when
+    it trains, deterministic cuDNN."""
+    state = tf32_state() if bf16 else disable_tf32()
+    if train:
+        state.update(deterministic_cudnn())
+    return state

@@ -28,8 +28,20 @@ the mean of the N per-seed runs `{model}-seed{s}`, loaded once per
 Handler; a video file as --source-imgs goes to `segment_video`;
 `-viscritic`/`-vismasker`/`--trainasvis` render the curve videos;
 `--profile DIR` traces the run (`utils/profiling.py:Profiler`, started
-by `cli.main`). `-orbax` is not ported yet and raises
-`NotImplementedError` naming its ROADMAP.md item.
+by `cli.main`).
+
+`-orbax` saves each phase's full train state (`train/checkpoints.py:
+TrainStateManager`, under `{name}/saves/orbax-critic/` and
+`orbax-masker/`) and resumes from the newest: the critic phase at every
+epoch boundary, the masker phase at every chunk boundary, keyed by the
+global step, so it resumes mid-epoch. The states hold the models, the
+Adam state and every random source drawn after that point (the
+StepRngs' generators and, in the critic phase, `self.rng`, which orders
+the batches), so a resumed run ends with the parameters of an
+uninterrupted one. The JAX package does not save `self.rng`, so its
+resumed critic phase draws other batches (ROADMAP.md queue 3 item 2).
+The train states are written whatever `primary` says, as the JAX
+package writes its orbax states on every process.
 """
 
 from __future__ import annotations
@@ -55,7 +67,8 @@ from cgs_tpu_torch.models.decoder import UnetDecoder
 from cgs_tpu_torch.models.interop import init_torch_default
 from cgs_tpu_torch.pipeline import MaskPipeline
 from cgs_tpu_torch.train.checkpoints import (
-    checkpoint_paths, load_model_pt, load_seed_ensemble, save_model_pt,
+    TrainStateManager, checkpoint_paths, load_model_pt, load_seed_ensemble,
+    save_model_pt,
 )
 from cgs_tpu_torch.train.contrastive import (
     extract_contrastive_sets, sample_index_stacks,
@@ -79,18 +92,9 @@ SEPCRIT = "sepcrit"
 MASK_STREAM = 0x6d61736b        # 'mask': the masker phase's numpy stream
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to cgs_tpu_torch yet (ROADMAP.md {item}); "
-        "the JAX package cgs_tpu has it")
-
-
 class Handler:
     def __init__(self, cfg: Config, primary: bool = True):
         self.cfg = cfg
-        if cfg.orbax:
-            raise _not_ported("-orbax (train-state resume)",
-                              "queue 1 item 2, -orbax resume")
         self.device = resolve_device(cfg.device)
         self.primary = primary      # gates every file write
         self.rng = np.random.default_rng(cfg.seed)
@@ -120,6 +124,7 @@ class Handler:
         self._pipes: Dict = {}       # inference pipelines per config
         self._eval_sets: Dict = {}   # folder -> (x, gt) eval data
         self._ensemble_params = None  # --ensemble members, loaded once
+        self.train_states: Dict[str, TrainStateManager] = {}  # -orbax
 
     # -- model/param management ------------------------------------
 
@@ -298,6 +303,15 @@ class Handler:
         model.load_state_dict(self.params[name])
         return model.train()
 
+    def _train_state(self, phase: str) -> Optional[TrainStateManager]:
+        """The phase's train-state manager under -orbax (kept in
+        self.train_states), else None."""
+        if not self.cfg.orbax:
+            return None
+        mgr = TrainStateManager(f"{self.path}saves/orbax-{phase}/")
+        self.train_states[phase] = mgr
+        return mgr
+
     @staticmethod
     def _cpu_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
         return {k: v.detach().cpu().clone()
@@ -334,10 +348,23 @@ class Handler:
         loader = EpochLoader(self.data.n_train, cfg.batch_size, self.rng)
         x_dev, y_dev = self.data.x_train_dev, self.data.y_train_dev
 
+        # -orbax: resume at the saved epoch, every random source included
+        ckpt = self._train_state(CRITIC)
+        start_epoch = 0
+        restored = ckpt.restore() if ckpt is not None else None
+        if restored is not None:
+            start_epoch, state = restored
+            critic.load_state_dict(state["models"][CRITIC])
+            opt.load_state_dict(state["optimizer"])
+            rng.set_state(state["rng"])
+            viz_rng.set_state(state["viz_rng"])
+            self.rng.bit_generator.state = state["loader"]
+            print(f"orbax resume: critic epoch {start_epoch}")
+
         llog: List[float] = []
         steps = 0
         t0 = time.time()
-        for epoch in range(n_epochs):
+        for epoch in range(start_epoch, n_epochs):
             b_idx = 0
             # the critic-phase chunk (= viz cadence) is the reference's
             # hard-coded 100 batches (main.py:204); --visevery drives
@@ -369,6 +396,12 @@ class Handler:
             if not (epoch + 1) % cfg.saveevery:   # main.py:228
                 self.params[CRITIC] = self._cpu_state(critic)
                 self.save_models([CRITIC])
+            if ckpt is not None:
+                ckpt.save(epoch + 1, {
+                    "models": {CRITIC: critic.state_dict()},
+                    "optimizer": opt.state_dict(), "rng": rng.get_state(),
+                    "viz_rng": viz_rng.get_state(),
+                    "loader": self.rng.bit_generator.state})
             if self.primary:
                 save_loss_plot(result_path + "_loss.png", llog,
                                ["Train Loss"])
@@ -407,8 +440,12 @@ class Handler:
         self.contrastive = sets
         return sets
 
-    def segmentation_training(self) -> None:
-        """Masker training (main.py:314-575)."""
+    def segmentation_training(self, on_epoch=None) -> None:
+        """Masker training (main.py:314-575). on_epoch(epoch, models,
+        losses), if given, sees the device models before the first
+        masker epoch of a run that did not resume (epoch 0, losses None)
+        and after each epoch e (epoch e + 1, that epoch's (steps, 4)
+        losses): the drift probe's hook (`sandbox/drift.py`)."""
         cfg = self.cfg
         sets = self.extract_contrastive_data()
         train_path = self.path + "segment/"
@@ -429,11 +466,32 @@ class Handler:
 
         k = 32  # contrastive batch (main.py:309)
         steps_per_epoch = -(-sets.n_pos // k)     # main.py:342
-        log_rows: List[np.ndarray] = []
+
+        # -orbax: the saved step is the global step, saved at every
+        # chunk boundary, so a run resumes mid-epoch; the index stacks
+        # are derived per (epoch, done) and the generators restored
+        ckpt = self._train_state(MASKER)
         steps = 0
+        restored = ckpt.restore() if ckpt is not None else None
+        if restored is not None:
+            steps, state = restored
+            for name, model in models.items():
+                model.load_state_dict(state["models"][name])
+            opt.load_state_dict(state["optimizer"])
+            rng.set_state(state["rng"])
+            viz_rng.set_state(state["viz_rng"])
+        start_epoch, start_done = divmod(steps, steps_per_epoch)
+        if restored is not None:
+            print(f"orbax resume: masker epoch {start_epoch} "
+                  f"step {start_done}")
+        log_rows: List[np.ndarray] = []
+        resumed_at = steps
+        if on_epoch is not None and restored is None:
+            on_epoch(0, models, None)
         t0 = time.time()
-        for epoch in range(cfg.mepochs):
-            done = 0
+        for epoch in range(start_epoch, cfg.mepochs):
+            done = start_done if epoch == start_epoch else 0
+            epoch_rows = len(log_rows)
             while done < steps_per_epoch:
                 s = min(cfg.visevery, steps_per_epoch - done)
                 # the JAX package's per-(epoch, step) numpy stream, so
@@ -478,7 +536,17 @@ class Handler:
                     norm=float(losses[:, 2].mean()),
                     critic=float(losses[:, 3].mean()))
                 done += s
+                if ckpt is not None:
+                    ckpt.save(epoch * steps_per_epoch + done, {
+                        "models": {n: m.state_dict()
+                                   for n, m in models.items()},
+                        "optimizer": opt.state_dict(),
+                        "rng": rng.get_state(),
+                        "viz_rng": viz_rng.get_state()})
 
+            if on_epoch is not None:
+                on_epoch(epoch + 1, models,
+                         np.concatenate(log_rows[epoch_rows:], axis=0))
             if self.primary:
                 save_loss_plot(
                     train_path + "_loss.png",
@@ -499,9 +567,9 @@ class Handler:
                     self.bestepoch = epoch
 
         dt = time.time() - t0
-        if steps:
+        if steps > resumed_at:
             self.metrics.write("masker_throughput",
-                               steps_per_sec=steps / dt)
+                               steps_per_sec=(steps - resumed_at) / dt)
         print()
         self.loss_log[MASKER] = (np.concatenate(log_rows, axis=0)
                                  if log_rows else np.zeros((0, 4)))

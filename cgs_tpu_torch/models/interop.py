@@ -8,7 +8,9 @@ given as numpy arrays, into the port's state_dict, and
 `adam_state_from_optax` turns the optax Adam moments of a JAX train
 state into a `torch.optim.Adam` state dict; they are how the parity
 tests start both packages from the same weights and the same
-mid-training state.
+mid-training state. `stack_state_dicts` / `stack_seeds` stack R seeds'
+weights into the layout of `models/seeded.py`, and `unstack_seed` cuts
+seed r back out in the reference layout.
 
 Weight layout: torch conv (out, in, kh, kw) <-> flax (kh, kw, in, out);
 torch linear (out, in) <-> flax (in, out).
@@ -16,7 +18,7 @@ torch linear (out, in) <-> flax (in, out).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
@@ -122,3 +124,51 @@ def init_torch_default(module: nn.Module,
 
 def num_params(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+def stack_state_dicts(states: Sequence[Dict[str, torch.Tensor]]
+                      ) -> Dict[str, torch.Tensor]:
+    """R reference-layout state_dicts (one model each) -> the seeded
+    module's state_dict (`models/seeded.py`): conv weights and biases
+    concatenated along the output channels, (R*Cout, Cin, kh, kw) and
+    (R*Cout,); linear weights and biases stacked, (R, out, in) and
+    (R, out)."""
+    out = {}
+    for key in states[0]:
+        layer = key.rsplit(".", 1)[0]
+        conv = states[0][f"{layer}.weight"].dim() == 4
+        parts = [s[key].detach().to("cpu", torch.float32) for s in states]
+        out[key] = (torch.cat(parts) if conv else torch.stack(parts)
+                    ).contiguous()
+    return out
+
+
+def stack_seeds(trees: Dict, keymap: Dict[str, str]
+                ) -> Dict[str, torch.Tensor]:
+    """A JAX parameter tree whose every leaf has a leading (R,) seed
+    axis (numpy, as `cgs_tpu.sandbox.seed_parallel.init_seed_params`
+    returns it) -> the seeded module's state_dict."""
+    seeds = np.asarray(next(iter(trees.values()))["kernel"]).shape[0]
+    return stack_state_dicts([
+        state_dict_from_flax(
+            {k: {leaf: np.asarray(v[leaf])[r] for leaf in ("kernel",
+                                                           "bias")}
+             for k, v in trees.items()}, keymap)
+        for r in range(seeds)])
+
+
+def unstack_seed(state: Dict[str, torch.Tensor], r: int, seeds: int
+                 ) -> Dict[str, torch.Tensor]:
+    """Seed r of a seeded state_dict as a reference-layout state_dict of
+    contiguous float32 CPU tensors, as `torch_interop.py:27-45` names
+    its keys."""
+    out = {}
+    for key, v in state.items():
+        layer = key.rsplit(".", 1)[0]
+        if state[f"{layer}.weight"].dim() == 4:      # conv: R*Cout rows
+            cout = v.shape[0] // seeds
+            v = v[r * cout:(r + 1) * cout]
+        else:
+            v = v[r]
+        out[key] = v.detach().to("cpu", torch.float32).contiguous().clone()
+    return out

@@ -14,7 +14,7 @@ the plain version.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ INV255 = float(np.float32(1.0 / 255.0))
 # ---------------------------------------------------------------------
 
 MAX_SEGMENTS = 3        # csrc/normalize_u8.cu: kMaxSeg
+MAX_SEEDS = 64          # csrc/normalize_u8.cu: kMaxSeeds
 INGEST_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -40,15 +41,38 @@ class Segment(NamedTuple):
     its rows, in order, when idx is None), rolled by `shift` pixels
     along W (`torch.roll`'s sign, any integer), with their `labels`
     gathered beside them when labels (one float32 per bank row) are
-    given."""
+    given.
+
+    For R seeds at once, idx is (R, n), row r naming seed r's frames,
+    and shift is one int for all seeds or a sequence of R ints, seed
+    r's roll."""
     bank: torch.Tensor                      # (M, H, W, C) uint8
-    idx: Optional[torch.Tensor] = None      # (n,) int64, values in [0, M)
-    shift: int = 0
+    idx: Optional[torch.Tensor] = None      # (n,) or (R, n) int64 in [0, M)
+    shift: Union[int, Sequence[int]] = 0
     labels: Optional[torch.Tensor] = None   # (M,) float32
 
     @property
+    def seeds(self) -> int:
+        return 1 if self.idx is None or self.idx.dim() == 1 \
+            else self.idx.shape[0]
+
+    @property
     def rows(self) -> int:
-        return self.bank.shape[0] if self.idx is None else self.idx.shape[0]
+        """Frames over all seeds."""
+        return self.bank.shape[0] if self.idx is None else self.idx.numel()
+
+    def shifts(self) -> List[int]:
+        """Each seed's roll."""
+        if isinstance(self.shift, (int, np.integer)):
+            return [int(self.shift)] * self.seeds
+        return [int(s) for s in self.shift]
+
+    def per_seed(self) -> List["Segment"]:
+        """One single-seed segment per seed, in seed order."""
+        if self.idx is None or self.idx.dim() == 1:
+            return [self._replace(shift=self.shifts()[0])]
+        return [self._replace(idx=i, shift=s)
+                for i, s in zip(self.idx, self.shifts())]
 
 
 def normalize_u8_plain(x_u8: torch.Tensor,
@@ -58,10 +82,11 @@ def normalize_u8_plain(x_u8: torch.Tensor,
 
 def gather_normalize_u8_plain(segments: Sequence[Segment],
                               dtype: torch.dtype = torch.float32):
-    """The kernel's function in plain PyTorch: index_select, roll,
-    cat, normalise."""
+    """The kernel's function in plain PyTorch: per segment and seed,
+    index_select and roll; then cat and normalise. For R seeds this is
+    the R single-seed calls' pieces, segment by segment."""
     frames, labels = [], []
-    for seg in segments:
+    for seg in (one for s in segments for one in s.per_seed()):
         x = seg.bank if seg.idx is None else seg.bank.index_select(0,
                                                                    seg.idx)
         frames.append(torch.roll(x, int(seg.shift), dims=2))
@@ -80,10 +105,13 @@ def _check_segments(segments: Sequence[Segment], dtype) -> None:
     if dtype not in INGEST_DTYPES:
         raise ValueError(f"{name}: dtype {dtype} not in {INGEST_DTYPES}")
     frame, dev = segments[0].bank.shape[1:], segments[0].bank.device
+    seeds = segments[0].seeds
     labelled = [seg.labels is not None for seg in segments]
     if labelled != sorted(labelled, reverse=True):
         raise ValueError(f"{name}: the segments with labels must come "
                          "first")
+    if not 1 <= seeds <= MAX_SEEDS:
+        raise ValueError(f"{name}: 1 to {MAX_SEEDS} seeds, got {seeds}")
     for seg in segments:
         b = seg.bank
         if b.dtype != torch.uint8 or b.dim() != 4:
@@ -93,10 +121,16 @@ def _check_segments(segments: Sequence[Segment], dtype) -> None:
             raise ValueError(f"{name}: banks differ in frame shape or "
                              "device")
         if seg.idx is not None and (seg.idx.dtype != torch.int64
-                                    or seg.idx.dim() != 1
+                                    or seg.idx.dim() not in (1, 2)
                                     or seg.idx.device != dev):
-            raise ValueError(f"{name}: idx must be 1-D int64 on the "
-                             "banks' device")
+            raise ValueError(f"{name}: idx must be (n,) or (R, n) int64 on "
+                             "the banks' device")
+        if seg.seeds != seeds or (seeds > 1 and seg.idx.dim() != 2):
+            raise ValueError(f"{name}: every segment must name index rows "
+                             f"for the same {seeds} seeds")
+        if len(seg.shifts()) != seeds:
+            raise ValueError(f"{name}: {len(seg.shifts())} shifts for "
+                             f"{seeds} seeds")
         if seg.labels is not None and (
                 seg.labels.dtype != torch.float32
                 or tuple(seg.labels.shape) != (b.shape[0],)
@@ -109,9 +143,12 @@ def gather_normalize_u8(segments: Sequence[Segment],
                         dtype: torch.dtype = torch.float32):
     """(frames, labels): the segments' frames gathered, rolled and
     normalised (`x * float32(1/255)`, then rounded to `dtype`), laid end
-    to end in one (sum n, H, W, C) buffer, and the labels of the
-    labelled segments, which come first, or None. One kernel launch on
-    the card. Bit-equal to `gather_normalize_u8_plain`.
+    to end in one (sum rows, H, W, C) buffer, and the labels of the
+    labelled segments, which come first, or None. With R seeds each
+    segment holds its seeds' frames end to end (segment-major, seed-major
+    within a segment), each seed rolled by its own shift. One kernel
+    launch on the card, whatever R is. Bit-equal to
+    `gather_normalize_u8_plain`.
 
     The kernel does not check the indices: a caller that builds them
     validates them first (`train/loops.py:_upload`)."""
@@ -124,6 +161,7 @@ def gather_normalize_u8(segments: Sequence[Segment],
             if t is not None:
                 _build.require_cuda_tensor(t, "gather_normalize_u8")
     dev = segments[0].bank.device
+    seeds = segments[0].seeds
     n = sum(seg.rows for seg in segments)
     h, w, c = segments[0].bank.shape[1:]
     out = torch.empty((n, h, w, c), dtype=dtype, device=dev)
@@ -136,13 +174,15 @@ def gather_normalize_u8(segments: Sequence[Segment],
         return out, labels
     desc = np.array([[seg.bank.data_ptr(),
                       0 if seg.idx is None else seg.idx.data_ptr(),
-                      seg.rows, int(seg.shift),
+                      seg.rows // seeds,
                       0 if seg.labels is None else seg.labels.data_ptr()]
                      for seg in segments], dtype=np.int64)
+    shifts = np.array([seg.shifts() for seg in segments],
+                      dtype=np.int64).T.copy()          # (R, segments)
     lib = _build.kernel("normalize_u8")
     err = lib.cgs_normalize_u8(
-        desc.ctypes.data, len(segments), h, w, c, out.data_ptr(),
-        0 if labels is None else labels.data_ptr(),
+        desc.ctypes.data, len(segments), seeds, shifts.ctypes.data, h, w, c,
+        out.data_ptr(), 0 if labels is None else labels.data_ptr(),
         int(dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(err, "normalize_u8")
     _build.launches["normalize_u8"] += 1

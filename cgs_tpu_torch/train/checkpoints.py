@@ -7,15 +7,22 @@ are state_dicts in the reference layout, so files move freely between
 the reference, `cgs_tpu` and this port. A missing file loads as None
 (the caller keeps its weights, main.py:141-147). `load_seed_ensemble`
 (port of `cgs_tpu/train/checkpoints.py:108-148`) reads the per-seed
-runs that `sandbox/multirun.py` writes. The Orbax train state waits for
-a later slice (ROADMAP.md queue 1, `-orbax` resume).
+runs that `sandbox/multirun.py` and `sandbox/seed_parallel.py` write.
+
+`TrainStateManager` is the counterpart of the JAX package's
+`OrbaxManager` (`cgs_tpu/train/checkpoints.py:66-103`), written without
+orbax: the full train state of a phase (step, models, Adam state, and
+the state of every random source the phase draws from after that
+point), one `torch.save` file per step, the newest `max_to_keep` kept.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional
+import re
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -94,3 +101,53 @@ def load_seed_ensemble(cfg, n: int, base_seed: int = 0
             member[name] = state
         members.append(member)
     return members
+
+
+class TrainStateManager:
+    """Full-train-state checkpoints with resume from the newest, under
+    `directory` (`-orbax`: `{name}/saves/orbax-critic/` and
+    `orbax-masker/`, the JAX package's directories). `save(step,
+    state)` writes `state` (a dict of tensors, numbers, strings and
+    containers of them: state_dicts, an Adam `state_dict()`, generator
+    states, a numpy bit-generator state) to `step-<step>.pt`, atomically,
+    and deletes all but the newest `max_to_keep` files; `restore()`
+    loads the newest with `weights_only=True` onto the CPU.
+    `save_seconds` records each save's wall time."""
+
+    _NAME = re.compile(r"step-(\d+)\.pt$")
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        self.save_seconds: List[float] = []
+        os.makedirs(self.directory, exist_ok=True)
+
+    def steps(self) -> List[int]:
+        """The saved steps, oldest first."""
+        found = (self._NAME.match(f) for f in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step-{step}.pt")
+
+    def save(self, step: int, state: Dict[str, Any]) -> None:
+        t0 = time.perf_counter()
+        tmp = f"{self._path(step)}.tmp.{os.getpid()}"
+        torch.save({"step": int(step), **state}, tmp)
+        os.replace(tmp, self._path(step))
+        for old in self.steps()[:-self.max_to_keep]:
+            os.remove(self._path(old))
+        self.save_seconds.append(time.perf_counter() - t0)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self) -> Optional[Tuple[int, Dict[str, Any]]]:
+        """(step, state) of the newest file, or None when there is none."""
+        step = self.latest_step()
+        if step is None:
+            return None
+        state = torch.load(self._path(step), map_location="cpu",
+                           weights_only=True)
+        return step, state

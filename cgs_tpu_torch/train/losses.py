@@ -66,6 +66,18 @@ def bce(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return -(target * logp + (1.0 - target) * lognp).mean()
 
 
+def mse_rows(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """(R, n) -> (R,): each row's MSE."""
+    return ((pred - target) ** 2).mean(1)
+
+
+def bce_rows(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """(R, n) -> (R,): each row's `bce`."""
+    logp = _clamped_log(pred)
+    lognp = _clamped_log(1.0 - pred)
+    return -(target * logp + (1.0 - target) * lognp).mean(1)
+
+
 def ingest(x_u8: torch.Tensor) -> torch.Tensor:
     """(N, H, W, 3) uint8 -> (N, 3, H, W) float32 in [0, 1], stored
     channels_last (main.py:189 `.float()/255`). On the card this is the
@@ -82,10 +94,6 @@ def ingest_segments(segments: Sequence[Segment]):
     return x.permute(0, 3, 1, 2), y
 
 
-def _zero(like: torch.Tensor) -> torch.Tensor:
-    return torch.zeros((), device=like.device)
-
-
 def build_critic_loss(cfg):
     """(critic, x f32 NCHW, y (B,), dropout generator) -> scalar loss
     (main.py:189-195)."""
@@ -98,19 +106,61 @@ def build_critic_loss(cfg):
     return loss_fn
 
 
+def masker_terms(cfg, pred, negpred, y, z, replacevalue,
+                 injectvalue=None):
+    """The masker loss of each of R rows (seeds) from its critic outputs
+    (main.py:378-429), shared by `build_masker_loss` (R = 1) and the
+    seed-parallel runner. pred, negpred, y, replacevalue, injectvalue:
+    (R, n), negpred detached by the caller, injectvalue None without
+    --inject; z: the (R*n, 1, H, W) masks, row r's at [r*n, (r+1)*n).
+    Returns (loss (R,), replace, inject, norm, critic (R,) each), norm
+    as the reference logs it."""
+    r, n = pred.shape
+    zero = torch.zeros(r, device=pred.device)
+    terms = []          # the loss is their sum, in this order
+    if cfg.live:  # main.py:378-385
+        closs = (bce_rows if cfg.threshrew else mse_rows)(pred, y)
+        terms.append(float(cfg.lfak) * closs)
+    else:
+        closs = zero
+    replaceloss = mse_rows(replacevalue, negpred)  # main.py:400
+    terms.append(replaceloss)
+    if cfg.inject:  # main.py:405-413
+        injectloss = mse_rows(injectvalue, pred.detach())
+        terms.append(injectloss)
+    else:
+        injectloss = zero
+    # sparsity (main.py:415-429); vf = 1 under staticnorm, where vf * z
+    # is z itself
+    vz = z if cfg.staticnorm else \
+        (1.0 - pred.detach()).reshape(r * n, 1, 1, 1) * z
+    vz = vz.reshape(r, -1)
+    l1, l2 = float(cfg.L1), float(cfg.L2)
+    norm = logged_norm = None
+    if l1:
+        logged_norm = l1 * vz.abs().mean(1)
+        norm = logged_norm
+    if l2:
+        # when BOTH penalties are on, the reference's log shows only the
+        # L2 term (`normloss` is overwritten, main.py:421-429); the
+        # total loss still contains both
+        logged_norm = l2 * (vz ** 2).mean(1)
+        norm = logged_norm if norm is None else norm + logged_norm
+    if norm is None:
+        norm = logged_norm = zero
+    loss = terms[0]
+    for t in terms[1:] + [norm]:
+        loss = loss + t
+    return loss, replaceloss, injectloss, logged_norm, closs
+
+
 def build_masker_loss(cfg, fuse: str = "both"):
     """(models {'critic', 'masker'[, 'sepcrit']}, a f32, y, b f32,
     dropout generator) -> (loss, aux); aux carries the per-term metrics
     and the tensors the reference visualizes (main.py:364-429,466-530).
     a and b are NCHW float32 frames stored channels_last."""
-    live = bool(cfg.live)
     inject = bool(cfg.inject)
     separate = bool(cfg.separate)
-    staticnorm = bool(cfg.staticnorm)
-    use_bce = bool(cfg.threshrew)
-    l1 = float(cfg.L1)
-    l2 = float(cfg.L2)
-    lfak = float(cfg.lfak)
     if fuse not in ("none", "merges", "both"):
         raise ValueError(f"fuse={fuse!r} not in ('none','merges','both')")
     fuse_ab = fuse == "both"
@@ -135,14 +185,6 @@ def build_masker_loss(cfg, fuse: str = "both"):
             negpred = critic(b, generator=generator).squeeze(-1).detach()
 
         aux = {"pred": pred, "negpred": negpred}
-        terms = []          # the loss is their sum, in this order
-        if live:  # main.py:378-385
-            closs = bce(pred, y) if use_bce else mse(pred, y)
-            terms.append(lfak * closs)
-            aux["critic"] = closs
-        else:
-            aux["critic"] = _zero(a)
-
         if separate:  # main.py:389-390
             _, embeds = models["sepcrit"](a, collect=True,
                                           generator=generator)
@@ -156,6 +198,7 @@ def build_masker_loss(cfg, fuse: str = "both"):
         else:
             replaced, injected = replace_merge(a, b, z), None
         aux["replaced"], aux["injected"] = replaced, injected
+        injectvalue = None
         if fuse_merge and inject:
             vals = critic(merged, generator=generator).squeeze(-1)
             replacevalue = vals[:n]
@@ -163,45 +206,19 @@ def build_masker_loss(cfg, fuse: str = "both"):
         else:
             replacevalue = critic(replaced,
                                   generator=generator).squeeze(-1)
-            injectvalue = None
-        replaceloss = mse(replacevalue, negpred)  # main.py:400
-        terms.append(replaceloss)
-        aux["replace"] = replaceloss
-        aux["replacevalue"] = replacevalue
-
-        if inject:  # main.py:405-413
-            if injectvalue is None:
+            if inject:
                 injectvalue = critic(injected,
                                      generator=generator).squeeze(-1)
-            injectloss = mse(injectvalue, pred.detach())
-            terms.append(injectloss)
-            aux["inject"] = injectloss
-            aux["injectvalue"] = injectvalue
-        else:
-            aux["inject"] = _zero(a)
-            aux["injectvalue"] = torch.zeros_like(negpred)
+        aux["replacevalue"] = replacevalue
+        aux["injectvalue"] = (injectvalue if inject
+                              else torch.zeros_like(negpred))
 
-        # sparsity (main.py:415-429); vf = 1 under staticnorm, where
-        # vf * z is z itself
-        vz = z if staticnorm else (1.0 - pred.detach())[:, None, None,
-                                                        None] * z
-        norm = logged_norm = None
-        if l1:
-            logged_norm = l1 * vz.abs().mean()
-            norm = logged_norm
-        if l2:
-            # when BOTH penalties are on, the reference's log shows
-            # only the L2 term (`normloss` is overwritten,
-            # main.py:421-429); the total loss still contains both
-            logged_norm = l2 * (vz ** 2).mean()
-            norm = logged_norm if norm is None else norm + logged_norm
-        if norm is None:
-            norm = logged_norm = _zero(a)
-        loss = terms[0]
-        for t in terms[1:] + [norm]:
-            loss = loss + t
-        aux["norm"] = logged_norm
-        aux["loss"] = loss
-        return loss, aux
+        loss, *terms = masker_terms(
+            cfg, pred[None], negpred[None], y[None], z, replacevalue[None],
+            None if injectvalue is None else injectvalue[None])
+        for key, t in zip(("replace", "inject", "norm", "critic"), terms):
+            aux[key] = t[0]
+        aux["loss"] = loss[0]
+        return loss[0], aux
 
     return loss_fn

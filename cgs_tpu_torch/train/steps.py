@@ -44,6 +44,16 @@ class StepRng:
         return cls(torch.Generator().manual_seed(seed),
                    torch.Generator(device=device).manual_seed(seed))
 
+    def get_state(self) -> dict:
+        """Both generators' states (CPU byte tensors), for a train-state
+        checkpoint."""
+        return {"shift": self.shift.get_state(),
+                "dropout": self.dropout.get_state()}
+
+    def set_state(self, state: dict) -> None:
+        self.shift.set_state(state["shift"])
+        self.dropout.set_state(state["dropout"])
+
 
 def make_optimizer(modules: Dict[str, torch.nn.Module],
                    critic_update_scale: float = 1.0

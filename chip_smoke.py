@@ -81,11 +81,39 @@ from `cgs_tpu_torch/csrc/`, then:
            `results.txt`: the paper's synthetic protocol (20k frames,
            critic 10 / masker 12 epochs) with `-frozen` (the CLI's
            `-train` makes cuDNN deterministic), writing no files but
-           the runner's line; the eval IoU must reach 0.70.
+           the runner's line; the eval IoU must reach 0.70;
+  seeded   the ingest for R = 3 seeds in one launch (each seed its own
+           shift) bit-equal to its plain version, and R = 1 to the
+           single-seed call; a seeded chfak-5 masker step launches 1
+           ingest, 1 + 1 merge and 5 + 5 joins at R = 1 and R = 3 (with
+           its device operations, layout moves and their copies' device
+           time); at R = 2 and 3 the step's kernel path bit-equal to
+           its plain path ((R, 4) terms and every gradient, dropout 0.5,
+           shifts drawn); three seeded steps of R = 2 at dropout 0 with
+           given shifts agree with three serial `masker_step`s per seed
+           within SP_TOL (f32, TF32 off): the first step's gradients,
+           the terms, and the parameters under SGD (under Adam, which
+           steps by ~lr on a gradient at 0, their |diff| is logged); seeded masker and critic steps/s at
+           R = 1, 3 and 10 beside the serial steps' (a record);
+  seed-parallel  (seed-parallel main path) `run_parallel` of R = 3
+           seeds of the easy protocol (-frozen, chfak 5, 20k frames,
+           critic 10 / masker 12 epochs) in a temporary directory: every
+           seed's IoU >= 0.70, the ensemble IoU finite, 12 * ceil(max
+           |pos| / 32) masker steps, the JAX runner's results.txt line;
+  resume   (resume main path) a small chfak-5 `-train -orbax` (dropout
+           0.5, shift on) broken after its second masker chunk and
+           resumed: critic and masker bit-equal to an uninterrupted run;
+           the save ms per chunk;
+  drift, ablation  (their main paths) `sandbox.drift.main` over full and
+           frozen (2 masker epochs): the frozen rows read 0 drift
+           exactly, the full rows more; `sandbox.ablation.run_ablation`
+           of R = 2 over the four variants and its paired summary, at
+           chfak 5 and a small depth.
 
 Launch counts are set to 0 just before each main path (eval + process;
-ensemble; profile; video; train) and read just after it; every kernel of a
-path must have launched there. Weights are random, from a seed. Any
+ensemble; profile; video; train; seed-parallel; resume; drift;
+ablation) and read just after it; every kernel of a path must have
+launched there. Weights are random, from a seed. Any
 failed check exits non-zero. Without CUDA, or without the rest of the
 checkout, it fails and prints no result. The next-to-last lines are a JSON `kernels`
 summary and the card's name and power limit from nvidia-smi; the last
@@ -146,6 +174,35 @@ PROTOCOL = ["-train", "-eval", "-synthetic_data", "--chfak", "5",
             "--dropout", "0.5", "--datasize", "20000", "--cepochs", "10",
             "--mepochs", "12", "-frozen", "--model", "chip-smoke-train"]
 MIN_IOU = 0.70
+# the seed-parallel runner: R seeds of the easy protocol at once, and
+# the widths its step speed is read at
+SP_R = 3
+SP_SPEED_R = (1, 3, 10)
+SP_PROTOCOL = ["-synthetic_data", "--chfak", "5", "--dropout", "0.5",
+               "--datasize", "20000", "--cepochs", "10", "--mepochs", "12",
+               "-frozen", "--model", "chip-smoke-sp"]
+# seeded (grouped cuDNN convolutions) against serial masker steps, three
+# steps at dropout 0, f32, TF32 off: the largest |difference| allowed in
+# any loss term or parameter, and in the first step's gradients relative
+# to each tensor's largest (the CPU tests hold 1e-5 after two steps)
+SP_TOL = 2e-4
+# -orbax resume: a small chfak-5 run, several masker chunks per epoch
+RESUME_CHUNK = 2
+RESUME_ARGV = ["-train", "-synthetic_data", "--chfak", "5", "--dropout",
+               "0.5", "--datasize", "2000", "--testsize", "200", "--cepochs",
+               "2", "--mepochs", "2", "--visevery", str(RESUME_CHUNK),
+               "--high-rew-thresh", "0.55", "--low-rew-thresh", "0.45",
+               "--contrastive-min", "50", "-orbax"]
+RESUME_KERNELS = ("normalize_u8", "merge_pair", "merge_pair_bwd",
+                  "upsample2x", "upsample2x_bwd")
+# the drift probe and the paired ablation at chfak 5, small depth
+SMALL = ["-synthetic_data", "--chfak", "5", "--dropout", "0.5",
+         "--datasize", "4000", "--testsize", "500", "--cepochs", "3",
+         "--high-rew-thresh", "0.55", "--low-rew-thresh", "0.45",
+         "--contrastive-min", "100"]
+DRIFT_ARGV = SMALL + ["--mepochs", "2", "--model", "chip-smoke-drift",
+                      "--variants", "full,frozen"]
+ABLATION_ARGV = SMALL + ["--mepochs", "1", "--model", "chip-smoke-abl"]
 
 
 class SmokeFailure(Exception):
@@ -210,10 +267,12 @@ def main(argv=None) -> int:
 
     summary = {}
     phase_kernels(_build, summary)
+    phase_seeded_ingest(summary)
     phase_train_kernels(summary)
     phase_serve(_build)
     phase_train_step(_build)
     phase_train_speed()
+    phase_seeded_step(_build)
 
     _build.launches.clear()                 # serving main path starts
     phase_eval(_build)
@@ -249,11 +308,24 @@ def main(argv=None) -> int:
     for name in TRAIN_KERNELS:
         check(train_launches.get(name, 0) > 0,
               f"{name} never launched on the training main path")
+    # the seed-parallel, resume, drift and ablation paths clear and read
+    # the counts around their own main-path calls
+    later = {"seed-parallel": (phase_seed_parallel(_build), TRAIN_KERNELS)}
+    later["resume"] = (phase_resume(_build), RESUME_KERNELS)
+    drift_launches, ablation_launches = phase_drift_ablation(_build)
+    later["drift"] = (drift_launches, TRAIN_KERNELS)
+    later["ablation"] = (ablation_launches, TRAIN_KERNELS)
+    for path, (counts, kernels) in later.items():
+        log(f"[main path: {path}] launches:", counts)
+        for name in kernels:
+            check(counts.get(name, 0) > 0,
+                  f"{name} never launched on the {path} main path")
     for name in _build.KERNELS:
         summary[name]["launches"] = sum(
             counts.get(name, 0) for counts in (
                 serve_launches, ensemble_launches, profile_launches,
-                video_launches, train_launches))
+                video_launches, train_launches,
+                *(c for c, _ in later.values())))
         check(summary[name]["launches"] > 0,
               f"{name} never launched on a main path")
 
@@ -1338,6 +1410,30 @@ def _train_models(dtype, seed: int):
     return out
 
 
+def _plain_kernels():
+    """A context in which a train step runs every port kernel's plain
+    version (the ingest, the merges and their gradient, the fused
+    upsample-into-concat pair) on the card."""
+    import contextlib
+    from unittest import mock
+
+    import cgs_tpu_torch.ops.merge as merge_mod
+    import cgs_tpu_torch.ops.upsample as upsample_mod
+    import cgs_tpu_torch.train.losses as losses_mod
+    from cgs_tpu_torch.ops.kernels import (
+        gather_normalize_u8_plain, merge_pair_bwd_plain, merge_pair_plain,
+    )
+    stack = contextlib.ExitStack()
+    for mod, name, plain in (
+            (losses_mod, "gather_normalize_u8", gather_normalize_u8_plain),
+            (merge_mod, "merge_pair", merge_pair_plain),
+            (merge_mod, "merge_pair_bwd", merge_pair_bwd_plain),
+            (upsample_mod, "upcat_fwd", upsample_mod.upcat_plain),
+            (upsample_mod, "upcat_bwd", upsample_mod.upcat_bwd_plain)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
 def phase_train_step(_build) -> None:
     """One chfak-5 masker step (`masker_step`, default flags: frames and
     labels gathered from uint8 banks by index, A shifted), kernel path
@@ -1349,11 +1445,7 @@ def phase_train_step(_build) -> None:
 
     import cgs_tpu_torch.ops.merge as merge_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
-    import cgs_tpu_torch.train.losses as losses_mod
     from cgs_tpu_torch.core.config import parse_args
-    from cgs_tpu_torch.ops.kernels import (
-        gather_normalize_u8_plain, merge_pair_bwd_plain, merge_pair_plain,
-    )
     from cgs_tpu_torch.train.steps import StepRng, masker_step
 
     t0 = time.time()
@@ -1400,16 +1492,7 @@ def phase_train_step(_build) -> None:
                 mock.patch.object(upsample_mod, "upcat_bwd", spy_ubwd):
             k_terms, k_grads = run()
         per_step = dict(_build.launches)
-        with mock.patch.object(losses_mod, "gather_normalize_u8",
-                               gather_normalize_u8_plain), \
-                mock.patch.object(merge_mod, "merge_pair",
-                                  merge_pair_plain), \
-                mock.patch.object(merge_mod, "merge_pair_bwd",
-                                  merge_pair_bwd_plain), \
-                mock.patch.object(upsample_mod, "upcat_fwd",
-                                  upsample_mod.upcat_plain), \
-                mock.patch.object(upsample_mod, "upcat_bwd",
-                                  upsample_mod.upcat_bwd_plain):
+        with _plain_kernels():
             _build.launches.clear()
             p_terms, p_grads = run()
             check(sum(_build.launches.values()) == 0,
@@ -1561,6 +1644,559 @@ def phase_train(seed: int) -> None:
         f"{closs[-100:].mean():.5f}; eval IoU {handler.last_ious}; "
         f"results.txt: {line.strip()!r}; phase {time.time() - t0:.1f} s")
     check(iou >= MIN_IOU, f"seed {seed}: eval IoU {iou} < {MIN_IOU}")
+
+
+def _seeded_models(seeds, dropout: float, dtype=torch.float32):
+    """Train-mode chfak-5 seeded critic and decoder on the card holding
+    the given seeds' default-init weights, and those weights (CPU)."""
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.models.seeded import SeededCritic, SeededDecoder
+    from cgs_tpu_torch.sandbox.seed_parallel import (
+        _on_device, init_seed_params,
+    )
+    r = len(seeds)
+    init = init_seed_params(Critic(chfak=5), UnetDecoder(chfak=5), seeds)
+    return {"critic": _on_device(
+        SeededCritic(r, chfak=5, dropout=dropout, compute_dtype=dtype),
+        init["critic"], "cuda"),
+        "masker": _on_device(SeededDecoder(r, chfak=5, compute_dtype=dtype),
+                             init["masker"], "cuda")}, init
+
+
+def _seeded_indices(gen, r: int, n: int, s: int = 1):
+    """(R, S, 2K) A rows, (R, S, 2K) B rows into a bank of n frames."""
+    return (torch.randint(0, n, (r, s, 2 * MASKER_N // 2), device="cuda",
+                          generator=gen),
+            torch.randint(0, n, (r, s, MASKER_N), device="cuda",
+                          generator=gen))
+
+
+def phase_seeded_ingest(summary) -> None:
+    """The ingest for R seeds in one launch: bit-equal to its plain
+    version (the R single-seed pieces, segment by segment) at R = 3, a
+    masker step's A (each seed rolled by its own shift, with labels) and
+    B, and a critic step's batch, in f32 and bf16; R = 1 with (1, n)
+    rows bit-equal to today's (n,) call; timed at R = 3."""
+    from cgs_tpu_torch.ops.kernels import (
+        Segment, gather_normalize_u8, gather_normalize_u8_plain,
+    )
+    t0 = time.time()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bank = torch.randint(0, 256, (2048, 64, 64, 3), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    y = torch.rand(2048, device=dev, generator=gen)
+    r = SP_R
+    a_idx, b_idx = (i[:, 0].contiguous() for i in
+                    _seeded_indices(gen, r, 2048))
+    err = 0.0
+
+    def same(segs, dt, what):
+        nonlocal err
+        (got, gy), (want, wy) = (gather_normalize_u8(segs, dt),
+                                 gather_normalize_u8_plain(segs, dt))
+        check(got.shape == want.shape
+              and torch.equal(_bits(got), _bits(want))
+              and ((gy is None and wy is None) or torch.equal(gy, wy)),
+              f"seeded normalize_u8 differs from plain at {what}")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+
+    for dt in (torch.float32, torch.bfloat16):
+        for sh in range(-63, 64, 9):
+            shifts = [sh, -sh, 2 * sh]
+            same([Segment(bank, a_idx, shifts, y), Segment(bank, b_idx)], dt,
+                 f"R = {r} masker step, shifts {shifts} {_name(dt)}")
+            same([Segment(bank, b_idx, shifts, y)], dt,
+                 f"R = {r} critic step, shifts {shifts} {_name(dt)}")
+        one = [Segment(bank, a_idx[:1], [5], y), Segment(bank, b_idx[:1])]
+        flat = [Segment(bank, a_idx[0], 5, y), Segment(bank, b_idx[0])]
+        (g1, y1), (g0, y0) = (gather_normalize_u8(one, dt),
+                              gather_normalize_u8(flat, dt))
+        check(torch.equal(_bits(g1), _bits(g0)) and torch.equal(y1, y0),
+              f"R = 1 seeded ingest differs from the (n,) call {_name(dt)}")
+    check(err == 0.0, f"seeded ingest max |err| {err}")
+    segs = [Segment(bank, a_idx, [3, -7, 11], y), Segment(bank, b_idx)]
+    n = sum(sg.rows for sg in segs)
+    n_lab = segs[0].rows
+    row = {"seeds": r, "frames": n,
+           "ms": time_ms(lambda: gather_normalize_u8(segs), iters=50),
+           "device_ms": device_breakdown(lambda: gather_normalize_u8(segs),
+                                         reps=20)["ms_per_step"],
+           "plain_ms": time_ms(lambda: gather_normalize_u8_plain(segs),
+                               iters=50),
+           "plain_device_ms": device_breakdown(
+               lambda: gather_normalize_u8_plain(segs),
+               reps=20)["ms_per_step"],
+           "bound_ms": bound_ms(5 * n * FRAME_F + 8 * n + 8 * n_lab,
+                                n * FRAME_F)[0],
+           "max_abs_err": err}
+    summary["normalize_u8"]["seeded_masker_step_r3"] = row
+    log("[kernels] seeded normalize_u8, a masker step of R = 3 seeds:",
+        json.dumps(row), f"({time.time() - t0:.1f} s)")
+
+
+def _seeded_masker_run(cfg, models, opt, bank, y, a_idx, b_idx, rng,
+                       shifts=None):
+    """Seeded masker steps over the (R, S, 2K) rows: returns the (R, S,
+    4) terms."""
+    from cgs_tpu_torch.ops.kernels import Segment
+    from cgs_tpu_torch.sandbox.seed_parallel import seeded_masker_step
+    terms = [seeded_masker_step(
+        cfg, models, opt, Segment(bank, a_idx[:, s].contiguous(), labels=y),
+        Segment(bank, b_idx[:, s].contiguous()), rng,
+        None if shifts is None else shifts[s])
+        for s in range(a_idx.shape[1])]
+    return torch.stack(terms, 1)
+
+
+def _seeded_vs_serial(a_idx, b_idx, shifts, bank, y, optim: str) -> dict:
+    """Three seeded masker steps of R = 2 seeds against three serial
+    `masker_step`s per seed (dropout 0, the given shifts, f32), under
+    "sgd" (lr 0.1) or "adam" (the trainer's `make_optimizer`). Returns
+    the worst |diff| of the loss terms, of the parameters after the
+    three steps, and of the first step's gradients relative to each
+    tensor's largest; under Adam also where the parameters part most,
+    with that element's first-step gradients. Adam steps by about lr
+    whatever a gradient's size, so an element whose gradient is 0 or
+    within rounding of it (a ReLU unit at its edge) can part by lr in a
+    step while the gradients, the loss terms and the SGD parameters
+    agree: the caller holds the parameters to SP_TOL under SGD."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.models.interop import unstack_seed
+    from cgs_tpu_torch.ops.kernels import Segment
+    from cgs_tpu_torch.sandbox.seed_parallel import SeedRng
+    from cgs_tpu_torch.train.steps import (
+        StepRng, make_optimizer, masker_step,
+    )
+
+    def make_opt(models):
+        if optim == "sgd":
+            return torch.optim.SGD([p for m in models.values()
+                                    for p in m.parameters()], lr=0.1)
+        return make_optimizer(models)
+
+    def grads(models):
+        return {n: {k: p.grad.detach().clone()
+                    for k, p in m.named_parameters()}
+                for n, m in models.items()}
+
+    dev = torch.device("cuda")
+    cfg0 = parse_args(["-train", "--chfak", "5", "--dropout", "0"])
+    seeds = [11, 12]
+    models, init = _seeded_models(seeds, 0.0)
+    opt, rng = make_opt(models), SeedRng.seeded(seeds, dev)
+    terms = []
+    for s in range(3):
+        terms.append(_seeded_masker_run(
+            cfg0, models, opt, bank, y, a_idx[:, s:s + 1],
+            b_idx[:, s:s + 1], rng, shifts[s:s + 1])[:, 0].cpu())
+        if s == 0:
+            g1 = grads(models)
+    worst = {"terms": 0.0, "params": 0.0, "grads": 0.0}
+    k = MASKER_N // 2
+    cfg_serial = parse_args(["-train", "--chfak", "5", "--dropout", "0",
+                             "--shift", "0"])
+    for r in range(2):
+        smodels = {}
+        for name, tmpl in (("critic", Critic(chfak=5, dropout=0.0)),
+                           ("masker", UnetDecoder(chfak=5))):
+            tmpl.load_state_dict(unstack_seed(init[name], r, 2))
+            smodels[name] = tmpl.to(dev,
+                                    memory_format=torch.channels_last).train()
+        sopt = make_opt(smodels)
+        for s in range(3):
+            a = [Segment(bank, a_idx[r, s, :k].contiguous(), shifts[s][r], y),
+                 Segment(bank, a_idx[r, s, k:].contiguous(), shifts[s][r], y)]
+            want = torch.stack(masker_step(
+                cfg_serial, smodels, sopt, a,
+                Segment(bank, b_idx[r, s].contiguous()),
+                StepRng.seeded(0, dev))).cpu()
+            worst["terms"] = max(worst["terms"],
+                                 float((terms[s][r] - want).abs().max()))
+            if s == 0:
+                sg1 = grads(smodels)
+        for name, model in models.items():
+            got = unstack_seed(model.state_dict(), r, 2)
+            gg = unstack_seed(g1[name], r, 2)
+            for key, v in smodels[name].state_dict().items():
+                want_g = sg1[name][key].cpu()
+                scale = float(want_g.abs().max())
+                worst["grads"] = max(worst["grads"], float(
+                    (gg[key] - want_g).abs().max()) / max(scale, 1e-30))
+                diff = (got[key] - v.cpu()).abs()
+                if float(diff.max()) > worst["params"]:
+                    worst["params"] = float(diff.max())
+                    if optim == "adam":
+                        i = int(diff.argmax())
+                        worst["at"] = {
+                            "seed": seeds[r], "param": f"{name}.{key}",
+                            "diff": float(diff.max()),
+                            "step1_grad_seeded": float(gg[key].flatten()[i]),
+                            "step1_grad_serial": float(want_g.flatten()[i]),
+                            "tensor_max_grad": scale}
+    return worst
+
+
+def phase_seeded_step(_build) -> None:
+    """One seeded masker step launches 1 ingest, 1 + 1 merge and 5 + 5
+    joins at R = 1 and R = 3 (device operations, layout moves and their
+    copies' device time beside them); at R = 2 and 3 its kernel path is
+    bit-equal to its plain path (terms and gradients, deterministic
+    cuDNN); three seeded steps of R = 2 at dropout 0 with given shifts
+    agree with three serial `masker_step`s per seed within SP_TOL
+    (`_seeded_vs_serial`); seeded steps/s at R = 1, 3, 10 beside the
+    serial steps'."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.models.seeded import layout_moves
+    from cgs_tpu_torch.ops.kernels import Segment
+    from cgs_tpu_torch.sandbox.seed_parallel import (
+        SeedRng, seeded_critic_step,
+    )
+    from cgs_tpu_torch.train.loops import critic_chunk, masker_chunk
+    from cgs_tpu_torch.train.steps import StepRng, make_optimizer
+
+    t0 = time.time()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    nb = 4096
+    bank = torch.randint(0, 256, (nb, 64, 64, 3), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    y = torch.rand(nb, device=dev, generator=gen)
+    cfg = parse_args(["-train", "--chfak", "5", "--dropout", "0.5"])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    report = {}
+    try:
+        # launches, device operations and layout moves per seeded step
+        for r in (1, SP_R):
+            models, _ = _seeded_models(list(range(r)), 0.5)
+            opt = make_optimizer(models)
+            rng = SeedRng.seeded(range(r), dev)
+            a_idx, b_idx = _seeded_indices(gen, r, nb)
+
+            def step():
+                _seeded_masker_run(cfg, models, opt, bank, y, a_idx, b_idx,
+                                   rng)
+            step()
+            torch.cuda.synchronize()
+            _build.launches.clear()
+            layout_moves.clear()
+            step()
+            torch.cuda.synchronize()
+            per_step, moves = dict(_build.launches), dict(layout_moves)
+            check(per_step == STEP_LAUNCHES,
+                  f"R = {r}: launches per seeded masker step {per_step}, "
+                  f"want {STEP_LAUNCHES}")
+            prof = device_breakdown(step)
+            copy_ms, copies = kernel_device_ms(step, "copy", reps=5)
+            report[f"R={r}"] = {
+                "launches": per_step,
+                "layout_moves_forward": moves,
+                "device_ops_per_step": prof["device_ops_per_step"],
+                "device_ms_per_step": prof["ms_per_step"],
+                "idle_share": prof["idle_share"],
+                "copy_kernels_per_step": copies,
+                "copy_device_ms_per_step": copy_ms,
+                "by_category_ms": prof["by_category_ms"]}
+            del models, opt
+        log("[seeded step] chfak 5 f32 masker step, per step:",
+            json.dumps(report))
+
+        # kernel path against plain path at the seed-major batches the
+        # seeded step hands the kernels (R * 2K frames into the ingest's
+        # A, the merges and the decoder's joins, a 2R * 2K joined
+        # gradient): the (R, 4) terms and every gradient bit-equal; lr 0,
+        # so the step's gradients stay in .grad
+        for r in (2, SP_R):
+            models, _ = _seeded_models(list(range(r)), 0.5)
+            opt = torch.optim.SGD([p for m in models.values()
+                                   for p in m.parameters()], lr=0.0)
+            a_idx, b_idx = _seeded_indices(gen, r, nb)
+
+            def run():
+                terms = _seeded_masker_run(cfg, models, opt, bank, y, a_idx,
+                                           b_idx, SeedRng.seeded(range(r),
+                                                                 dev))
+                torch.cuda.synchronize()
+                return terms[:, 0].cpu(), {
+                    f"{n}.{k}": p.grad.detach().clone()
+                    for n, m in models.items()
+                    for k, p in m.named_parameters()}
+
+            _build.launches.clear()
+            k_terms, k_grads = run()
+            check(dict(_build.launches) == STEP_LAUNCHES,
+                  f"R = {r}: kernel path launched {dict(_build.launches)}")
+            with _plain_kernels():
+                _build.launches.clear()
+                p_terms, p_grads = run()
+                check(sum(_build.launches.values()) == 0,
+                      f"R = {r}: plain path launched "
+                      f"{dict(_build.launches)}")
+            d_terms = float((k_terms - p_terms).abs().max())
+            d_grads = max(float((k_grads[k] - p_grads[k]).abs().max())
+                          for k in k_grads)
+            check(bool(torch.isfinite(k_terms).all()),
+                  f"R = {r}: seeded terms not finite: {k_terms}")
+            check(torch.equal(_bits(k_terms), _bits(p_terms)) and all(
+                torch.equal(_bits(k_grads[k]), _bits(p_grads[k]))
+                for k in k_grads),
+                f"R = {r} seeded step, kernel path vs plain path: terms "
+                f"{d_terms}, grads {d_grads}")
+            zero = [k for k, v in k_grads.items()
+                    if k.startswith("masker.") and not bool(v.abs().sum() > 0)]
+            check(not zero, f"R = {r}: decoder gradients all zero: {zero}")
+            log(f"[seeded step] R = {r} kernel path vs plain path, one "
+                f"masker step (dropout 0.5, shifts drawn): (R, 4) terms and "
+                f"all {len(k_grads)} gradients bit-equal (max |diff| terms "
+                f"{d_terms:.3g}, grads {d_grads:.3g})")
+            del models, opt
+
+        # seeded R = 2 against serial steps per seed: the same index
+        # stacks and shifts, dropout 0, under SGD and under Adam
+        a_idx, b_idx = _seeded_indices(gen, 2, nb, s=3)
+        shifts = [[5, -9], [0, 31], [-63, 2]]
+        sgd = _seeded_vs_serial(a_idx, b_idx, shifts, bank, y, "sgd")
+        adam = _seeded_vs_serial(a_idx, b_idx, shifts, bank, y, "adam")
+        log("[seeded step] R = 2 seeded vs serial, 3 masker steps, dropout "
+            f"0, f32 TF32 off (tolerance {SP_TOL}): SGD {json.dumps(sgd)}; "
+            f"Adam {json.dumps(adam)}")
+        gated = {"sgd terms": sgd["terms"], "sgd params": sgd["params"],
+                 "step-1 gradients": max(sgd["grads"], adam["grads"]),
+                 "adam terms": adam["terms"]}
+        check(max(gated.values()) <= SP_TOL,
+              f"seeded vs serial masker steps differ by {gated}")
+
+        # steps/s: seeded masker and critic at R = 1, 3, 10, and serial
+        speed = {}
+        for r in SP_SPEED_R:
+            models, _ = _seeded_models(list(range(r)), 0.5)
+            opt = make_optimizer(models)
+            rng = SeedRng.seeded(range(r), dev)
+            a_idx, b_idx = _seeded_indices(gen, r, nb, s=35)
+            _seeded_masker_run(cfg, models, opt, bank, y, a_idx[:, :5],
+                               b_idx[:, :5], rng)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            out = _seeded_masker_run(cfg, models, opt, bank, y, a_idx[:, 5:],
+                                     b_idx[:, 5:], rng).cpu()
+            m_sps = 30 / (time.time() - t1)
+            check(bool(torch.isfinite(out).all()), "seeded terms not finite")
+            copt = make_optimizer({"critic": models["critic"]})
+            cidx = torch.randint(0, nb, (r, 55, 64), device=dev,
+                                 generator=gen)
+            for s in range(5):
+                seeded_critic_step(cfg, models["critic"], copt,
+                                   Segment(bank, cidx[:, s].contiguous(),
+                                           labels=y), rng)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            for s in range(5, 55):
+                loss = seeded_critic_step(
+                    cfg, models["critic"], copt,
+                    Segment(bank, cidx[:, s].contiguous(), labels=y), rng)
+            loss = loss.cpu()
+            c_sps = 50 / (time.time() - t1)
+            speed[f"R={r}"] = {"masker_steps_per_s": m_sps,
+                               "critic_steps_per_s": c_sps,
+                               "masker_seed_steps_per_s": m_sps * r,
+                               "critic_seed_steps_per_s": c_sps * r}
+            del models, opt, copt
+            torch.cuda.empty_cache()
+        smodels = _train_models(torch.float32, seed=6)
+        sopt = make_optimizer(smodels)
+        rng = StepRng.seeded(0, dev)
+        nrng = np.random.default_rng(1)
+        h, l, c = (nrng.integers(0, nb // 2, (35, k))
+                   for k in (32, 32, 64))
+        xa, ya, xb, yb = bank[:nb // 2], y[:nb // 2], bank[nb // 2:], \
+            y[nb // 2:]
+        masker_chunk(cfg, smodels, sopt, xa, ya, xb, yb, h[:5], l[:5], c[:5],
+                     rng)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        masker_chunk(cfg, smodels, sopt, xa, ya, xb, yb, h[5:], l[5:], c[5:],
+                     rng).cpu()
+        s_m = 30 / (time.time() - t1)
+        copt = make_optimizer({"critic": smodels["critic"]})
+        idx = nrng.integers(0, nb, (55, 64))
+        critic_chunk(cfg, smodels["critic"], copt, bank, y, idx[:5], rng)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        critic_chunk(cfg, smodels["critic"], copt, bank, y, idx[5:],
+                     rng).cpu()
+        s_c = 50 / (time.time() - t1)
+        speed["serial"] = {"masker_steps_per_s": s_m,
+                           "critic_steps_per_s": s_c}
+        log("[seeded step] chfak 5 f32 steps/s (masker 2K = 64 and critic "
+            "batch 64 per seed; a record, not a target):", json.dumps(speed))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[seeded step] phase {time.time() - t0:.1f} s")
+
+
+def phase_seed_parallel(_build) -> dict:
+    """The seed-parallel runner's main path: `run_parallel` of R = 3
+    seeds (base seed 0) on the easy protocol, -frozen, chfak 5, in a
+    temporary directory; every seed's IoU >= MIN_IOU, the ensemble IoU
+    finite, the common masker step count. Returns the path's launches."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.data.collect import collect_data
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.sandbox.seed_parallel import K, run_parallel
+
+    t0 = time.time()
+    cfg = parse_args(SP_PROTOCOL)
+    x, y, _ = collect_data(cfg, write=False)
+    xe, gt = synthetic_eval_set(n_frames=5000, seed=99)
+    xe, gt = xe[100:5000:2], gt[100:5000:2]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            _build.launches.clear()         # seed-parallel main path
+            out = run_parallel(cfg, x, y, SP_R, base_seed=0, x_eval=xe,
+                               gt_eval=gt, results_path="results.txt",
+                               verbose=False)
+            launches = dict(_build.launches)  # ... ends
+            line = open("results.txt").read()
+        finally:
+            os.chdir(old)
+            torch.backends.cudnn.deterministic = deterministic
+    n_pos = max(p for p, _ in out["contrastive"])
+    last = out["masker_losses"][:, -(out["steps"]["masker"] // 12):]
+    log(f"[seed-parallel] R = {SP_R}, chfak 5 -frozen, 20k frames, critic "
+        f"10 / masker 12 epochs: IoUs {out['ious']}, ensemble "
+        f"{out['ensemble_iou']}; steps {out['steps']}; contrastive "
+        f"{out['contrastive']}; last masker epoch's mean (replace, inject, "
+        f"norm, critic) per seed {last.mean(1).round(5).tolist()}; critic "
+        f"loss of the last epoch per seed "
+        f"{out['critic_losses'][:, -313:].mean(1).round(5).tolist()}; "
+        f"phase seconds "
+        f"{json.dumps(out['seconds'])}; results.txt: {line.strip()!r}; "
+        f"phase {time.time() - t0:.1f} s")
+    check(out["steps"]["masker"] == 12 * -(-n_pos // K),
+          f"masker steps {out['steps']}, want 12 * ceil({n_pos} / {K})")
+    check(out["steps"]["critic"] == 10 * 313, f"critic steps {out['steps']}")
+    check(line.startswith(f"runs={SP_R} seed-parallel base_seed=0 ious=["),
+          f"results.txt line {line!r}")
+    check(bool(np.isfinite(out["ensemble_iou"])),
+          f"ensemble IoU {out['ensemble_iou']}")
+    check(all(v >= MIN_IOU for v in out["ious"]),
+          f"seed-parallel IoUs {out['ious']} below {MIN_IOU}")
+    return launches
+
+
+def phase_resume(_build) -> dict:
+    """-orbax: a small chfak-5 `-train` (dropout 0.5, shift on,
+    deterministic cuDNN) broken after its second masker chunk and
+    resumed in a fresh Handler ends with the critic and masker
+    parameters of an uninterrupted run, bit for bit. Returns the
+    path's launches."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.handler import CRITIC, MASKER, Handler
+
+    t0 = time.time()
+
+    def run(name, break_at=None):
+        h = Handler(parse_args(RESUME_ARGV + ["--model", name]),
+                    primary=False)
+        h.load_data()
+        h.critic_pipe()
+        if break_at is None:
+            h.segmentation_training()
+            return h
+        real, seen = h.metrics.write, {"n": 0}
+
+        def write(kind, **kw):
+            real(kind, **kw)
+            if kind == "masker_loss":
+                seen["n"] += 1
+                if seen["n"] == break_at:
+                    raise KeyboardInterrupt("simulated crash")
+        h.metrics.write = write
+        try:
+            h.segmentation_training()
+        except KeyboardInterrupt:
+            return h
+        raise SmokeFailure("the masker phase was not broken")
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            _build.launches.clear()         # resume main path starts
+            ref = run("ref")
+            broken = run("res", break_at=3)
+            saved = broken.train_states[MASKER].steps()
+            res = run("res")
+            launches = dict(_build.launches)  # ... ends
+        finally:
+            os.chdir(old)
+            torch.backends.cudnn.deterministic = deterministic
+    spe = -(-ref.contrastive.n_pos // 32)
+    ends = [e * spe + min(d + RESUME_CHUNK, spe) for e in range(2)
+            for d in range(0, spe, RESUME_CHUNK)]   # the chunk boundaries
+    same = {name: all(torch.equal(ref.params[name][k], res.params[name][k])
+                      for k in ref.params[name]) for name in (CRITIC, MASKER)}
+    saves = {ph: [1e3 * v for v in m.save_seconds]
+             for ph, m in ref.train_states.items()}
+    log(f"[resume] chfak 5, 2k frames, critic 2 / masker 2 epochs of {spe} "
+        f"steps: broken after masker chunk 2 (saved steps {saved}); the "
+        f"resumed run trained {res.loss_log[MASKER].shape[0]} masker steps; "
+        f"bit-equal to the uninterrupted run: {same}; save ms per chunk "
+        f"(masker) {np.round(saves[MASKER], 2).tolist()}, per epoch "
+        f"(critic) {np.round(saves[CRITIC], 2).tolist()}; phase "
+        f"{time.time() - t0:.1f} s")
+    check(saved == ends[:2], f"saved masker steps {saved}, want {ends[:2]}")
+    check(res.loss_log[MASKER].shape[0] == 2 * spe - ends[1],
+          f"resumed masker steps {res.loss_log[MASKER].shape}")
+    check(all(same.values()), f"resumed run differs: {same}")
+    return launches
+
+
+def phase_drift_ablation(_build):
+    """The drift probe (full, frozen; 2 masker epochs) and the paired
+    ablation (R = 2, the four variants) at chfak 5 and a small depth, in
+    a temporary directory: frozen rows read 0 drift exactly, full rows
+    more. Returns the two paths' launches."""
+    from cgs_tpu_torch.sandbox import ablation, drift
+
+    t0 = time.time()
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            _build.launches.clear()         # drift main path
+            rows = drift.main(list(DRIFT_ARGV), primary=False)
+            drift_launches = dict(_build.launches)
+            t1 = time.time()
+            _build.launches.clear()         # ablation main path
+            res = ablation.run_ablation(list(ABLATION_ARGV), runs=2,
+                                        results_path="results.txt")
+            ablation_launches = dict(_build.launches)
+        finally:
+            os.chdir(old)
+    for epoch in (1, 2):
+        fr, fu = rows["frozen"][epoch], rows["full"][epoch]
+        check(fr["param_drift"] == 0.0 and fr["embeds_drift"] == [0.0] * 5,
+              f"frozen drift at epoch {epoch}: {fr}")
+        check(fu["param_drift"] > 0.0 and min(fu["embeds_drift"]) > 0.0,
+              f"full drift at epoch {epoch}: {fu}")
+    summary = ablation.paired_summary(res)
+    check(all(len(v["ious"]) == 2 for v in res.values()),
+          f"ablation variants {list(res)}")
+    log(f"[drift] rows {json.dumps(rows)}; phase {t1 - t0:.1f} s")
+    log(f"[ablation] R = 2, chfak 5:\n{summary}\n[ablation] phase "
+        f"{time.time() - t1:.1f} s")
+    return drift_launches, ablation_launches
 
 
 if __name__ == "__main__":

@@ -3,9 +3,15 @@
 with the JAX package's published spreads (`RESULTS.md`).
 
     python3 ten_seeds.py --protocol A B --out runs/ten_seeds
+    python3 ten_seeds.py --protocol B --runner seed-parallel --out runs/sp
 
 runs, on the CUDA card, each protocol over seeds base..base+runs-1
-through `cgs_tpu_torch.sandbox.multirun.run_seeds(..., primary=False)`:
+through `cgs_tpu_torch.sandbox.multirun.run_seeds(..., primary=False)`,
+or, with `--runner seed-parallel`, all of them at once through
+`cgs_tpu_torch.sandbox.seed_parallel.run_parallel`, the runner the JAX
+package's B figures come from (every seed trained for the largest
+seed's masker step count, every seed scored on seed 99's eval set, and
+the ensemble IoU of the seeds' mean mask):
 
   A  the default (live) model, chfak 1, easy fixture, 20k frames,
      critic 10 / masker 12 epochs (`RESULTS.md:90-99`: JAX 0.707 +-
@@ -28,8 +34,9 @@ seed-parallel runner scored every seed and the ensemble on (B's
 comparison).
 
 Nothing but checkpoints (B's, under `{model}-seed{s}/saves/`, for the
-ensemble) and the data cache is written in the working directory; the
-results go to --out: `results.txt` (the runner's lines), `seeds.jsonl`
+ensemble; the seed-parallel runner's model names end in `-sp`) and the
+data cache is written in the working directory; the results go to
+--out: `results.txt` (the runner's lines), `seeds.jsonl`
 (one line per seed, written as each seed ends) and `summary.jsonl`
 (one line per protocol). Every line carries the card's name and power
 limit from nvidia-smi.
@@ -139,14 +146,68 @@ def run_protocol(name: str, base_seed: int, runs: int, out: Path,
     return summary
 
 
-def run_ensemble(base_seed: int, runs: int, gpu: str) -> dict:
+def seed_parallel_argv(name: str):
+    """The protocol's flags for the seed-parallel runner: no -train or
+    -eval, and its own run names."""
+    argv = [a for a in PROTOCOLS[name] if a not in ("-train", "-eval")]
+    i = argv.index("--model")
+    argv[i + 1] += "-sp"
+    return argv
+
+
+def run_protocol_parallel(name: str, base_seed: int, runs: int, out: Path,
+                          gpu: str) -> dict:
+    """The protocol's seeds in one `run_parallel` on the data of
+    DATA_SEED, scored on seed 99's eval set, with the switches the CLI's
+    -train sets; B also saves each seed's checkpoints for the
+    `--ensemble` evals."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.core.device import train_switches
+    from cgs_tpu_torch.data.collect import collect_data
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.sandbox.seed_parallel import run_parallel
+
+    argv = seed_parallel_argv(name)
+    cfg = parse_args(argv + ["--seed", str(DATA_SEED)])
+    print(f"[ten_seeds] switches: {train_switches(cfg.bf16)}", flush=True)
+    t = time.time()
+    x, y, _ = collect_data(cfg, write=False)
+    x99, gt99 = synthetic_eval_set(n_frames=5000, seed=99,
+                                   variant=cfg.synthetic_variant)
+    x99, gt99 = x99[100:5000:2], gt99[100:5000:2]
+    data_s = time.time() - t
+    res = run_parallel(cfg, x, y, runs, base_seed=base_seed, x_eval=x99,
+                       gt_eval=gt99, results_path=str(out / "results.txt"),
+                       save_checkpoints=name == "B")
+    for r, seed in enumerate(res["seeds"]):
+        rec = {"protocol": name, "runner": "seed-parallel", "seed": seed,
+               "iou_eval99": res["ious"][r],
+               "contrastive": res["contrastive"][r],
+               "critic_steps": res["steps"]["critic"],
+               "masker_steps": res["steps"]["masker"], "card": gpu}
+        append_json(out / "seeds.jsonl", rec)
+        print(f"[ten_seeds] {json.dumps(rec)}", flush=True)
+    return {"protocol": name, "runner": "seed-parallel",
+            "seeds": [base_seed, base_seed + runs - 1], "argv": argv,
+            "eval99": {"ious": res["ious"], "mean": res["mean"],
+                       "std": res["std"]},
+            "ensemble_iou_seed_parallel": res["ensemble_iou"],
+            "steps": res["steps"],
+            "phase_seconds": {k: round(v, 1)
+                              for k, v in res["seconds"].items()},
+            "data_s": round(data_s, 1), "jax": JAX[name], "card": gpu}
+
+
+def run_ensemble(base_seed: int, runs: int, gpu: str,
+                 argv=None) -> dict:
     """The `--ensemble N` eval of B's checkpoints of seeds base_seed..,
     through a Handler, raw, with -crf and with -crf_rescale."""
     from cgs_tpu_torch.core.config import parse_args
     from cgs_tpu_torch.handler import Handler
     from cgs_tpu_torch.train.checkpoints import load_seed_ensemble
 
-    argv = [a for a in PROTOCOLS["B"] if a not in ("-train", "-eval")]
+    if argv is None:
+        argv = [a for a in PROTOCOLS["B"] if a not in ("-train", "-eval")]
     res = {"members": [base_seed, base_seed + runs - 1], "card": gpu,
            "jax": JAX["B"]}
     for key, extra in (("raw", []), ("crf", ["-crf"]),
@@ -171,6 +232,8 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--base-seed", type=int, default=0)
     ap.add_argument("--out", default="runs/ten_seeds")
+    ap.add_argument("--runner", choices=["serial", "seed-parallel"],
+                    default="serial")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -183,11 +246,14 @@ def main(argv=None) -> int:
     print(f"[ten_seeds] {gpu}; torch {torch.__version__}", flush=True)
     for name in args.protocol:
         t = time.time()
-        summary = run_protocol(name, args.base_seed, args.runs, out, gpu)
+        parallel = args.runner == "seed-parallel"
+        run = run_protocol_parallel if parallel else run_protocol
+        summary = run(name, args.base_seed, args.runs, out, gpu)
         summary["seconds"] = round(time.time() - t, 1)
         if name == "B":
-            summary["ensemble"] = run_ensemble(args.base_seed, args.runs,
-                                               gpu)
+            summary["ensemble"] = run_ensemble(
+                args.base_seed, args.runs, gpu,
+                seed_parallel_argv(name) if parallel else None)
         append_json(out / "summary.jsonl", summary)
         print(f"[ten_seeds] {json.dumps(summary)}", flush=True)
     print(gpu)

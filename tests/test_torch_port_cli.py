@@ -226,13 +226,6 @@ def test_train_eval_slice_runs_and_tracks_jax(tmp_path, monkeypatch,
     np.testing.assert_allclose(ours, np.asarray(jl), rtol=3e-3)
 
 
-@pytest.mark.parametrize("argv", [["-orbax"]])
-def test_unported_modes_raise(argv, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        cli.main(argv + ["--device", "cpu", "-synthetic_data"])
-
-
 @pytest.mark.parametrize("argv", [
     ["--profile", "trace"],
     ["-vismasker", "--datasize", "300", "--testsize", "40"],
@@ -278,7 +271,8 @@ def _imports(path: Path):
 def test_port_imports_no_jax_and_nothing_of_cgs_tpu():
     """Static: this process has JAX imported already."""
     files = sorted((REPO / "cgs_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "ten_seeds.py",
+              REPO / "time_ingest.py"]
     assert len(files) > 20
     for path in files:
         for mod in _imports(path):

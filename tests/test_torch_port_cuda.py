@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain
-version, the pipeline's, the R = 3 ensemble's and the masker step's
-kernel path against their plain paths, the dense CRF on kernel-path
+version (the ingest for R seeds too), the pipeline's, the R = 3
+ensemble's and the masker step's kernel path against their plain paths,
+a seeded masker step's launches, the dense CRF on kernel-path
 masks, and the gradient of a fused upsample-into-concat join through a
 conv.
 
@@ -103,6 +104,62 @@ def test_gather_normalize_u8_bit_equal(dev, dtype):
         assert got.shape == want.shape and torch.equal(_bits(got),
                                                         _bits(want))
         assert (gy is None and wy is None) or torch.equal(gy, wy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seeded_gather_normalize_u8_bit_equal(dev, dtype):
+    """R seeds in one launch: each seed's index rows and its own shift,
+    segment-major and seed-major within a segment, at R = 1, 3 and 64
+    (the most one launch takes); R = 1 equals the (n,) call."""
+    bank = torch.randint(0, 256, (40, 64, 64, 3), dtype=torch.uint8,
+                         device=dev)
+    y = torch.rand(40, device=dev)
+    for r in (1, 3, 64):
+        a = torch.randint(0, 40, (r, 16), device=dev)
+        b = torch.randint(0, 40, (r, 8), device=dev)
+        shifts = [(7 * i) % 129 - 64 for i in range(r)]
+        segs = [Segment(bank, a, shifts, y), Segment(bank, b)]
+        _build.launches.clear()
+        got, gy = gather_normalize_u8(segs, dtype)
+        assert _build.launches["normalize_u8"] == 1
+        want, wy = gather_normalize_u8_plain(segs, dtype)
+        assert torch.equal(_bits(got), _bits(want)) and torch.equal(gy, wy)
+    one, _ = gather_normalize_u8([Segment(bank, a[:1], [9], y)], dtype)
+    flat, _ = gather_normalize_u8([Segment(bank, a[0], 9, y)], dtype)
+    assert torch.equal(_bits(one), _bits(flat))
+
+
+@pytest.mark.cuda
+def test_seeded_masker_step_launches_once_per_kernel(dev):
+    """A seeded masker step of R = 3 seeds launches what a serial one
+    does: 1 ingest, 1 + 1 merge, 5 + 5 joins."""
+    from cgs_tpu_torch.core.config import Config
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.models.seeded import SeededCritic, SeededDecoder
+    from cgs_tpu_torch.sandbox.seed_parallel import (
+        SeedRng, _on_device, init_seed_params, seeded_masker_step,
+    )
+    from cgs_tpu_torch.train.steps import make_optimizer
+
+    init = init_seed_params(Critic(), UnetDecoder(), [0, 1, 2])
+    models = {"critic": _on_device(SeededCritic(3), init["critic"], dev),
+              "masker": _on_device(SeededDecoder(3), init["masker"], dev)}
+    opt = make_optimizer(models)
+    bank = torch.randint(0, 256, (40, 64, 64, 3), dtype=torch.uint8,
+                         device=dev)
+    y = torch.rand(40, device=dev)
+    a = torch.randint(0, 40, (3, 64), device=dev)
+    b = torch.randint(0, 40, (3, 64), device=dev)
+    _build.launches.clear()
+    terms = seeded_masker_step(Config().derive(), models, opt,
+                               Segment(bank, a, labels=y), Segment(bank, b),
+                               SeedRng.seeded([0, 1, 2], dev))
+    assert terms.shape == (3, 4) and bool(torch.isfinite(terms).all())
+    assert dict(_build.launches) == {
+        "normalize_u8": 1, "merge_pair": 1, "merge_pair_bwd": 1,
+        "upsample2x": 5, "upsample2x_bwd": 5}
 
 
 @pytest.mark.cuda
