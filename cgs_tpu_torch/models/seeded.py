@@ -27,11 +27,16 @@ stays per seed. `to_grouped` and `from_grouped` move between the
 layouts; each is one copy for R > 1 and a view for R = 1, and
 `layout_moves` counts them per direction.
 
-Dropout draws one mask over the whole grouped activation from the
-step's device generator, so every seed gets masks of its own. The loss
-of R seeds is the sum of each seed's loss, so each seed's gradient is
-its own, and one Adam over the stacked tensors is R independent Adams
-(Adam works element by element).
+Dropout (`seeded_dropout`) draws seed r's mask from seed r's own
+generator, in the shape, memory order and call order in which the
+serial critic (`models/critic.py:dropout`) draws it for that seed alone:
+a grouped (P*n, R*C, H, W) activation gets R channels_last (P*n, C, H,
+W) draws, placed into channels [r*C, (r+1)*C) by one copy, and the
+head's (R, n, neck) activation one (n, neck) draw per seed. A seed's
+masks are then the serial step's for that seed, whatever R and the
+other seeds are. The loss of R seeds is the sum of each seed's loss, so
+each seed's gradient is its own, and one Adam over the stacked tensors
+is R independent Adams (Adam works element by element).
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cgs_tpu_torch.models.critic import compute_autocast, dropout
+from cgs_tpu_torch.models.critic import compute_autocast
 from cgs_tpu_torch.ops.upsample import up_cat
 
 layout_moves: collections.Counter = collections.Counter()
@@ -91,6 +96,34 @@ def shared_seed_major(x: torch.Tensor, seeds: int) -> torch.Tensor:
     x = (x.permute(0, 2, 3, 1).unsqueeze(0).expand(seeds, n, h, w, c)
          .reshape(seeds * n, h, w, c))
     return x.permute(0, 3, 1, 2)
+
+
+def seeded_dropout(x: torch.Tensor, p: float, training: bool,
+                   generators: Optional[Sequence[torch.Generator]] = None
+                   ) -> torch.Tensor:
+    """Inverted dropout of R seeds, seed r's mask from generators[r]:
+    x is a grouped (P*n, R*C, H, W) activation stored channels_last, or
+    the head's (R, n, F) one. Each seed's uniforms fill a contiguous
+    slice of one buffer in the serial draw's memory order (NHWC, or
+    (n, F)), so seed r sees the mask `models/critic.py:dropout` draws
+    from the same generator on that seed's activation alone."""
+    if not training or p == 0.0:
+        return x
+    if generators is None:
+        raise ValueError("seeded_dropout: needs one generator per seed")
+    if x.dim() == 4:        # grouped: seed r draws (P*n, H, W, C), NHWC
+        pn, rc, h, w = x.shape
+        r = len(generators)
+        u = torch.empty((r, pn, h, w, rc // r), dtype=torch.float32,
+                        device=x.device)
+    else:                   # the head: seed r draws (n, F)
+        u = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    for ur, gen in zip(u, generators, strict=True):
+        ur.uniform_(generator=gen)
+    if x.dim() == 4:        # seed r's (P*n, H, W, C) into its channels
+        u = u.permute(1, 2, 3, 0, 4).reshape(pn, h, w, rc).permute(0, 3, 1,
+                                                                   2)
+    return torch.where(u >= p, x / (1.0 - p), torch.zeros_like(x))
 
 
 class SeededConv2d(nn.Module):
@@ -154,19 +187,25 @@ class SeededCritic(nn.Module):
 
     def forward(self, x: torch.Tensor, parts: int = 1, collect: bool = False,
                 shared: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generators: Optional[Sequence[torch.Generator]] = None):
         """x: (P*R*n, 3, 64, 64) parted, or with shared=True (n, 3, 64,
-        64) frames every seed reads. Returns the sigmoid preds (R, P*n),
-        column p*n + i for frame i of part p, and, with collect=True,
-        the 5-entry feature pyramid in the grouped layout (P*n rows)."""
+        64) frames every seed reads; generators: one dropout generator
+        per seed (needed only in train() mode). Returns the sigmoid
+        preds (R, P*n), column p*n + i for frame i of part p, and, with
+        collect=True, the 5-entry feature pyramid in the grouped layout
+        (P*n rows)."""
         r = self.seeds
+        if self.training and generators is not None and len(generators) != r:
+            raise ValueError(f"{len(generators)} dropout generators for {r} "
+                             "seeds")
         x = x.to(self.compute_dtype)
         x = to_grouped_shared(x, r) if shared else to_grouped(x, r, parts)
         embeds: List[torch.Tensor] = []
         with compute_autocast(x.device.type, self.compute_dtype):
             for layer in self.features:
                 if isinstance(layer, nn.Dropout):
-                    x = dropout(x, layer.p, self.training, generator)
+                    x = seeded_dropout(x, layer.p, self.training,
+                                       generators)
                     continue
                 x = layer(x)
                 if isinstance(layer, nn.MaxPool2d):
@@ -175,7 +214,8 @@ class SeededCritic(nn.Module):
             h = x.reshape(x.shape[0], r, -1).transpose(0, 1)  # (R, n, neck)
             for layer in self.crit[1:-1]:  # the sigmoid runs in f32 below
                 if isinstance(layer, nn.Dropout):
-                    h = dropout(h, layer.p, self.training, generator)
+                    h = seeded_dropout(h, layer.p, self.training,
+                                       generators)
                 else:
                     h = layer(h)
         pred = torch.sigmoid(h.float()).squeeze(-1)

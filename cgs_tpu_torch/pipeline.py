@@ -22,12 +22,26 @@ mask and saliency: the batch is ingested once, each member's critic and
 decoder run in turn (1 + 5R kernel launches per batch), the outputs are
 summed in f32 in member order and divided by R, and only then encoded
 for the wire, so the u8 wire and the hard plane see the mean mask.
+
+With `quantize="int8"` (port of `cgs_tpu/pipeline.py:161-172,300-315,
+377-395`) each member's convolutions run s8 x s8 -> s32
+(`ops/quant.py`), the weights quantized once per `update_params`, the
+activation scales dynamic, or static from a calibration batch (`calib`,
+one f32 forward per `update_params`); the ingest and the decoder's
+five joins launch the same kernels as in f32.
+
+`update_params` builds the new members' device weights off to the side
+and swaps them in with one assignment, and `_forward` reads the member
+list once per batch: a dispatch thread running meanwhile (`serve.py`)
+sees the old weights or the new ones, never a mix, and work already on
+the stream finishes on the old tensors.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -35,6 +49,10 @@ import torch
 
 from cgs_tpu_torch.core.device import resolve_device
 from cgs_tpu_torch.ops.kernels import normalize_u8
+from cgs_tpu_torch.ops.quant import (
+    calibrate_act_scales, critic_apply_q, masker_apply_q, merge_act_scales,
+    quantize_tree,
+)
 from cgs_tpu_torch.ops.saliency import critic_with_saliency
 
 
@@ -69,6 +87,15 @@ class MaskPipeline:
     as uint8 (what the -process PNG writers compute from f32 masks) in
     `masks_u8`. hard_threshold: also return (mask >= threshold) as a
     uint8 plane (-process binarisation, main.py:1164).
+
+    quantize: None or 'int8' (eval only: it refuses saliency and
+    eval_mode=False). calib: (N, H, W, 3) uint8 calibration frames for
+    static int8 activation scales; without it the scales are dynamic,
+    and with ensemble=True it is ignored with a warning (a member's
+    scales would need a calibration pass of their own).
+
+    `params` holds the host state_dicts being served (for an ensemble,
+    the list of members), as given to the last `update_params`.
     """
 
     MAX_IN_FLIGHT = 3   # run(): chunks of outputs alive on the device
@@ -81,15 +108,28 @@ class MaskPipeline:
                  wire: str = "f32", hard_threshold: Optional[float] = None,
                  max_in_flight: Optional[int] = None, device=None,
                  mesh=None, ensemble: bool = False,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None,
+                 calib: Optional[np.ndarray] = None):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: multi-device inference is not ported yet "
                 "(ROADMAP.md queue 1 item 4, multi-GPU)")
-        if quantize is not None:
-            raise NotImplementedError(
-                "quantize: int8 inference is not ported yet (ROADMAP.md "
-                "queue 1 item 6, int8)")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize={quantize!r} not in "
+                             "(None, 'int8')")
+        if quantize and salience:
+            raise ValueError("quantize='int8' cannot compute saliency "
+                             "(no useful input gradient through int8 "
+                             "convs); drop one of the two")
+        if quantize and not eval_mode:
+            raise ValueError("quantize='int8' requires eval_mode=True "
+                             "(the quantized forward has no dropout)")
+        if quantize and ensemble and calib is not None:
+            warnings.warn(
+                "MaskPipeline: calib is ignored with ensemble=True; the "
+                "members' int8 activation scales stay dynamic (the JAX "
+                "package drops the calibration batch silently, "
+                "cgs_tpu/pipeline.py:386)")
         if wire not in ("f32", "u8"):
             raise ValueError(f"wire={wire!r} not in ('f32', 'u8')")
         self.device = resolve_device(device)
@@ -100,6 +140,8 @@ class MaskPipeline:
         self.eval_mode = eval_mode
         self.separate = separate
         self.ensemble = bool(ensemble)
+        self.quantize = quantize
+        self._calib = calib if quantize and not self.ensemble else None
         self.wire = wire
         self.hard_threshold = (float(hard_threshold)
                                if hard_threshold is not None else None)
@@ -115,37 +157,65 @@ class MaskPipeline:
                               else torch.float32)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        # one {name: device module} dict per member (one without ensemble)
-        self._members: List[Dict[str, torch.nn.Module]] = []
+        # one {name: device module} dict per member (one without
+        # ensemble); under int8 {name: quantized device state_dict}
+        self._members: List[Dict] = []
         self.update_params(params)
 
     def update_params(self, params: Union[Dict, Sequence[Dict]]) -> None:
-        """Copy new weights into the pipeline's device modules (with
-        ensemble=True, one dict per member)."""
+        """Serve new weights (with ensemble=True, one dict per member):
+        the device copies are built off to the side and swapped in by
+        one assignment."""
         members = list(params) if self.ensemble else [params]
         if not members:
             raise ValueError("ensemble=True needs at least one member")
         names = ["critic", "masker"] + (["sepcrit"] if self.separate
                                         else [])
-        del self._members[len(members):]
-        while len(self._members) < len(members):
-            self._members.append({})
-        for models, member in zip(self._members, members):
-            for name in names:
-                model = models.get(name)
-                if model is None:
-                    template = (self.masker if name == "masker"
-                                else self.critic)
-                    model = copy.deepcopy(template).to(
-                        self.device, memory_format=torch.channels_last)
-                    model.requires_grad_(False)
-                    model.train(not self.eval_mode)
-                    models[name] = model
-                model.load_state_dict(member[name])
+        built = [{name: self._device_copy(name, member[name])
+                  for name in names} for member in members]
+        if self.quantize == "int8":
+            built = [self._quantized(m) for m in built]
+        self.params = params
+        self._members = built          # the swap
 
-    def _member_forward(self, models: Dict[str, torch.nn.Module],
-                        x: torch.Tensor, gen) -> tuple:
+    def _device_copy(self, name: str, state: Dict[str, torch.Tensor]):
+        """A device module holding `state`, or under int8 the state on
+        the device."""
+        if self.quantize == "int8":
+            return {k: v.detach().to(self.device, torch.float32)
+                    for k, v in state.items()}
+        template = self.masker if name == "masker" else self.critic
+        model = copy.deepcopy(template).to(self.device,
+                                           memory_format=torch.channels_last)
+        model.load_state_dict(state)
+        model.requires_grad_(False)
+        return model.train(not self.eval_mode)
+
+    def _quantized(self, member: Dict) -> Dict:
+        """One member's f32 state on the device -> its int8 state, with
+        static activation scales when calibration frames were given."""
+        scales = None
+        if self._calib is not None:
+            x = normalize_u8(torch.from_numpy(np.ascontiguousarray(
+                self._calib)).to(self.device)).permute(0, 3, 1, 2)
+            scales = calibrate_act_scales(
+                member, x, separate=self.separate,
+                compute_dtype=self.critic.compute_dtype)
+        q = quantize_tree(member)
+        return q if scales is None else merge_act_scales(q, scales)
+
+    def _member_forward(self, models: Dict, x: torch.Tensor, gen) -> tuple:
         """(pred (N,), mask, sal or None) of one member, NHWC."""
+        if self.quantize == "int8":
+            cdt = self.critic.compute_dtype
+            pred, embeds = critic_apply_q(models["critic"], x,
+                                          compute_dtype=cdt)
+            if self.separate:
+                _, embeds = critic_apply_q(models["sepcrit"], x,
+                                           compute_dtype=cdt)
+            mask = masker_apply_q(models["masker"], x, embeds,
+                                  compute_dtype=self.masker.compute_dtype)
+            return pred.squeeze(-1), mask.permute(0, 2, 3, 1), None
         critic = models["critic"]
         if self.salience:   # fused forward + input-grad (main.py:949-953)
             pred, embeds, sal = critic_with_saliency(critic, x, gen)
@@ -163,14 +233,15 @@ class MaskPipeline:
         # (N, H, W, 3) -> NCHW view with channels_last strides
         x = normalize_u8(u8, self._ingest_dtype).permute(0, 3, 1, 2)
         gen = None if self.eval_mode else self.generator
-        out = self._member_forward(self._members[0], x, gen)
+        members = self._members      # one weight set for the whole batch
+        out = self._member_forward(members[0], x, gen)
         if self.ensemble:
             # the mean over members, before the wire encoding
             # (cgs_tpu/pipeline.py:216-222): f32 sums in member order
-            for models in self._members[1:]:
+            for models in members[1:]:
                 out = tuple(None if a is None else a.add_(b) for a, b in
                             zip(out, self._member_forward(models, x, gen)))
-            r = float(len(self._members))
+            r = float(len(members))
             out = tuple(None if a is None else a.div_(r) for a in out)
         mask = out[1]
         if self.hard_threshold is not None:       # main.py:1164 (>=)
@@ -179,6 +250,14 @@ class MaskPipeline:
             out = (out[0], torch.floor(mask.clamp(0.0, 1.0) * 255.0)
                    .to(torch.uint8)) + out[2:]
         return out
+
+    def place_input(self, frames_u8: np.ndarray) -> torch.Tensor:
+        """Host (N, H, W, 3) uint8 frames -> a tensor on the pipeline's
+        device (port of `cgs_tpu/pipeline.py:423-435`, unmeshed). The
+        copy reads pageable memory, so it is done when this returns and
+        the caller may reuse its array."""
+        return torch.from_numpy(np.ascontiguousarray(frames_u8)).to(
+            self.device)
 
     def run_device(self, frames_u8: torch.Tensor) -> tuple:
         """Device-resident path: (N, H, W, 3) uint8 frames already on
@@ -230,8 +309,7 @@ class MaskPipeline:
             # at most max_in_flight chunks of outputs stay alive on the
             # device (read-back shares the compute stream, so it does
             # not overlap the next chunk's compute yet)
-            pending.append(self.run_device(torch.from_numpy(
-                np.ascontiguousarray(chunk)).to(self.device)))
+            pending.append(self.run_device(self.place_input(chunk)))
             if len(pending) >= self.max_in_flight:
                 read_back(pending.pop(0))
         for fut in pending:

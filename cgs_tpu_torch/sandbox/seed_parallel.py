@@ -37,8 +37,10 @@ runner, `sandbox/multirun.py`):
 Seed r starts from the weights `Handler(--seed base_seed + r)` draws
 (PyTorch's default init from a generator seeded with the seed) and
 draws its shifts from a CPU generator of its own, seeded with its seed
-(`SeedRng`); dropout draws one mask over all seeds' activations from
-one device generator. These streams differ from `jax.random`'s.
+and its dropout masks from a device generator of its own, seeded with
+its seed too (`SeedRng`): seed r's shifts and masks are those of the
+serial step of seed r (`train/steps.py:StepRng.seeded`), whatever R and
+the base seed are. These streams differ from `jax.random`'s.
 
 Two JAX mechanisms have no counterpart: the padded tail steps masked to
 identities (`valid`) exist only to reuse one compiled shape, and the
@@ -80,18 +82,19 @@ K = 32  # contrastive batch (main.py:309)
 
 @dataclasses.dataclass
 class SeedRng:
-    """The generators a seeded step draws from: one CPU generator per
-    seed for its shifts (seed r's is seeded with its seed, as the serial
-    step's `StepRng`), and one device generator for the dropout masks
-    of all seeds."""
+    """The generators a seeded step draws from, one pair per seed: a CPU
+    generator for its shifts and a device generator for its dropout
+    masks, both seeded with the seed, as the serial step's `StepRng`
+    (`train/steps.py`) seeds its pair."""
     shifts: List[torch.Generator]
-    dropout: torch.Generator
+    dropout: List[torch.Generator]
 
     @classmethod
     def seeded(cls, seeds: Sequence[int], device) -> "SeedRng":
         seeds = [int(s) for s in seeds]
         return cls([torch.Generator().manual_seed(s) for s in seeds],
-                    torch.Generator(device=device).manual_seed(seeds[0]))
+                   [torch.Generator(device=device).manual_seed(s)
+                    for s in seeds])
 
 
 # ---------------------------------------------------------------------
@@ -163,7 +166,7 @@ def seeded_critic_step(cfg, critic: SeededCritic, optimizer, x: Segment,
     the detached (R,) losses."""
     r = x.seeds
     xf, y = ingest_segments([_shifted(cfg, x, rng, shifts)])
-    pred = critic(xf, generator=rng.dropout)               # (R, B)
+    pred = critic(xf, generators=rng.dropout)              # (R, B)
     y = y.view(r, -1)
     losses = (bce_rows if cfg.threshrew else mse_rows)(pred, y)
     _apply(optimizer, losses.sum())
@@ -172,31 +175,33 @@ def seeded_critic_step(cfg, critic: SeededCritic, optimizer, x: Segment,
 
 def seeded_masker_loss(cfg):
     """(models {'critic', 'masker'[, 'sepcrit']} seeded, ab the parted
-    (2*R*n) batch A || B, y (R, n), dropout generator) -> (loss, terms
-    (R, 4)): the critic passes of `train/losses.py:build_masker_loss`
+    (2*R*n) batch A || B, y (R, n), one dropout generator per seed) ->
+    (loss, terms (R, 4)): the critic passes of `train/losses.py:build_masker_loss`
     (fuse "both") over R seeds, each seed's loss from
     `train/losses.py:masker_terms`, the loss their sum. The terms are
     (replace, inject, norm, critic) per seed."""
     inject, separate = bool(cfg.inject), bool(cfg.separate)
 
-    def loss_fn(models, ab, y, generator=None):
+    def loss_fn(models, ab, y, generators=None):
         critic = models["critic"]
         r, n = y.shape
         a, b = ab[:r * n], ab[r * n:]
-        out, embeds = critic(ab, parts=2, collect=True, generator=generator)
+        out, embeds = critic(ab, parts=2, collect=True,
+                             generators=generators)
         pred, negpred = out[:, :n], out[:, n:].detach()
         embeds = [e[:n] for e in embeds]
         if separate:                               # main.py:389-390
             _, embeds = models["sepcrit"](a, collect=True,
-                                          generator=generator)
+                                          generators=generators)
         z = models["masker"](a, embeds)            # (R*n, 1, H, W)
         injectvalue = None
         if inject:                                 # main.py:395,406
-            vals = critic(merge_both(a, b, z), parts=2, generator=generator)
+            vals = critic(merge_both(a, b, z), parts=2,
+                          generators=generators)
             replacevalue, injectvalue = vals[:, :n], vals[:, n:]
         else:
             replacevalue = critic(replace_merge(a, b, z),
-                                  generator=generator)
+                                  generators=generators)
         loss, *terms = masker_terms(cfg, pred, negpred, y, z, replacevalue,
                                     injectvalue)
         return loss.sum(), torch.stack(terms, 1)
@@ -361,7 +366,8 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
                  x_eval=None, gt_eval=None,
                  results_path: Optional[str] = "results.txt",
                  chunk_steps: int = 100, verbose: bool = True,
-                 save_checkpoints: bool = False) -> dict:
+                 save_checkpoints: bool = False,
+                 masker_steps: Optional[int] = None) -> dict:
     """Two-phase training of `runs` seeds at once on one bank, on
     cfg.device.
 
@@ -375,7 +381,10 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
     reference never saves the masker phase's live critic,
     main.py:565,575,1561-1564) and the final masker, which `--ensemble`
     loads. A -separate run's sepcrit is trained and used for eval
-    features but not saved, as in the reference.
+    features but not saved, as in the reference. masker_steps: the
+    masker phase's steps per epoch in place of the common count (so one
+    seed alone can run, and draw its index stacks in, the chunks it ran
+    beside others).
 
     Returns {'params', 'elapsed_s', 'steps', 'critic_losses' (R, S),
     'masker_losses' (R, S, 4), 'seconds' per phase; with eval 'ious',
@@ -392,6 +401,8 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
             "queue 1 item 4, multi-GPU); the JAX package cgs_tpu has it")
     if runs < 1:
         raise ValueError(f"runs must be >= 1, got {runs}")
+    if masker_steps is not None and masker_steps < 1:
+        raise ValueError(f"masker_steps must be >= 1, got {masker_steps}")
     device = resolve_device(cfg.device)
     t0 = time.time()
     bundle = DataBundle.from_arrays(
@@ -465,7 +476,8 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
     opt = make_optimizer({n: models[n] for n in trained},
                          cfg.critic_lr_scale)
     # common step count: ceil(max |pos| / K) (module docstring)
-    steps_masker = -(-max(len(p) for p in pos_lists) // K)
+    steps_masker = (-(-max(len(p) for p in pos_lists) // K)
+                    if masker_steps is None else masker_steps)
     mchunk_steps = min(chunk_steps, steps_masker)
     mlosses = []
     t1 = time.time()

@@ -65,6 +65,28 @@ from `cgs_tpu_torch/csrc/`, then:
            to the plain path's ensemble and within 1e-6 of the mean of
            three single-member pipelines; frames/s at batch 8192 (f32)
            beside one model's;
+  serve-http  (HTTP serving main path) `cgs_tpu_torch.serve.MaskServer`
+           at chfak 5 f32, --infer-batch 256, seeded random weights in
+           .pt files of a temporary run dir: 32 client threads in a
+           process of their own POST 1024 distinct frames, once plain
+           and once under the profiler's CUDA tracing (the card's busy
+           share of the window) (raw PNGs within one level of the offline
+           `MaskPipeline.run` at batch 256 and identical on >= 99.9% of
+           pixels; thresholded equal away from the threshold; crf equal
+           to `DenseCRF` of the mask the server handed it; /stats
+           dispatches < requests; /healthz 200); a u8-wire server
+           answering the same; `/reload` of a second weight set under 8
+           clients (each response the old or the new set's mask, never a
+           mix; the new set's after the reload returns); 1 ingest and 5
+           joins per dispatch (counters and profiler); requests/s,
+           p50 / p99 latency, masks/s, device busy share and ms per
+           dispatch;
+  int8     (int8 main path) `MaskPipeline(quantize="int8")` at chfak 5:
+           every quantized conv's s32 sums equal the float64 plain
+           version at batch 8; at batch 8192, dynamic and static (512
+           calibration frames) scales within JAX's bounds of the f32
+           path; 1 ingest and 5 joins per batch; frames/s of int8
+           dynamic, int8 static, f32 and bf16;
   profile  (profile main path) `cli.main([... "-eval", "--profile",
            DIR], primary=False)`: the trace file exists and names the
            port's device kernels (`ingest_*`, `upsample_cat_fwd`,
@@ -93,7 +115,13 @@ from `cgs_tpu_torch/csrc/`, then:
            given shifts agree with three serial `masker_step`s per seed
            within SP_TOL (f32, TF32 off): the first step's gradients,
            the terms, and the parameters under SGD (under Adam, which
-           steps by ~lr on a gradient at 0, their |diff| is logged); seeded masker and critic steps/s at
+           steps by ~lr on a gradient at 0, their |diff| is logged); at
+           dropout 0.5 with shifts drawn, R = 3 and R = 10 seeded
+           masker and critic steps against each seed's serial steps
+           (terms and first-step gradients) and the last seed alone
+           against its slot at R (terms and parameters), within SP_TOL:
+           each seed draws
+           its own dropout masks; seeded masker and critic steps/s at
            R = 1, 3 and 10 beside the serial steps' (a record);
   seed-parallel  (seed-parallel main path) `run_parallel` of R = 3
            seeds of the easy protocol (-frozen, chfak 5, 20k frames,
@@ -111,8 +139,8 @@ from `cgs_tpu_torch/csrc/`, then:
            chfak 5 and a small depth.
 
 Launch counts are set to 0 just before each main path (eval + process;
-ensemble; profile; video; train; seed-parallel; resume; drift;
-ablation) and read just after it; every kernel of a path must have
+ensemble; profile; video; serve-http; int8; train; seed-parallel;
+resume; drift; ablation) and read just after it; every kernel of a path must have
 launched there. Weights are random, from a seed. Any
 failed check exits non-zero. Without CUDA, or without the rest of the
 checkout, it fails and prints no result. The next-to-last lines are a JSON `kernels`
@@ -150,6 +178,8 @@ CHFAK1_JOINS = [("in3", 16, 32, 1, 4), ("in2", 8, 16, 4, 2),
 RAGGED_JOINS = [(5, 7, 3, 9, 2), (3, 5, 2, 3, 4), (0, 7, 3, 5, 2),
                 (0, 3, 5, 7, 2)]
 BATCH = 8192
+# the HTTP server: its micro-batch and the distinct frames 32 clients post
+SERVE_BATCH, SERVE_FRAMES = 256, 1024
 EVAL_N, FRAME_F, MASK_F = 2450, 64 * 64 * 3, 64 * 64
 MASKER_N = 64        # frames a masker step merges and decodes (2K)
 PIX = 64 * 64
@@ -290,10 +320,18 @@ def main(argv=None) -> int:
     log("[main path: profile] launches:", profile_launches)
     video_launches = phase_video(_build)
     log("[main path: video] launches:", video_launches)
+    # the HTTP server and int8 paths clear and read the counts around
+    # their own main-path traffic
+    serve_http_launches = phase_serve_http(_build, card)
+    log("[main path: serve-http] launches:", serve_http_launches)
+    int8_launches = phase_int8(_build, card)
+    log("[main path: int8] launches:", int8_launches)
     for path, counts, kernels in (
             ("ensemble", ensemble_launches, SERVE_KERNELS),
             ("profile", profile_launches, SERVE_KERNELS),
-            ("video", video_launches, VIDEO_KERNELS)):
+            ("video", video_launches, VIDEO_KERNELS),
+            ("serve-http", serve_http_launches, VIDEO_KERNELS),
+            ("int8", int8_launches, VIDEO_KERNELS)):
         for name in kernels:
             check(counts.get(name, 0) > 0,
                   f"{name} never launched on the {path} main path")
@@ -324,7 +362,8 @@ def main(argv=None) -> int:
         summary[name]["launches"] = sum(
             counts.get(name, 0) for counts in (
                 serve_launches, ensemble_launches, profile_launches,
-                video_launches, train_launches,
+                video_launches, serve_http_launches, int8_launches,
+                train_launches,
                 *(c for c, _ in later.values())))
         check(summary[name]["launches"] > 0,
               f"{name} never launched on a main path")
@@ -809,6 +848,468 @@ def phase_serve(_build) -> None:
         log(f"[serve] phase {name} {time.time() - t0:.1f} s")
         del pipe
         torch.cuda.empty_cache()
+
+
+def _png(frame) -> bytes:
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _levels(png: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(png))).astype(np.int16)
+
+
+def _post(url: str, body: bytes, timeout: float = 60.0) -> bytes:
+    import urllib.request
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        check(r.status == 200, f"POST {url}: {r.status}")
+        return r.read()
+
+
+def _http(srv):
+    """Start the server's HTTP front on a free port; (base URL, the
+    serving thread)."""
+    import threading
+    httpd = srv.start(port=0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    return f"http://127.0.0.1:{httpd.server_address[1]}", t
+
+
+def _same_png(got: np.ndarray, want: np.ndarray) -> float:
+    """The share of identical levels, after checking every level is
+    within one of `want`'s (batch position may change cuDNN's sums)."""
+    d = np.abs(got - want)
+    check(int(d.max()) <= 1, f"served mask {int(d.max())} levels off")
+    return float((d == 0).mean())
+
+
+def _traffic(url: str, bodies, threads: int):
+    """POST every body from `threads` client threads; (responses in
+    order, per-request latencies in s, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(body):
+        t = time.perf_counter()
+        out = _post(url, body)
+        return out, time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        res = list(ex.map(one, bodies))
+    wall = time.perf_counter() - t0
+    return [r for r, _ in res], np.array([s for _, s in res]), wall
+
+
+# the HTTP load generator, run in its own interpreter so that its
+# threads do not share the server's (argv: URL, pickled list of bodies,
+# output path, threads); the standard library only
+_CLIENTS = r"""
+import pickle, sys, time, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+url, src, dst, threads = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+with open(src, "rb") as f:
+    bodies = pickle.load(f)
+def one(body):
+    t = time.perf_counter()
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        status, out = r.status, r.read()
+    return status, out, time.perf_counter() - t
+t0 = time.perf_counter()
+with ThreadPoolExecutor(threads) as ex:
+    res = list(ex.map(one, bodies))
+wall = time.perf_counter() - t0
+with open(dst, "wb") as f:
+    pickle.dump({"res": res, "wall": wall}, f)
+"""
+
+
+def _traffic_proc(url: str, bodies, threads: int, tmp: str):
+    """`_traffic` from a client process of its own: (responses in
+    order, per-request latencies in s, the clients' wall s)."""
+    import pickle
+    src, dst = os.path.join(tmp, "bodies.pkl"), os.path.join(tmp, "out.pkl")
+    with open(src, "wb") as f:
+        pickle.dump(list(bodies), f)
+    subprocess.run([sys.executable, "-c", _CLIENTS, url, src, dst,
+                    str(threads)], check=True, timeout=300)
+    with open(dst, "rb") as f:
+        got = pickle.load(f)
+    for status, _, _ in got["res"]:
+        check(status == 200, f"POST {url}: {status}")
+    return ([b for _, b, _ in got["res"]],
+            np.array([t for _, _, t in got["res"]]), got["wall"])
+
+
+def _device_busy_ms(run):
+    """(run()'s result, the ms in which the card ran anything while it
+    ran: the union of the intervals of every device event that
+    torch.profiler's CUDA tracing saw, kernels and copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name != "Context Sync")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                    # microseconds
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return out, busy / 1e3
+
+
+def _dispatch_kernels(dispatch, names) -> dict:
+    """The device kernels of one `dispatch()` whose lower-cased names
+    hold each of `names`, counted by torch.profiler over the active step
+    of a schedule. The tracer starts late after the earlier phases'
+    sessions (it has missed a dispatch's first milliseconds: the ingest
+    and the first convolution), so warm-up steps run the dispatch first
+    and only the last one is counted."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=2, active=1)) as prof:
+        for _ in range(4):
+            dispatch()
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    return {n: sum(e.count for e in kernels if n in e.key.lower())
+            for n in names}
+
+
+def phase_serve_http(_build, card: str) -> dict:
+    """The HTTP mask server's main path (`cgs_tpu_torch.serve`): chfak 5
+    f32, `--infer-batch` SERVE_BATCH, seeded random weights in .pt files
+    of a temporary run dir. 32 client threads, in a process of their
+    own, POST SERVE_FRAMES distinct frames, then again under the
+    profiler's CUDA tracing (the card's busy share): every raw PNG within one level of the offline
+    `MaskPipeline.run` at batch SERVE_BATCH and identical on >= 99.9% of
+    pixels; `thresholded` equal except within 1e-5 of the threshold;
+    `crf` equal to `DenseCRF` of the soft mask the server handed it;
+    /stats dispatches < requests; /healthz 200. A second server on the
+    u8 wire with the device's hard plane answers the same. `/reload` of
+    a second weight set while 8 threads post: every response is the old
+    or the new set's mask, never a mix, and every request sent after
+    the reload returned is the new set's. One dispatch launches 1
+    ingest and 5 joins (counters and a profiler count). Returns the
+    launches of the 32-thread traffic."""
+    import threading
+    import urllib.request
+
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.eval.crf import DenseCRF
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.pipeline import MaskPipeline
+    from cgs_tpu_torch.serve import MaskServer
+    from cgs_tpu_torch.train.checkpoints import (
+        checkpoint_paths, save_model_pt,
+    )
+
+    t0 = time.time()
+    frames, _ = synthetic_eval_set(n_frames=SERVE_FRAMES, seed=5)
+    bodies = [_png(f) for f in frames]
+    critic, masker = Critic(chfak=5, dropout=0.5), UnetDecoder(chfak=5)
+    old_w = _random_params(critic, masker, seed=30)
+    new_w = _random_params(critic, masker, seed=31)
+
+    def offline(params):
+        pipe = MaskPipeline(critic, masker, params, batch_size=SERVE_BATCH,
+                            device="cuda")
+        m = pipe.run(frames).masks[..., 0]
+        return m, (np.clip(m, 0, 1) * 255).astype(np.int16)
+
+    soft_old, png_old = offline(old_w)
+    soft_new, png_new = offline(new_w)
+    check(np.abs(png_old - png_new).max() > 10,
+          "the two weight sets give the same masks")
+    servers = []
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--chfak", "5", "--infer-batch", str(SERVE_BATCH),
+                "--model", os.path.join(d, "run")]
+        cfg = parse_args(argv)
+        paths = checkpoint_paths(cfg)
+
+        def publish(params):
+            for name, state in params.items():
+                save_model_pt(state, name, paths[name])
+
+        publish(old_w)
+        try:
+            crf = DenseCRF()
+            crf_seen = []
+
+            def crf_fn(imgs, masks):
+                crf_seen.append(masks.copy())
+                return crf(imgs, masks)
+
+            srv = MaskServer(cfg, crf_fn=crf_fn)
+            servers.append(srv)
+            base, _ = _http(srv)
+            seg = f"{base}/segment"
+            def dispatches():
+                return json.loads(urllib.request.urlopen(
+                    f"{base}/stats", timeout=30).read())["dispatches"]
+
+            # the main path: 32 clients in a process of their own, every
+            # frame once
+            _build.launches.clear()
+            d0 = dispatches()
+            raw, lat, wall = _traffic_proc(seg, bodies, 32, d)
+            launches = dict(_build.launches)
+            n_disp = dispatches() - d0
+            same = np.mean([_same_png(_levels(r), png_old[i])
+                            for i, r in enumerate(raw)])
+            check(same >= 0.999, f"raw PNGs identical on {same:.5f}")
+            check(n_disp < SERVE_FRAMES,
+                  f"{n_disp} dispatches for {SERVE_FRAMES} requests")
+            with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+                check(r.status == 200, f"/healthz {r.status}")
+            rate = {"requests_per_s": SERVE_FRAMES / wall,
+                    "masks_per_s": SERVE_FRAMES / wall,
+                    "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                    "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+                    "dispatches": n_disp, "frames_per_dispatch":
+                    SERVE_FRAMES / max(n_disp, 1)}
+            # the same traffic again under the profiler's CUDA tracing:
+            # the card's busy share of the clients' window
+            d0 = dispatches()
+            (raw_p, lat_p, wall_p), busy = _device_busy_ms(
+                lambda: _traffic_proc(seg, bodies, 32, d))
+            n_disp_p = dispatches() - d0
+            check(busy > 0, "the profiler saw no device work under traffic")
+            rate["traced"] = {
+                "requests_per_s": SERVE_FRAMES / wall_p,
+                "p50_ms": float(np.percentile(lat_p, 50)) * 1e3,
+                "p99_ms": float(np.percentile(lat_p, 99)) * 1e3,
+                "dispatches": n_disp_p, "device_busy_ms": busy,
+                "device_busy_share": busy / (wall_p * 1e3),
+                "device_ms_per_dispatch": busy / max(n_disp_p, 1)}
+            # thresholded and crf
+            sub = range(0, SERVE_FRAMES, 8)
+            thr, _, _ = _traffic(f"{seg}?variant=thresholded&threshold=0.5",
+                                 [bodies[i] for i in sub], 32)
+            flips = 0
+            for i, r in zip(sub, thr):
+                want = (soft_old[i] >= 0.5) * 255
+                far = np.abs(soft_old[i] - 0.5) > 1e-5
+                flips += int((_levels(r) != want)[far].sum())
+            check(flips == 0, f"thresholded differs on {flips} pixels away "
+                  "from the threshold")
+            for i in range(16):
+                got = _levels(_post(f"{seg}?variant=crf", bodies[i]))
+                want = crf(frames[i:i + 1], crf_seen[-1])[0] * 255
+                check(np.array_equal(got, want) and np.abs(
+                    crf_seen[-1][0] - soft_old[i]).max() <= 1e-5,
+                    f"crf variant of frame {i} is not DenseCRF of its mask")
+            # one dispatch: launches and the profiler's kernel count
+            one = srv.pipe.place_input(frames[:SERVE_BATCH])
+            srv.pipe.run_device(one)
+            torch.cuda.synchronize()
+            _build.launches.clear()
+            srv.batcher.submit(frames[0])
+            per_dispatch = dict(_build.launches)
+            check(per_dispatch == {"normalize_u8": 1, "upsample2x": 5},
+                  f"launches per serve dispatch {per_dispatch}")
+            counts = _dispatch_kernels(lambda: srv.pipe.run_device(one),
+                                       ("ingest_", "upsample_cat_fwd"))
+            check(counts == {"ingest_": 1, "upsample_cat_fwd": 5},
+                  f"profiler kernels per dispatch {counts}")
+
+            # the u8 wire with the device's hard plane
+            cfg8 = parse_args(argv + ["--serve-wire", "u8",
+                                      "--binarymaskthreshold", "0.5"])
+            srv8 = MaskServer(cfg8)
+            servers.append(srv8)
+            base8, _ = _http(srv8)
+            raw8, _, _ = _traffic(f"{base8}/segment",
+                                  [bodies[i] for i in sub], 32)
+            same8 = np.mean([_same_png(_levels(r), png_old[i])
+                             for i, r in zip(sub, raw8)])
+            thr8, _, _ = _traffic(
+                f"{base8}/segment?variant=thresholded&threshold=0.5",
+                [bodies[i] for i in sub], 32)
+            flips8 = sum(int((_levels(r) != (soft_old[i] >= 0.5) * 255)[
+                np.abs(soft_old[i] - 0.5) > 1e-5].sum())
+                for i, r in zip(sub, thr8))
+            check(same8 >= 0.999 and flips8 == 0,
+                  f"u8 wire: raw identical on {same8:.5f}, thresholded "
+                  f"differs on {flips8} pixels")
+
+            # /reload of a second weight set under traffic
+            seen, errors = [], []
+            stop = threading.Event()
+
+            def client(k):
+                j = k
+                try:
+                    while not stop.is_set():
+                        i = j % 64
+                        t = time.perf_counter()
+                        seen.append((i, t, _levels(_post(seg, bodies[i]))))
+                        j += 8
+                except Exception as e:          # reported below
+                    errors.append(repr(e))
+
+            workers = [threading.Thread(target=client, args=(k,))
+                       for k in range(8)]
+            for w in workers:
+                w.start()
+            time.sleep(0.5)
+            publish(new_w)
+            rel = json.loads(_post(f"{base}/reload", b""))
+            reloaded_at = time.perf_counter()
+            time.sleep(0.5)
+            stop.set()
+            for w in workers:
+                w.join()
+            check(not errors, f"clients failed during the reload: {errors}")
+            check(rel["reloaded"] == {"critic": True, "masker": True},
+                  f"/reload answered {rel}")
+            n_old = n_new = 0
+            for i, t, got in seen:
+                d_old = int(np.abs(got - png_old[i]).max())
+                d_new = int(np.abs(got - png_new[i]).max())
+                check(min(d_old, d_new) <= 1,
+                      f"frame {i}: a response of neither weight set "
+                      f"({d_old} / {d_new} levels off)")
+                if t > reloaded_at:
+                    check(d_new <= 1, f"frame {i}: old weights served "
+                          "after the reload returned")
+                n_old += d_old <= 1
+                n_new += d_new <= 1
+            reload = {"responses": len(seen), "old": n_old, "new": n_new}
+        finally:
+            for s in servers:
+                s.shutdown()
+    log(f"[serve-http] chfak 5 f32, batch {SERVE_BATCH}, 32 clients, "
+        f"{SERVE_FRAMES} distinct frames: {json.dumps(rate)}; raw PNGs "
+        f"identical on {same:.5f} of pixels (the rest 1 level off); "
+        f"thresholded and crf checked; u8 wire identical on {same8:.5f}; "
+        f"reload under 8 clients {json.dumps(reload)}; launches per "
+        f"dispatch {per_dispatch}, profiler kernels {counts}; {card}")
+    log(f"[serve-http] requests/s {rate['requests_per_s']:.1f}, p50 "
+        f"{rate['p50_ms']:.2f} ms, p99 {rate['p99_ms']:.2f} ms, masks/s "
+        f"{rate['masks_per_s']:.1f}, the clients in their own process; "
+        f"traced: device busy {rate['traced']['device_busy_share']:.4f} of "
+        f"the window, {rate['traced']['device_ms_per_dispatch']:.3f} ms a "
+        f"dispatch ({card}); phase {time.time() - t0:.1f} s")
+    return launches
+
+
+def phase_int8(_build, card: str) -> dict:
+    """int8 inference (`MaskPipeline(quantize="int8")`) at chfak 5: at
+    batch 8 (in chunks of 2 frames) every quantized conv's s32 sums
+    (im2col + `torch._int_mm`) equal the plain float64 convolution
+    exactly; at batch BATCH, with
+    dynamic scales and with static scales from 512 calibration frames,
+    pred within 1e-2, mask within 3e-2 and hard masks at 0.5 agreeing
+    on > 99.5% of pixels against the f32 path (JAX's bounds,
+    tests/test_quant.py:84-89); 1 ingest and 5 join launches per batch;
+    frames/s of int8 dynamic, int8 static, f32 and bf16. Returns the
+    launches of the int8 batches."""
+    from unittest import mock
+
+    import cgs_tpu_torch.ops.quant as quant
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.pipeline import MaskPipeline
+
+    t0 = time.time()
+    x, _ = synthetic_eval_set(n_frames=BATCH + 512, seed=9)
+    frames, calib = x[:BATCH], x[BATCH:]
+    dev = torch.device("cuda")
+    frames_dev = torch.from_numpy(frames).to(dev)
+    critic, masker = Critic(chfak=5, dropout=0.5), UnetDecoder(chfak=5)
+    params = _random_params(critic, masker, seed=40)
+
+    # the s32 sums of every quantized conv at batch 8
+    real, sums = quant.conv_s32, []
+
+    def recording(xq, wq, padding):
+        y = real(xq, wq, padding)
+        sums.append((y, quant.conv_s32_plain(xq, wq, padding)))
+        return y
+
+    q8 = MaskPipeline(critic, masker, params, batch_size=8, device="cuda",
+                      quantize="int8")
+    # 8192 rows a GEMM: the 64 x 64 convs run in chunks of 2 frames
+    with mock.patch.object(quant, "conv_s32", recording), \
+            mock.patch.object(quant, "MAX_ROWS", 8192):
+        q8.run_device(frames_dev[:8])
+    check(len(sums) == 12, f"{len(sums)} quantized convs, want 12")
+    check(all(torch.equal(a, b) for a, b in sums),
+          "int8 conv s32 sums differ from the plain float64 convolution")
+    del sums
+
+    f32 = MaskPipeline(critic, masker, params, batch_size=BATCH,
+                       device="cuda")
+    want = f32.run(frames)
+    rows, launches = {}, {}
+    for name, kw in (("int8 dynamic", {}), ("int8 static", {"calib": calib})):
+        pipe = MaskPipeline(critic, masker, params, batch_size=BATCH,
+                            device="cuda", quantize="int8", **kw)
+        _build.launches.clear()
+        pipe.run_device(frames_dev)
+        torch.cuda.synchronize()
+        per = dict(_build.launches)
+        check(per == {"normalize_u8": 1, "upsample2x": 5},
+              f"{name}: launches per batch {per}")
+        for k, v in per.items():
+            launches[k] = launches.get(k, 0) + v
+        got = pipe.run(frames)
+        err = {"pred": float(np.abs(got.preds - want.preds).max()),
+               "mask": float(np.abs(got.masks - want.masks).max()),
+               "hard_agree": float(np.mean((got.masks >= 0.5)
+                                           == (want.masks >= 0.5)))}
+        check(err["pred"] < 1e-2 and err["mask"] < 3e-2
+              and err["hard_agree"] > 0.995,
+              f"{name} against f32 at chfak 5: {err}")
+        rows[name] = {"vs_f32": err, "pipe": pipe}
+    rates = {}
+    bf16 = MaskPipeline(Critic(chfak=5, compute_dtype=torch.bfloat16),
+                        UnetDecoder(chfak=5, compute_dtype=torch.bfloat16),
+                        params, batch_size=BATCH, device="cuda")
+    for name, pipe in (("f32", f32), ("bf16", bf16),
+                       *((k, v.pop("pipe")) for k, v in rows.items())):
+        pipe.run_device(frames_dev)
+        reps = 5
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(reps):
+            out = pipe.run_device(frames_dev)
+        torch.cuda.synchronize()
+        rates[name] = reps * BATCH / (time.time() - t)
+        del out
+    log(f"[int8] chfak 5, batch {BATCH}: 12 quantized convs' s32 sums "
+        f"equal the float64 plain version at batch 8; against f32 "
+        f"{json.dumps(rows)}; launches per batch 1 + 5")
+    log(f"[int8] frames/s chfak5 batch {BATCH} device-resident: "
+        + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
+        + f" ({card}); phase {time.time() - t0:.1f} s")
+    del f32, bf16, frames_dev
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_eval(_build) -> None:
@@ -1840,6 +2341,129 @@ def _seeded_vs_serial(a_idx, b_idx, shifts, bank, y, optim: str) -> dict:
     return worst
 
 
+def _seeded_dropout_checks(bank, y, gen, runs: int) -> dict:
+    """Dropout 0.5, shifts drawn, chfak 5, f32, SGD (lr 0.1): three
+    seeded masker steps and three seeded critic steps of R = runs seeds
+    (0..R-1) against three serial `masker_step`s / `critic_step`s of
+    each seed with `StepRng.seeded(seed)`, which draws the same shifts
+    and dropout masks: the worst |diff| of the terms (losses), and of
+    the first step's gradients relative to each tensor's largest; then
+    the last seed alone (R = 1) against its slot at R after three masker
+    steps: terms and parameters. Each is held to SP_TOL by the
+    caller."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.models.interop import unstack_seed
+    from cgs_tpu_torch.ops.kernels import Segment
+    from cgs_tpu_torch.sandbox.seed_parallel import (
+        SeedRng, seeded_critic_step,
+    )
+    from cgs_tpu_torch.train.steps import StepRng, critic_step, masker_step
+
+    dev = torch.device("cuda")
+    cfg = parse_args(["-train", "--chfak", "5", "--dropout", "0.5"])
+    seeds, k, nb = list(range(runs)), MASKER_N // 2, bank.shape[0]
+    last = runs - 1
+    a_idx, b_idx = _seeded_indices(gen, runs, nb, s=3)
+    c_idx = torch.randint(0, nb, (runs, 3, 64), device=dev, generator=gen)
+
+    def sgd(models):
+        return torch.optim.SGD([p for m in models.values()
+                                for p in m.parameters()], lr=0.1)
+
+    def grads(models):
+        return {f"{n}.{key}": p.grad.detach().clone()
+                for n, m in models.items() for key, p in m.named_parameters()}
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    def seeded_masker(rs):
+        rs = list(rs)
+        models, init = _seeded_models([seeds[r] for r in rs], 0.5)
+        opt, rng = sgd(models), SeedRng.seeded([seeds[r] for r in rs], dev)
+        terms, g1 = [], None
+        for s in range(3):
+            terms.append(_seeded_masker_run(
+                cfg, models, opt, bank, y, a_idx[rs, s:s + 1],
+                b_idx[rs, s:s + 1], rng)[:, 0].cpu())
+            g1 = g1 or grads(models)
+        return models, init, terms, g1
+
+    models, init, terms, g1 = seeded_masker(range(runs))
+    worst = {"masker terms": 0.0, "masker step-1 gradients": 0.0,
+             "critic losses": 0.0, "critic step-1 gradients": 0.0}
+    for r, seed in enumerate(seeds):
+        smodels = {}
+        for name, tmpl in (("critic", Critic(chfak=5, dropout=0.5)),
+                           ("masker", UnetDecoder(chfak=5))):
+            tmpl.load_state_dict(unstack_seed(init[name], r, runs))
+            smodels[name] = tmpl.to(dev,
+                                    memory_format=torch.channels_last).train()
+        sopt, rng = sgd(smodels), StepRng.seeded(seed, dev)
+        for s in range(3):
+            a = [Segment(bank, a_idx[r, s, :k].contiguous(), labels=y),
+                 Segment(bank, a_idx[r, s, k:].contiguous(), labels=y)]
+            want = torch.stack(masker_step(
+                cfg, smodels, sopt, a, Segment(bank, b_idx[r, s].contiguous()),
+                rng)).cpu()
+            worst["masker terms"] = max(worst["masker terms"], float(
+                (terms[s][r] - want).abs().max()))
+            if s == 0:
+                sg = grads(smodels)
+                for name in ("critic", "masker"):
+                    got = unstack_seed({key[len(name) + 1:]: v
+                                        for key, v in g1.items()
+                                        if key.startswith(name + ".")}, r,
+                                       runs)
+                    for key, v in got.items():
+                        worst["masker step-1 gradients"] = max(
+                            worst["masker step-1 gradients"],
+                            rel(v, sg[f"{name}.{key}"].cpu()))
+    del models
+    # critic steps
+    cmodels, cinit = _seeded_models(seeds, 0.5)
+    critic = cmodels["critic"]
+    copt, rng = sgd({"critic": critic}), SeedRng.seeded(seeds, dev)
+    closses, cg1 = [], None
+    for s in range(3):
+        closses.append(seeded_critic_step(
+            cfg, critic, copt, Segment(bank, c_idx[:, s].contiguous(),
+                                       labels=y), rng).cpu())
+        cg1 = cg1 or {key: p.grad.detach().clone()
+                      for key, p in critic.named_parameters()}
+    for r, seed in enumerate(seeds):
+        scritic = Critic(chfak=5, dropout=0.5)
+        scritic.load_state_dict(unstack_seed(cinit["critic"], r, runs))
+        scritic = scritic.to(dev, memory_format=torch.channels_last).train()
+        sopt, srng = sgd({"critic": scritic}), StepRng.seeded(seed, dev)
+        for s in range(3):
+            loss = critic_step(cfg, scritic, sopt,
+                               Segment(bank, c_idx[r, s].contiguous(),
+                                       labels=y), srng)
+            worst["critic losses"] = max(worst["critic losses"], abs(
+                float(closses[s][r]) - float(loss)))
+            if s == 0:
+                got = unstack_seed(cg1, r, runs)
+                for key, p in scritic.named_parameters():
+                    worst["critic step-1 gradients"] = max(
+                        worst["critic step-1 gradients"],
+                        rel(got[key], p.grad.detach().cpu()))
+    del cmodels, critic
+    # the last seed alone against its slot at R
+    alone, _, t1, _ = seeded_masker([last])
+    many, _, tr, _ = seeded_masker(range(runs))
+    worst[f"seed {last} terms, R = 1 vs R = {runs}"] = max(
+        float((a[0] - b[last]).abs().max()) for a, b in zip(t1, tr))
+    worst[f"seed {last} parameters, R = 1 vs R = {runs}"] = max(
+        float((unstack_seed(many[n].state_dict(), last, runs)[key]
+               - v.cpu()).abs().max())
+        for n in ("critic", "masker")
+        for key, v in alone[n].state_dict().items())
+    return worst
+
+
 def phase_seeded_step(_build) -> None:
     """One seeded masker step launches 1 ingest, 1 + 1 merge and 5 + 5
     joins at R = 1 and R = 3 (device operations, layout moves and their
@@ -1969,6 +2593,17 @@ def phase_seeded_step(_build) -> None:
                  "adam terms": adam["terms"]}
         check(max(gated.values()) <= SP_TOL,
               f"seeded vs serial masker steps differ by {gated}")
+
+        # dropout 0.5, shifts drawn: each seed's own streams
+        # at R = 3, and at R = 10, the runner's R in the 10-seed runs
+        for runs in (3, 10):
+            drop = _seeded_dropout_checks(bank, y, gen, runs)
+            log(f"[seeded step] R = {runs} seeded vs serial per seed, "
+                "dropout 0.5, shifts drawn, 3 steps, SGD, f32 TF32 off "
+                f"(tolerance {SP_TOL}): {json.dumps(drop)}")
+            check(max(drop.values()) <= SP_TOL,
+                  f"seeded steps at dropout 0.5, R = {runs}, differ from "
+                  f"serial by {drop}")
 
         # steps/s: seeded masker and critic at R = 1, 3, 10, and serial
         speed = {}

@@ -4,6 +4,8 @@ with the JAX package's published spreads (`RESULTS.md`).
 
     python3 ten_seeds.py --protocol A B --out runs/ten_seeds
     python3 ten_seeds.py --protocol B --runner seed-parallel --out runs/sp
+    python3 ten_seeds.py --protocol B --runner seed-parallel \
+        --base-seed 19 --runs 1 --masker-steps 108 --out runs/sp19
 
 runs, on the CUDA card, each protocol over seeds base..base+runs-1
 through `cgs_tpu_torch.sandbox.multirun.run_seeds(..., primary=False)`,
@@ -11,7 +13,13 @@ or, with `--runner seed-parallel`, all of them at once through
 `cgs_tpu_torch.sandbox.seed_parallel.run_parallel`, the runner the JAX
 package's B figures come from (every seed trained for the largest
 seed's masker step count, every seed scored on seed 99's eval set, and
-the ensemble IoU of the seeds' mean mask):
+the ensemble IoU of the seeds' mean mask; each seed draws its shifts
+and dropout masks from generators of its own, seeded with the seed, but
+its masker step count is the R seeds' common one, which also sets the
+chunks its index stacks are drawn in, and R sets the grouped
+convolutions' rounding, so a seed's result depends on --runs and
+--base-seed; `--masker-steps N` reruns a seed for the N steps an epoch
+it ran beside others):
 
   A  the default (live) model, chfak 1, easy fixture, 20k frames,
      critic 10 / masker 12 epochs (`RESULTS.md:90-99`: JAX 0.707 +-
@@ -156,11 +164,12 @@ def seed_parallel_argv(name: str):
 
 
 def run_protocol_parallel(name: str, base_seed: int, runs: int, out: Path,
-                          gpu: str) -> dict:
+                          gpu: str, masker_steps=None) -> dict:
     """The protocol's seeds in one `run_parallel` on the data of
     DATA_SEED, scored on seed 99's eval set, with the switches the CLI's
     -train sets; B also saves each seed's checkpoints for the
-    `--ensemble` evals."""
+    `--ensemble` evals. masker_steps: run_parallel's masker steps per
+    epoch (None: the common count)."""
     from cgs_tpu_torch.core.config import parse_args
     from cgs_tpu_torch.core.device import train_switches
     from cgs_tpu_torch.data.collect import collect_data
@@ -178,7 +187,8 @@ def run_protocol_parallel(name: str, base_seed: int, runs: int, out: Path,
     data_s = time.time() - t
     res = run_parallel(cfg, x, y, runs, base_seed=base_seed, x_eval=x99,
                        gt_eval=gt99, results_path=str(out / "results.txt"),
-                       save_checkpoints=name == "B")
+                       save_checkpoints=name == "B",
+                       masker_steps=masker_steps)
     for r, seed in enumerate(res["seeds"]):
         rec = {"protocol": name, "runner": "seed-parallel", "seed": seed,
                "iou_eval99": res["ious"][r],
@@ -234,7 +244,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="runs/ten_seeds")
     ap.add_argument("--runner", choices=["serial", "seed-parallel"],
                     default="serial")
+    ap.add_argument("--masker-steps", type=int, default=None,
+                    help="seed-parallel only: masker steps per epoch in "
+                    "place of the common count, to rerun a seed alone for "
+                    "the steps it ran beside others")
     args = ap.parse_args(argv)
+    if args.masker_steps is not None and args.runner != "seed-parallel":
+        ap.error("--masker-steps needs --runner seed-parallel")
     import torch
     if not torch.cuda.is_available():
         print("ten_seeds: no CUDA device", file=sys.stderr)
@@ -247,8 +263,11 @@ def main(argv=None) -> int:
     for name in args.protocol:
         t = time.time()
         parallel = args.runner == "seed-parallel"
-        run = run_protocol_parallel if parallel else run_protocol
-        summary = run(name, args.base_seed, args.runs, out, gpu)
+        if parallel:
+            summary = run_protocol_parallel(name, args.base_seed, args.runs,
+                                            out, gpu, args.masker_steps)
+        else:
+            summary = run_protocol(name, args.base_seed, args.runs, out, gpu)
         summary["seconds"] = round(time.time() - t, 1)
         if name == "B":
             summary["ensemble"] = run_ensemble(

@@ -250,3 +250,39 @@ def test_run_parallel_end_to_end(tmp_path, monkeypatch, one_torch_thread):
     live = unstack_seed(out["params"]["critic"], 0, R)
     assert not torch.equal(live["features.0.weight"],
                            members[0]["critic"]["features.0.weight"])
+
+
+def test_run_parallel_masker_steps_replaces_the_common_count(
+        tmp_path, monkeypatch, one_torch_thread):
+    """masker_steps runs that many masker steps per epoch whatever the
+    positives give, and refuses a count below 1 before training."""
+    from cgs_tpu_torch.data.synthetic import synthetic_dataset
+
+    monkeypatch.chdir(tmp_path)
+    cfg = Config(shift=4, dropout=0.0, batch_size=32, cepochs=8,
+                 mepochs=2, testsize=100, high_rew_thresh=0.55,
+                 low_rew_thresh=0.45, contrastive_min=5, model="spm",
+                 device="cpu").derive()
+    with pytest.raises(ValueError, match="masker_steps must be >= 1"):
+        sp.run_parallel(cfg, None, None, 1, masker_steps=0)
+    x, y, _ = synthetic_dataset(n_frames=1200, seed=0)
+    out = sp.run_parallel(cfg, x, y, runs=1, base_seed=3,
+                          results_path=None, chunk_steps=2, verbose=False,
+                          masker_steps=3)
+    assert out["steps"] == {"critic": 8 * 35, "masker": 2 * 3}
+    assert out["masker_losses"].shape == (1, 2 * 3, 4)
+    assert np.isfinite(out["masker_losses"]).all()
+
+
+def test_ten_seeds_masker_steps_needs_the_seed_parallel_runner(capsys):
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "ten_seeds.py"
+    spec = importlib.util.spec_from_file_location("ten_seeds", path)
+    ten_seeds = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ten_seeds)
+    with pytest.raises(SystemExit) as e:
+        ten_seeds.main(["--protocol", "B", "--masker-steps", "108"])
+    assert e.value.code == 2
+    assert "--masker-steps needs --runner seed-parallel" in \
+        capsys.readouterr().err
