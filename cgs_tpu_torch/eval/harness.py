@@ -11,6 +11,11 @@ package, and so does the CRF refinement under -crf (`eval/crf.py`). A
 new best IoU renders the TP/FN/FP comparison video (main.py:1027-1087);
 PIL, cv2 and ffmpeg are imported only there.
 
+Over a mesh (port of `cgs_tpu/ops/iou.py:4,22`) the pipeline gives every
+rank the whole outputs; each rank counts its rows of the masks with
+`threshold_iou`, and the intersection and union counts are summed over
+the ranks with one `all_reduce`, as the JAX package psums them.
+
 Training never sees these labels: they enter only here.
 """
 
@@ -72,22 +77,30 @@ def load_eval_set(cfg, evaldatapath: str = "red-trees/",
 
 
 def mask_iou_on_device(masks: np.ndarray, gt: np.ndarray, thresh: float,
-                       device) -> float:
+                       device, mesh=None) -> float:
     """IoU of (masks > thresh) vs gt, counted by the threshold_iou
     kernel on `device` (plain version on the CPU), rounded to 3
-    decimals."""
-    n = masks.shape[0]
-    m = torch.from_numpy(np.ascontiguousarray(masks, np.float32)
-                         .reshape(n, -1)).to(device)
-    g = torch.from_numpy(np.ascontiguousarray(gt, bool)
-                         .reshape(n, -1)).to(device)
+    decimals. Over a mesh each rank counts its rows and the counts are
+    summed over the ranks (a set that does not divide is counted whole
+    on every rank, with no sum)."""
+    n, pix = masks.shape[0], int(np.prod(masks.shape[1:]))
+    rows = slice(0, n) if mesh is None else mesh.rows(n)
+    m = torch.from_numpy(np.ascontiguousarray(masks[rows], np.float32)
+                         .reshape(-1, pix)).to(device)
+    g = torch.from_numpy(np.ascontiguousarray(gt[rows], bool)
+                         .reshape(-1, pix)).to(device)
     inter, union = threshold_iou(m, g, thresh)
+    if mesh is not None and mesh.divides(n):
+        counts = mesh.all_reduce_(torch.stack([inter, union]).to(
+            torch.int64))
+        inter, union = counts[0], counts[1]
     return iou_from_counts(int(inter), int(union))
 
 
 def evaluate(cfg, pipeline, x: np.ndarray, gt: np.ndarray,
              crf_fn=None, best_iou: float = 0.0,
-             out_dir: str = "eval-results", write: bool = True) -> Dict:
+             out_dir: str = "eval-results", write: bool = True,
+             mesh=None) -> Dict:
     """Returns {'ious': [...], 'preds': ..., 'variants': ...} in the
     reference's variant order: [mask, (crf), (saliency), (saliency+crf)]
     (main.py:1005-1015). The CRF variants (-crf with a `crf_fn`, such
@@ -95,14 +108,15 @@ def evaluate(cfg, pipeline, x: np.ndarray, gt: np.ndarray,
     is the host `iou` of the refined bool masks.
 
     write=False skips the file artifacts (resimages PNG dumps, best-IoU
-    video)."""
+    video). mesh: the rank's Mesh; the mask IoU's counts are summed over
+    the ranks (`mask_iou_on_device`)."""
     x_u8 = (x * 255).astype(np.uint8)
     out = pipeline.run(x_u8)
     preds, masks, sal = out.preds, out.masks, out.saliency
 
     hard = (masks > cfg.eval_thresh).squeeze(-1)          # main.py:964
     ious = [mask_iou_on_device(masks, gt, cfg.eval_thresh,
-                               pipeline.device)]
+                               pipeline.device, mesh)]
     variants = {"mask": masks.squeeze(-1), "hard": hard}
 
     with_crf = cfg.crf and crf_fn is not None

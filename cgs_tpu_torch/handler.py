@@ -42,6 +42,20 @@ uninterrupted one. The JAX package does not save `self.rng`, so its
 resumed critic phase draws other batches (ROADMAP.md queue 3 item 2).
 The train states are written whatever `primary` says, as the JAX
 package writes its orbax states on every process.
+
+Data parallelism (port of `cgs_tpu/handler.py:70-71,103-130,165-228,
+340-356,542-575`): under `cli.main --data-parallel N` or torchrun each
+rank builds its own Handler, whose `mesh` (`parallel/mesh.py`) is that
+rank's place, None on one rank. Every rank holds the whole frame banks
+and the same `self.rng`, so all draw the same index stacks and each
+takes its rows (`train/loops.py`). Rank 0 decides what comes from disk:
+its checkpoints, train states and ensemble members are broadcast, even
+when a load fails (disks can differ, and a rank that skipped a load
+would sit in collectives the others never enter); fresh weights are
+broadcast from it too. Only rank 0 writes files (`primary` is the
+caller's `primary` and rank 0), -orbax states included, which hold
+every rank's dropout-generator state; rank 0 writes the data cache and
+builds the CRF library before the others look for them.
 """
 
 from __future__ import annotations
@@ -65,6 +79,11 @@ from cgs_tpu_torch.eval.segment import (
 from cgs_tpu_torch.models.critic import Critic
 from cgs_tpu_torch.models.decoder import UnetDecoder
 from cgs_tpu_torch.models.interop import init_torch_default
+from cgs_tpu_torch.parallel.mesh import (
+    ensemble_mesh_or_none, local_mesh_or_none, rank0_first, rank0_value,
+    replicate_tree,
+)
+from cgs_tpu_torch.parallel.multihost import is_primary
 from cgs_tpu_torch.pipeline import MaskPipeline
 from cgs_tpu_torch.train.checkpoints import (
     TrainStateManager, checkpoint_paths, load_model_pt, load_seed_ensemble,
@@ -96,7 +115,9 @@ class Handler:
     def __init__(self, cfg: Config, primary: bool = True):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        self.primary = primary      # gates every file write
+        self.mesh = local_mesh_or_none(cfg)
+        # gates every file write: the caller's word, and rank 0 only
+        self.primary = primary and is_primary()
         self.rng = np.random.default_rng(cfg.seed)
         self.ious = (0.0, 0.0)      # best-so-far tracker (main.py:77)
         self.last_ious: List[float] = []  # most recent eval() result
@@ -131,7 +152,7 @@ class Handler:
     def reset_models(self) -> None:
         """Fresh weights (main.py:106-111) from PyTorch's default init,
         drawn from a generator seeded with --seed. self.params holds
-        {name: state_dict} on the CPU."""
+        {name: state_dict} on the CPU; over a mesh, rank 0's."""
         gen = torch.Generator().manual_seed(self.cfg.seed)
         names = [CRITIC, MASKER] + ([SEPCRIT] if self.cfg.separate
                                     else [])
@@ -141,11 +162,24 @@ class Handler:
             init_torch_default(template, gen)
             self.params[name] = {k: v.detach().clone() for k, v in
                                  template.state_dict().items()}
+        self.params = replicate_tree(self.mesh, self.params)
 
     def load_models(self, modelnames: Optional[List[str]] = None) -> bool:
         """.pt checkpoint load; False if any file is missing
-        (main.py:136-147)."""
+        (main.py:136-147). Over a mesh rank 0's disk decides: its flag
+        and its params are broadcast, on the failure path too (a load
+        that fails part-way leaves rank 0 holding some loaded models,
+        main.py:136-147)."""
         modelnames = modelnames or list(self.params.keys())
+        if self.mesh is None:
+            return self._load_models_local(modelnames)
+        ok, params = rank0_value(self.mesh, lambda: (
+            self._load_models_local(modelnames),
+            {name: self.params[name] for name in modelnames}))
+        self.params.update(params)
+        return ok
+
+    def _load_models_local(self, modelnames: List[str]) -> bool:
         for name in modelnames:
             loaded = load_model_pt(name, self.save_paths[name])
             if loaded is None:
@@ -176,6 +210,8 @@ class Handler:
         read from disk once per Handler and never refreshed from
         self.params."""
         ensemble = self.cfg.ensemble > 0
+        mesh = (ensemble_mesh_or_none(self.mesh, self.cfg.ensemble)
+                if ensemble else self.mesh)
         cache_key = (salience, wire, hard_threshold)
         pipe = self._pipes.get(cache_key)
         if pipe is not None:
@@ -186,9 +222,10 @@ class Handler:
             8192 if self.device.type == "cuda" else 128)
         params = self.params
         if ensemble:
-            if self._ensemble_params is None:
-                self._ensemble_params = load_seed_ensemble(
-                    self.cfg, self.cfg.ensemble)
+            if self._ensemble_params is None:   # rank 0's disk decides
+                self._ensemble_params = rank0_value(
+                    self.mesh, lambda: load_seed_ensemble(
+                        self.cfg, self.cfg.ensemble))
             params = self._ensemble_params
         pipe = MaskPipeline(
             self.critic, self.masker, params,
@@ -200,7 +237,7 @@ class Handler:
             ensemble=ensemble,
             wire=wire,
             hard_threshold=hard_threshold,
-            device=self.device)
+            device=self.device, mesh=mesh)
         self._pipes[cache_key] = pipe
         return pipe
 
@@ -210,9 +247,10 @@ class Handler:
         (cgs_tpu/handler.py:582-592)."""
         if not self.cfg.crf:
             return None
-        try:
-            from cgs_tpu_torch.eval.crf import DenseCRF
-            return DenseCRF(rescale=self.cfg.crf_rescale)
+        from cgs_tpu_torch.eval.crf import DenseCRF
+        try:   # rank 0 builds the library before the others load it
+            return rank0_first(self.mesh, lambda: DenseCRF(
+                rescale=self.cfg.crf_rescale))
         except (OSError, RuntimeError) as e:
             print(f"[cgs-tpu-torch] CRF unavailable ({e}); skipping "
                   "refinement (the reference ships with its pydensecrf "
@@ -231,7 +269,7 @@ class Handler:
         pipe = self._pipeline(salience=cfg.salience)
         result = evaluate(cfg, pipe, x, gt, crf_fn=self._crf_fn(),
                           best_iou=self.ious[0], out_dir=out_dir,
-                          write=self.primary)
+                          write=self.primary, mesh=self.mesh)
         ious = result["ious"]
         # the best-tracker update is absent on purpose, as in the
         # reference (main.py:1018)
@@ -267,10 +305,12 @@ class Handler:
         cfg = self.cfg
         if cfg.trainasvis:
             if cfg.cleaned:
-                x, y, _ = clean_data(cfg, write=self.primary)
+                x, y, _ = rank0_first(self.mesh, lambda: clean_data(
+                    cfg, write=self.primary))
                 y = np.tile(y, (7, 1)) if y.ndim == 1 else y
             else:
-                x, y, _ = collect_data(cfg, write=self.primary)
+                x, y, _ = rank0_first(self.mesh, lambda: collect_data(
+                    cfg, write=self.primary))
             x = x[: cfg.trainasvis]
             y_mat = y[:, : cfg.trainasvis]
         else:
@@ -285,8 +325,11 @@ class Handler:
     # -- data --------------------------------------------------------
 
     def load_data(self) -> None:
-        """collect -> split -> device (main.py:113-134)."""
-        x, y, i = collect_data(self.cfg, write=self.primary)
+        """collect -> split -> device (main.py:113-134). Over a mesh
+        every rank holds the whole banks; rank 0 collects (and writes the
+        cache) first (`cgs_tpu/data/collect.py:93-94`)."""
+        x, y, i = rank0_first(self.mesh, lambda: collect_data(
+            self.cfg, write=self.primary))
         self.data = DataBundle.from_arrays(x, y, i, self.cfg)
         self.data.to_device(self.cfg, self.device)
         print("dataset shapes", x.shape, y.shape,
@@ -305,12 +348,41 @@ class Handler:
 
     def _train_state(self, phase: str) -> Optional[TrainStateManager]:
         """The phase's train-state manager under -orbax (kept in
-        self.train_states), else None."""
-        if not self.cfg.orbax:
+        self.train_states), else None; None off rank 0 too, which writes
+        the states."""
+        if not self.cfg.orbax or (self.mesh is not None
+                                  and self.mesh.rank != 0):
             return None
         mgr = TrainStateManager(f"{self.path}saves/orbax-{phase}/")
         self.train_states[phase] = mgr
         return mgr
+
+    def _restore(self, ckpt: Optional[TrainStateManager]):
+        """(step, state) of the newest train state or None: rank 0 reads
+        it and every rank gets it, with its own dropout-generator state
+        in state['rng']."""
+        restored = rank0_value(
+            self.mesh, lambda: ckpt.restore() if ckpt is not None else None)
+        if restored is None or self.mesh is None:
+            return restored
+        ranks = restored[1].get("dropout_ranks")
+        if ranks is None or len(ranks) != self.mesh.world:
+            raise ValueError(
+                f"the -orbax state in {self.path}saves/ was saved by "
+                f"{1 if ranks is None else len(ranks)} rank(s); this run "
+                f"has {self.mesh.world}")
+        restored[1]["rng"]["dropout"] = ranks[self.mesh.rank]
+        return restored
+
+    def _save_state(self, ckpt: Optional[TrainStateManager], step: int,
+                    state: dict, rng: StepRng) -> None:
+        """Rank 0 writes the train state, with every rank's
+        dropout-generator state gathered over the host group."""
+        if self.mesh is not None:
+            state["dropout_ranks"] = self.mesh.gather_object(
+                rng.dropout.get_state())
+        if ckpt is not None:
+            ckpt.save(step, state)
 
     @staticmethod
     def _cpu_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -343,7 +415,7 @@ class Handler:
 
         critic = self._device_model(CRITIC)
         opt = make_optimizer({CRITIC: critic})
-        rng = StepRng.seeded(cfg.seed, self.device)
+        rng = StepRng.seeded(cfg.seed, self.device, self.mesh)
         viz_rng = StepRng.seeded(cfg.seed + 1, self.device)
         loader = EpochLoader(self.data.n_train, cfg.batch_size, self.rng)
         x_dev, y_dev = self.data.x_train_dev, self.data.y_train_dev
@@ -351,7 +423,7 @@ class Handler:
         # -orbax: resume at the saved epoch, every random source included
         ckpt = self._train_state(CRITIC)
         start_epoch = 0
-        restored = ckpt.restore() if ckpt is not None else None
+        restored = self._restore(ckpt) if cfg.orbax else None
         if restored is not None:
             start_epoch, state = restored
             critic.load_state_dict(state["models"][CRITIC])
@@ -372,7 +444,7 @@ class Handler:
             for idx in loader.chunks(100):
                 with self.profiler.annotate("critic_chunk"):
                     losses = critic_chunk(cfg, critic, opt, x_dev, y_dev,
-                                          idx, rng).cpu().numpy()
+                                          idx, rng, self.mesh).cpu().numpy()
                 steps += len(idx)
                 if cfg.debug_nan:
                     nan_guard({"losses": losses,
@@ -396,12 +468,12 @@ class Handler:
             if not (epoch + 1) % cfg.saveevery:   # main.py:228
                 self.params[CRITIC] = self._cpu_state(critic)
                 self.save_models([CRITIC])
-            if ckpt is not None:
-                ckpt.save(epoch + 1, {
+            if cfg.orbax:
+                self._save_state(ckpt, epoch + 1, {
                     "models": {CRITIC: critic.state_dict()},
                     "optimizer": opt.state_dict(), "rng": rng.get_state(),
                     "viz_rng": viz_rng.get_state(),
-                    "loader": self.rng.bit_generator.state})
+                    "loader": self.rng.bit_generator.state}, rng)
             if self.primary:
                 save_loss_plot(result_path + "_loss.png", llog,
                                ["Train Loss"])
@@ -423,7 +495,7 @@ class Handler:
         sets = extract_contrastive_sets(
             cfg, self._device_model(CRITIC), self.data.x_train_dev,
             self.data.y_train[cfg.rewidx].astype(np.float32),
-            self.rng, min_count=cfg.contrastive_min)
+            self.rng, min_count=cfg.contrastive_min, mesh=self.mesh)
         idx = cfg.rewidx
         if self.primary:
             save_histogram(self.path + f"pred_idx{idx}_hist.png",
@@ -461,7 +533,7 @@ class Handler:
             model.requires_grad_(name in trained)
         opt = make_optimizer({n: models[n] for n in trained},
                              cfg.critic_lr_scale)
-        rng = StepRng.seeded(cfg.seed, self.device)
+        rng = StepRng.seeded(cfg.seed, self.device, self.mesh)
         viz_rng = StepRng.seeded(cfg.seed + 1, self.device)
 
         k = 32  # contrastive batch (main.py:309)
@@ -472,7 +544,7 @@ class Handler:
         # are derived per (epoch, done) and the generators restored
         ckpt = self._train_state(MASKER)
         steps = 0
-        restored = ckpt.restore() if ckpt is not None else None
+        restored = self._restore(ckpt) if cfg.orbax else None
         if restored is not None:
             steps, state = restored
             for name, model in models.items():
@@ -503,7 +575,8 @@ class Handler:
                 with self.profiler.annotate("masker_chunk"):
                     losses = masker_chunk(
                         cfg, models, opt, sets.xpos, sets.ypos, sets.xneg,
-                        sets.yneg, h, l, c, rng).cpu().numpy()  # (s, 4)
+                        sets.yneg, h, l, c, rng,
+                        self.mesh).cpu().numpy()                # (s, 4)
                 steps += s
                 if cfg.debug_nan:
                     nan_guard({"losses": losses,
@@ -536,13 +609,13 @@ class Handler:
                     norm=float(losses[:, 2].mean()),
                     critic=float(losses[:, 3].mean()))
                 done += s
-                if ckpt is not None:
-                    ckpt.save(epoch * steps_per_epoch + done, {
+                if cfg.orbax:
+                    self._save_state(ckpt, epoch * steps_per_epoch + done, {
                         "models": {n: m.state_dict()
                                    for n, m in models.items()},
                         "optimizer": opt.state_dict(),
                         "rng": rng.get_state(),
-                        "viz_rng": viz_rng.get_state()})
+                        "viz_rng": viz_rng.get_state()}, rng)
 
             if on_epoch is not None:
                 on_epoch(epoch + 1, models,

@@ -180,10 +180,11 @@ def gather_normalize_u8(segments: Sequence[Segment],
     shifts = np.array([seg.shifts() for seg in segments],
                       dtype=np.int64).T.copy()          # (R, segments)
     lib = _build.kernel("normalize_u8")
-    err = lib.cgs_normalize_u8(
-        desc.ctypes.data, len(segments), seeds, shifts.ctypes.data, h, w, c,
-        out.data_ptr(), 0 if labels is None else labels.data_ptr(),
-        int(dtype == torch.bfloat16), _build.stream_ptr(dev))
+    with torch.cuda.device(dev):   # launch on the tensor's card
+        err = lib.cgs_normalize_u8(
+            desc.ctypes.data, len(segments), seeds, shifts.ctypes.data, h, w,
+            c, out.data_ptr(), 0 if labels is None else labels.data_ptr(),
+            int(dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(err, "normalize_u8")
     _build.launches["normalize_u8"] += 1
     return out, (None if labels is None else labels[:n_lab])
@@ -306,9 +307,10 @@ def merge_pair(a: torch.Tensor, b: torch.Tensor, z: torch.Tensor
     if a.numel() == 0:
         return out
     lib = _build.kernel("merge_pair")
-    err = lib.cgs_merge_pair(a.data_ptr(), b.data_ptr(), z.data_ptr(),
-                             out.data_ptr(), out[n:].data_ptr(), n * h * w,
-                             c, _build.stream_ptr(a.device))
+    with torch.cuda.device(a.device):   # launch on the tensor's card
+        err = lib.cgs_merge_pair(a.data_ptr(), b.data_ptr(), z.data_ptr(),
+                                 out.data_ptr(), out[n:].data_ptr(), n * h * w,
+                                 c, _build.stream_ptr(a.device))
     _build.check(err, "merge_pair")
     _build.launches["merge_pair"] += 1
     return out
@@ -343,10 +345,11 @@ def merge_pair_bwd(a, b, z, g, need: Sequence[bool] = NEED_ALL):
     if a.numel() == 0 or not any(need):
         return da, db, dz
     lib = _build.kernel("merge_pair")
-    err = lib.cgs_merge_pair_bwd(
-        a.data_ptr(), b.data_ptr(), z.data_ptr(), g.data_ptr(),
-        *(0 if t is None else t.data_ptr() for t in (da, db, dz)),
-        n, h * w, c, *g_s, _build.stream_ptr(a.device))
+    with torch.cuda.device(a.device):   # launch on the tensor's card
+        err = lib.cgs_merge_pair_bwd(
+            a.data_ptr(), b.data_ptr(), z.data_ptr(), g.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (da, db, dz)),
+            n, h * w, c, *g_s, _build.stream_ptr(a.device))
     _build.check(err, "merge_pair_bwd")
     _build.launches["merge_pair_bwd"] += 1
     return da, db, dz
@@ -417,10 +420,11 @@ def threshold_iou(masks: torch.Tensor, gt: torch.Tensor,
     scratch, stream = _iou_scratch_for(masks.device)
     counts = torch.empty(2, dtype=torch.int64, device=masks.device)
     lib = _build.kernel("threshold_iou")
-    err = lib.cgs_threshold_iou(masks.data_ptr(), gt_u8.data_ptr(),
-                                masks.numel(), float(thresh),
-                                counts.data_ptr(), scratch.data_ptr(),
-                                stream)
+    with torch.cuda.device(masks.device):   # launch on the tensor's card
+        err = lib.cgs_threshold_iou(masks.data_ptr(), gt_u8.data_ptr(),
+                                    masks.numel(), float(thresh),
+                                    counts.data_ptr(), scratch.data_ptr(),
+                                    stream)
     _build.check(err, "threshold_iou")
     _build.launches["threshold_iou"] += 1
     return counts[0], counts[1]

@@ -125,10 +125,11 @@ def upcat_fwd(skip: Optional[torch.Tensor], x: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _build.kernel("upsample2x")
-    err = lib.cgs_upsample2x(None if skip is None else skip.data_ptr(),
-                             x.data_ptr(), out.data_ptr(), b, h, w, cs, cu,
-                             factor, x.element_size(),
-                             _build.stream_ptr(x.device))
+    with torch.cuda.device(x.device):   # launch on the tensor's card
+        err = lib.cgs_upsample2x(None if skip is None else skip.data_ptr(),
+                                 x.data_ptr(), out.data_ptr(), b, h, w, cs, cu,
+                                 factor, x.element_size(),
+                                 _build.stream_ptr(x.device))
     _build.check(err, "upsample2x")
     _build.launches["upsample2x"] += 1
     return out
@@ -163,10 +164,11 @@ def upcat_bwd(g: torch.Tensor, cs: int, factor: int = 2,
     if g.numel() == 0:
         return dskip, dx
     lib = _build.kernel("upsample2x")
-    err = lib.cgs_upsample2x_bwd(
-        g.data_ptr(), None if dskip is None else dskip.data_ptr(),
-        dx.data_ptr(), b, h, w, cs, ct - cs, factor, *g.stride(),
-        int(g.dtype == torch.bfloat16), _build.stream_ptr(g.device))
+    with torch.cuda.device(g.device):   # launch on the tensor's card
+        err = lib.cgs_upsample2x_bwd(
+            g.data_ptr(), None if dskip is None else dskip.data_ptr(),
+            dx.data_ptr(), b, h, w, cs, ct - cs, factor, *g.stride(),
+            int(g.dtype == torch.bfloat16), _build.stream_ptr(g.device))
     _build.check(err, "upsample2x_bwd")
     _build.launches["upsample2x_bwd"] += 1
     return dskip, dx

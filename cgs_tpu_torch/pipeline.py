@@ -30,6 +30,17 @@ activation scales dynamic, or static from a calibration batch (`calib`,
 one f32 forward per `update_params`); the ingest and the decoder's
 five joins launch the same kernels as in f32.
 
+With `mesh` (a `parallel.mesh.Mesh`; port of `cgs_tpu/pipeline.py:63-73,
+145-209,396-435,466-468`) the batch is padded to a multiple of the world
+size, each rank runs its rows, and every rank gets the whole output
+back, as JAX's multi-process `out_shardings=replicated` does: each
+rank's rows are written into a zero-filled whole buffer and summed over
+the ranks (`Mesh.assemble`; gloo has no all_gather for CUDA tensors).
+With `ensemble=True` the mesh shards the seeds instead (R % N == 0):
+each rank runs its R/N members on the whole batch, and the f32 sum of
+the members goes through one `all_reduce` before the division by R and
+the wire encoding.
+
 `update_params` builds the new members' device weights off to the side
 and swaps them in with one assignment, and `_forward` reads the member
 list once per batch: a dispatch thread running meanwhile (`serve.py`)
@@ -54,6 +65,9 @@ from cgs_tpu_torch.ops.quant import (
     quantize_tree,
 )
 from cgs_tpu_torch.ops.saliency import critic_with_saliency
+from cgs_tpu_torch.parallel.mesh import (
+    pad_to_multiple, rank_seed, seed_shard_tree,
+)
 
 
 @dataclasses.dataclass
@@ -96,6 +110,11 @@ class MaskPipeline:
 
     `params` holds the host state_dicts being served (for an ensemble,
     the list of members), as given to the last `update_params`.
+
+    mesh: a `parallel.mesh.Mesh` of this rank (module docstring); every
+    rank must call `run` / `run_device` alike. With ensemble=True the
+    members must divide over the ranks (`parallel.mesh.
+    ensemble_mesh_or_none` picks the mesh or None).
     """
 
     MAX_IN_FLIGHT = 3   # run(): chunks of outputs alive on the device
@@ -110,10 +129,6 @@ class MaskPipeline:
                  mesh=None, ensemble: bool = False,
                  quantize: Optional[str] = None,
                  calib: Optional[np.ndarray] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-device inference is not ported yet "
-                "(ROADMAP.md queue 1 item 4, multi-GPU)")
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize={quantize!r} not in "
                              "(None, 'int8')")
@@ -135,7 +150,10 @@ class MaskPipeline:
         self.device = resolve_device(device)
         self.critic = critic
         self.masker = masker
+        self.mesh = mesh
         self.batch = int(batch_size)
+        if mesh is not None:           # keep the ranks' shares even
+            self.batch = pad_to_multiple(self.batch, mesh.world)
         self.salience = salience
         self.eval_mode = eval_mode
         self.separate = separate
@@ -156,7 +174,7 @@ class MaskPipeline:
                               and masker.compute_dtype == dt
                               else torch.float32)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(rank_seed(seed, mesh))
         # one {name: device module} dict per member (one without
         # ensemble); under int8 {name: quantized device state_dict}
         self._members: List[Dict] = []
@@ -169,6 +187,8 @@ class MaskPipeline:
         members = list(params) if self.ensemble else [params]
         if not members:
             raise ValueError("ensemble=True needs at least one member")
+        if self.ensemble:     # over a mesh: this rank's R/N (or raises)
+            members = seed_shard_tree(self.mesh, members)
         names = ["critic", "masker"] + (["sepcrit"] if self.separate
                                         else [])
         built = [{name: self._device_copy(name, member[name])
@@ -229,7 +249,18 @@ class MaskPipeline:
         return pred.squeeze(-1), mask, sal
 
     def _forward(self, u8: torch.Tensor) -> tuple:
-        """(pred, mask, sal[, hard]) for one batch of device frames."""
+        """(pred, mask, sal[, hard]) for one batch of device frames; over
+        a mesh each rank runs its rows and every rank returns the whole
+        batch's outputs (a batch that does not divide runs whole on
+        every rank)."""
+        mesh, n = self.mesh, u8.shape[0]
+        if mesh is None or self.ensemble or not mesh.divides(n):
+            return self._forward_rows(u8)
+        out = self._forward_rows(u8[mesh.rows(n)])
+        return tuple(None if t is None else mesh.assemble(t, n)
+                     for t in out)
+
+    def _forward_rows(self, u8: torch.Tensor) -> tuple:
         # (N, H, W, 3) -> NCHW view with channels_last strides
         x = normalize_u8(u8, self._ingest_dtype).permute(0, 3, 1, 2)
         gen = None if self.eval_mode else self.generator
@@ -237,11 +268,17 @@ class MaskPipeline:
         out = self._member_forward(members[0], x, gen)
         if self.ensemble:
             # the mean over members, before the wire encoding
-            # (cgs_tpu/pipeline.py:216-222): f32 sums in member order
+            # (cgs_tpu/pipeline.py:216-222): f32 sums in member order,
+            # over a mesh this rank's members, then summed over the ranks
             for models in members[1:]:
                 out = tuple(None if a is None else a.add_(b) for a, b in
                             zip(out, self._member_forward(models, x, gen)))
-            r = float(len(members))
+            if self.mesh is not None:
+                out = tuple(None if a is None
+                            else self.mesh.all_reduce_(a.contiguous())
+                            for a in out)
+            r = float(len(members) * (1 if self.mesh is None
+                                      else self.mesh.world))
             out = tuple(None if a is None else a.div_(r) for a in out)
         mask = out[1]
         if self.hard_threshold is not None:       # main.py:1164 (>=)
@@ -286,6 +323,8 @@ class MaskPipeline:
                 saliency=np.zeros((0, h, w, 1), np.float32)
                 if self.salience else None)
         bs = min(self.batch, n)
+        if self.mesh is not None:       # keep the ranks' shares even
+            bs = pad_to_multiple(bs, self.mesh.world)
         with_hard = self.hard_threshold is not None
         preds, masks, sals, hards = [], [], [], []
 

@@ -42,11 +42,23 @@ its seed too (`SeedRng`): seed r's shifts and masks are those of the
 serial step of seed r (`train/steps.py:StepRng.seeded`), whatever R and
 the base seed are. These streams differ from `jax.random`'s.
 
-Two JAX mechanisms have no counterpart: the padded tail steps masked to
+One JAX mechanism has no counterpart: the padded tail steps masked to
 identities (`valid`) exist only to reuse one compiled shape, and the
-port runs exactly the steps it needs; and `mesh=` (the seed axis
-sharded over chips) raises `NotImplementedError` until multi-GPU is
-ported (ROADMAP.md queue 1 item 4).
+port runs exactly the steps it needs.
+
+`mesh=` (a `parallel.mesh.Mesh`; port of `cgs_tpu/sandbox/seed_parallel.
+py:96-122,338-400,578-604`) shards the seed axis over the ranks, one
+process per card: rank r trains seeds [rR/N, (r+1)R/N) (R % N == 0,
+else ValueError), each with its own streams exactly as unmeshed; the
+seeds never talk, so the only collectives are the masker phase's common
+step count (an all-reduce MAX: every seed trains for the largest seed's
+count) and, at the end, the per-seed parameters, losses and IoUs
+gathered on rank 0, which evaluates the ensemble on all R seeds, writes
+the checkpoints and the results line, and returns the whole result (the
+other ranks return their own seeds'). This is the counterpart of JAX's
+seed-per-device `shard_map` over a local mesh; JAX's `run_parallel`
+refuses a multi-process world (`cgs_tpu/sandbox/seed_parallel.py:
+368-374`), the port runs one.
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ from cgs_tpu_torch.models.seeded import (
 from cgs_tpu_torch.ops.augment import draw_shift
 from cgs_tpu_torch.ops.kernels import Segment, threshold_iou
 from cgs_tpu_torch.ops.merge import merge_both, replace_merge
+from cgs_tpu_torch.parallel.mesh import seed_shard_tree
 from cgs_tpu_torch.train.loops import _upload
 from cgs_tpu_torch.train.losses import (
     bce_rows, ingest, ingest_segments, masker_terms, mse_rows,
@@ -389,20 +402,23 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
     Returns {'params', 'elapsed_s', 'steps', 'critic_losses' (R, S),
     'masker_losses' (R, S, 4), 'seconds' per phase; with eval 'ious',
     'mean', 'std', 'best', 'ensemble_iou'}; the results.txt line is the
-    JAX runner's."""
+    JAX runner's.
+
+    mesh: this rank's `parallel.mesh.Mesh` (module docstring): the
+    seeds shard over the ranks, rank 0 returns the whole result and
+    writes the files, the other ranks return their own seeds' 'seeds',
+    'params', 'closses', 'mlosses', 'contrastive' and 'ious'."""
     from cgs_tpu_torch.data.loader import DataBundle
     from cgs_tpu_torch.models.critic import Critic
     from cgs_tpu_torch.models.decoder import UnetDecoder
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_parallel(mesh=...) shards the seed axis over several "
-            "cards, which is not ported to cgs_tpu_torch yet (ROADMAP.md "
-            "queue 1 item 4, multi-GPU); the JAX package cgs_tpu has it")
     if runs < 1:
         raise ValueError(f"runs must be >= 1, got {runs}")
     if masker_steps is not None and masker_steps < 1:
         raise ValueError(f"masker_steps must be >= 1, got {masker_steps}")
+    if mesh is not None and runs % mesh.world:
+        raise ValueError(f"runs={runs} must divide over the {mesh.world} "
+                         "ranks for seed-per-rank sharding")
     device = resolve_device(cfg.device)
     t0 = time.time()
     bundle = DataBundle.from_arrays(
@@ -411,8 +427,9 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
     x_dev, y_dev = bundle.x_train_dev, bundle.y_train_dev
     n_train = bundle.n_train
 
-    seeds = list(range(base_seed, base_seed + runs))
-    ccritic, cmasker = _build_models(cfg, runs)
+    all_seeds = list(range(base_seed, base_seed + runs))
+    seeds = seed_shard_tree(mesh, all_seeds)    # this rank's seeds
+    ccritic, cmasker = _build_models(cfg, len(seeds))
     init = init_seed_params(
         Critic(bottleneck=cfg.neck, chfak=cfg.chfak),
         UnetDecoder(bottleneck=cfg.neck, chfak=cfg.chfak), seeds,
@@ -475,9 +492,12 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
         model.requires_grad_(name in trained)
     opt = make_optimizer({n: models[n] for n in trained},
                          cfg.critic_lr_scale)
-    # common step count: ceil(max |pos| / K) (module docstring)
+    # common step count: ceil(max |pos| / K) (module docstring), the
+    # largest over the ranks' seeds
     steps_masker = (-(-max(len(p) for p in pos_lists) // K)
                     if masker_steps is None else masker_steps)
+    if mesh is not None:
+        steps_masker = mesh.max_int(steps_masker)
     mchunk_steps = min(chunk_steps, steps_masker)
     mlosses = []
     t1 = time.time()
@@ -500,6 +520,47 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
                   f"replace/seed {losses[:, -1, 0].round(4)}", flush=True)
     seconds["masker"] = time.time() - t1
     params = {name: _cpu_state(m) for name, m in models.items()}
+    closses = np.concatenate(closses, axis=1)
+    mlosses = np.concatenate(mlosses, axis=1)
+    contrastive = [[len(p), len(q)] for p, q in zip(pos_lists, neg_lists)]
+    ev = None
+    if x_eval is not None and gt_eval is not None:
+        t1 = time.time()
+        xe = torch.from_numpy(np.ascontiguousarray(x_eval)).to(device)
+        ge = torch.from_numpy(np.ascontiguousarray(gt_eval)).to(device)
+        ev = dict(x_eval=xe, gt=ge, thresh=cfg.eval_thresh)
+        arr = np.asarray(eval_seeds(critic, models["masker"],
+                                    sepcrit=models.get("sepcrit"), **ev),
+                         np.float64)
+        seconds["eval"] = time.time() - t1
+    if mesh is not None:
+        mine = {"seeds": seeds, "params": params, "critic_p1": critic_p1,
+                "closses": closses, "mlosses": mlosses,
+                "contrastive": contrastive,
+                "ious": None if ev is None else arr}
+        parts = mesh.gather_object(mine)
+        if mesh.rank != 0:
+            mine.update(seconds=seconds, elapsed_s=time.time() - t0)
+            return mine
+        seeds = all_seeds
+        params = {name: {k: torch.cat([p["params"][name][k] for p in parts])
+                         for k in params[name]} for name in params}
+        if save_checkpoints:
+            critic_p1 = {k: torch.cat([p["critic_p1"][k] for p in parts])
+                         for k in critic_p1}
+        closses = np.concatenate([p["closses"] for p in parts])
+        mlosses = np.concatenate([p["mlosses"] for p in parts])
+        contrastive = [c for p in parts for c in p["contrastive"]]
+        if ev is not None:
+            arr = np.concatenate([p["ious"] for p in parts])
+            # the ensemble's models: all R seeds, on rank 0
+            ccritic, cmasker = _build_models(cfg, runs)
+            critic = _on_device(ccritic, params["critic"], device)
+            models = {"masker": _on_device(cmasker, params["masker"],
+                                           device)}
+            if cfg.separate:
+                models["sepcrit"] = _on_device(ccritic, params["sepcrit"],
+                                               device)
 
     if save_checkpoints:
         from cgs_tpu_torch.train.checkpoints import (
@@ -517,20 +578,13 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
     out = {"params": params, "seeds": seeds,
            "steps": {"critic": critic_steps,
                      "masker": cfg.mepochs * steps_masker},
-           "critic_losses": np.concatenate(closses, axis=1),
-           "masker_losses": np.concatenate(mlosses, axis=1),
-           "contrastive": [[len(p), len(q)]
-                           for p, q in zip(pos_lists, neg_lists)]}
-    if x_eval is not None and gt_eval is not None:
+           "critic_losses": closses, "masker_losses": mlosses,
+           "contrastive": contrastive}
+    if ev is not None:
         t1 = time.time()
-        xe = torch.from_numpy(np.ascontiguousarray(x_eval)).to(device)
-        ge = torch.from_numpy(np.ascontiguousarray(gt_eval)).to(device)
-        ev = dict(x_eval=xe, gt=ge, thresh=cfg.eval_thresh,
-                  sepcrit=models.get("sepcrit"))
-        arr = np.asarray(eval_seeds(critic, models["masker"], **ev),
-                         np.float64)
-        ens = ensemble_iou(critic, models["masker"], **ev)
-        seconds["eval"] = time.time() - t1
+        ens = ensemble_iou(critic, models["masker"],
+                           sepcrit=models.get("sepcrit"), **ev)
+        seconds["eval"] += time.time() - t1
         out.update(ious=arr.tolist(), mean=float(arr.mean()),
                    std=float(arr.std()), best=float(arr.max()),
                    ensemble_iou=ens)
@@ -551,12 +605,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     [--base-seed B] [--chunk-steps S] <cli args>`: synthetic or cached
     data per the standard flags, eval against seed 99's synthetic eval
     set, per-seed checkpoints written. On the card it sets what the
-    CLI's -train sets: TF32 off in f32, deterministic cuDNN."""
+    CLI's -train sets: TF32 off in f32, deterministic cuDNN. Over the
+    ranks --data-parallel asks for (as `cli.main` starts them) the seeds
+    shard over the ranks; returns rank 0's result."""
     import sys
 
     from cgs_tpu_torch.core.config import parse_args
-    from cgs_tpu_torch.data.collect import collect_data
-    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.parallel.mesh import run_over_ranks
+    from cgs_tpu_torch.parallel.multihost import ensure_initialized
     from cgs_tpu_torch.sandbox.multirun import pop_int, pop_runs
 
     argv = list(argv if argv is not None else sys.argv[1:])
@@ -566,18 +622,34 @@ def main(argv: Optional[List[str]] = None) -> dict:
         raise SystemExit(f"--chunk-steps must be >= 1 (got {chunk_steps})")
     base_seed = pop_int(argv, "--base-seed", 0)
     cfg = parse_args(argv)
+    ensure_initialized(cfg.device)
+    return run_over_ranks(cfg, _main_rank, cfg, runs, base_seed,
+                          chunk_steps)
+
+
+def _main_rank(cfg, runs: int, base_seed: int, chunk_steps: int) -> dict:
+    """`main` on one rank."""
+    from cgs_tpu_torch.data.collect import collect_data
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.parallel.mesh import local_mesh_or_none, rank0_first
+    from cgs_tpu_torch.parallel.multihost import is_primary
+
     if resolve_device(cfg.device).type == "cuda":
         print("[seed-parallel] switches:", train_switches(cfg.bf16))
-    x, y, _ = collect_data(cfg)
+    mesh = local_mesh_or_none(cfg)
+    x, y, _ = rank0_first(mesh, lambda: collect_data(
+        cfg, write=is_primary()))
     x_eval, gt = synthetic_eval_set(n_frames=5000, seed=99,
                                     variant=cfg.synthetic_variant)
     x_eval, gt = x_eval[100:5000:2], gt[100:5000:2]  # main.py:927-928
-    out = run_parallel(cfg, x, y, runs, base_seed=base_seed,
+    out = run_parallel(cfg, x, y, runs, base_seed=base_seed, mesh=mesh,
                        x_eval=x_eval, gt_eval=gt, chunk_steps=chunk_steps,
                        save_checkpoints=True)
-    print(f"[seed-parallel] ious={np.round(out['ious'], 3)} "
-          f"mean={out['mean']:.3f} best={out['best']:.3f} "
-          f"ensemble={out['ensemble_iou']:.3f} ({out['elapsed_s']:.1f}s)")
+    if "ensemble_iou" in out:                        # rank 0
+        print(f"[seed-parallel] ious={np.round(out['ious'], 3)} "
+              f"mean={out['mean']:.3f} best={out['best']:.3f} "
+              f"ensemble={out['ensemble_iou']:.3f} "
+              f"({out['elapsed_s']:.1f}s)")
     return out
 
 

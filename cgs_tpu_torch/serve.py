@@ -237,7 +237,9 @@ class MaskServer:
             raise NotImplementedError(
                 f"--data-parallel {cfg.data_parallel}: serving over several "
                 "cards is not ported to cgs_tpu_torch yet (ROADMAP.md queue "
-                "1 item 4, multi-GPU); the JAX package cgs_tpu has it")
+                "1 item 8, multi-GPU serving; training, eval and -process "
+                "run over cards since queue 1 item 4); the JAX package "
+                "cgs_tpu has it")
         self.cfg = cfg
         cdt = torch.bfloat16 if cfg.bf16 else torch.float32
         critic = Critic(bottleneck=cfg.neck, chfak=cfg.chfak,

@@ -7,6 +7,10 @@ frames splits them into positives (pred > --high-rew-thresh, default
 samplers then draw (K pos, K neg, 2K contrast-neg) index triples per
 step (K=32, main.py:306-312). Only the (N,) prediction vector comes
 down for the split; the pos/neg frame banks are gathered on the card.
+
+Over a mesh (port of `cgs_tpu/handler.py:340-356`) every rank sweeps,
+and rank 0's split is broadcast, so no rank can split differently (two
+cards may round a pred at the threshold apart).
 """
 
 from __future__ import annotations
@@ -59,11 +63,12 @@ class ContrastiveSets:
 
 def extract_contrastive_sets(cfg, critic, x_dev: torch.Tensor,
                              y_row: np.ndarray, rng: np.random.Generator,
-                             min_count: int = 500) -> ContrastiveSets:
+                             min_count: int = 500,
+                             mesh=None) -> ContrastiveSets:
     """Sweep + threshold split (main.py:238-312). critic: the trained
     critic module on x_dev's device; y_row: host (N,) labels at row
     rewidx. Raises AssertionError below min_count per side (parity
-    with main.py:281)."""
+    with main.py:281). mesh: the split is rank 0's on every rank."""
     n = int(x_dev.shape[0])
     if cfg.critic or cfg.cload:
         preds = critic_sweep(critic, x_dev)
@@ -74,6 +79,8 @@ def extract_contrastive_sets(cfg, critic, x_dev: torch.Tensor,
         pos = rng.random(n) > 0.5
         neg = ~pos
         preds = pos.astype(np.float32)
+    if mesh is not None:
+        preds, pos, neg = mesh.broadcast_object((preds, pos, neg))
 
     assert pos.sum() >= min_count and neg.sum() >= min_count, (
         f"contrastive split too small: {int(pos.sum())} pos / "

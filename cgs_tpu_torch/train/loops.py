@@ -12,6 +12,16 @@ steps (`_masked_merge`) have no counterpart. Chunk sizes follow the
 viz cadence: the reference's hard-coded 100 batches in the critic
 phase (main.py:204) and --visevery in the masker phase (main.py:466).
 
+Over a mesh (`parallel/mesh.py`; port of `cgs_tpu/train/loops.py:
+41-56,121-126,225-233`), every rank holds the whole banks and the whole
+index stacks, drawn alike on every rank, and takes its rows of each
+index row: its 1/N of the critic's (B,) rows; of the masker's, its 1/N
+of the K high, of the K low and of each half of the 2K contrast rows,
+so that row i of A and row i of B, a pair in the merges and the loss,
+stay on one rank. A batch that does not divide runs whole on every rank
+(`Mesh.rows`). The chunk's losses are averaged over the ranks with one
+`all_reduce` (rank 0's when every rank ran the whole batch).
+
 The viz functions recompute the annotated-strip inputs at a chunk
 boundary from the current weights, with fresh shift and dropout
 draws, as the JAX package does.
@@ -43,16 +53,28 @@ def _upload(idx, bound: int, device) -> torch.Tensor:
     return torch.from_numpy(idx).to(device)
 
 
+def _chunk_losses(losses: torch.Tensor, mesh, whole: bool) -> torch.Tensor:
+    """A chunk's stacked losses: over a mesh the ranks' mean, or rank
+    0's when every rank ran the whole batch."""
+    if mesh is None:
+        return losses
+    return mesh.broadcast_(losses) if whole else mesh.mean_(losses)
+
+
 def critic_chunk(cfg, critic, optimizer, x_bank: torch.Tensor,
                  y_bank: torch.Tensor, idx: np.ndarray,
-                 rng: StepRng) -> torch.Tensor:
+                 rng: StepRng, mesh=None) -> torch.Tensor:
     """S critic steps over the banks with idx (S, B); returns the (S,)
-    losses on the device."""
+    losses on the device. Over a mesh each rank runs its rows of idx."""
+    whole = mesh is not None and not mesh.divides(idx.shape[1])
+    if mesh is not None:
+        idx = idx[:, mesh.rows(idx.shape[1])]
     idx_dev = _upload(idx, x_bank.shape[0], x_bank.device)
     losses = [critic_step(cfg, critic, optimizer,
-                          Segment(x_bank, bidx, labels=y_bank), rng)
+                          Segment(x_bank, bidx, labels=y_bank), rng,
+                          mesh, whole)
               for bidx in idx_dev]
-    return torch.stack(losses)
+    return _chunk_losses(torch.stack(losses), mesh, whole)
 
 
 def critic_viz(cfg, critic, x_bank, y_bank, bidx: np.ndarray,
@@ -81,19 +103,39 @@ def _upload_masker(xpos, xneg, hidx, lidx, cidx):
             _upload(cidx, n_neg, dev))
 
 
+def masker_rows(mesh, hidx: np.ndarray, lidx: np.ndarray,
+                cidx: np.ndarray):
+    """(hidx, lidx, cidx, whole): this rank's rows of a masker chunk's
+    index stacks, keeping A's row i and B's row i together: its share of
+    the K high, of the K low, and of each half of the 2K contrast
+    rows."""
+    k = hidx.shape[1]
+    if not mesh.divides(k):
+        return hidx, lidx, cidx, True
+    rows = mesh.rows(k)
+    return (hidx[:, rows], lidx[:, rows],
+            np.concatenate([cidx[:, :k][:, rows], cidx[:, k:][:, rows]],
+                           axis=1), False)
+
+
 def masker_chunk(cfg, models: Dict[str, torch.nn.Module], optimizer,
                  xpos, ypos, xneg, yneg, hidx: np.ndarray,
-                 lidx: np.ndarray, cidx: np.ndarray, rng: StepRng
-                 ) -> torch.Tensor:
+                 lidx: np.ndarray, cidx: np.ndarray, rng: StepRng,
+                 mesh=None) -> torch.Tensor:
     """S masker steps with index stacks hidx (S, K), lidx (S, K), cidx
     (S, 2K); returns the (S, 4) loss terms (replace, inject, norm,
-    critic) on the device."""
+    critic) on the device. Over a mesh each rank runs its rows
+    (`masker_rows`)."""
+    whole = False
+    if mesh is not None:
+        hidx, lidx, cidx, whole = masker_rows(mesh, hidx, lidx, cidx)
     h, l, c = _upload_masker(xpos, xneg, hidx, lidx, cidx)
     terms = []
     for s in range(h.shape[0]):
         a, b = _masker_segments(xpos, ypos, xneg, yneg, h[s], l[s], c[s])
-        terms.extend(masker_step(cfg, models, optimizer, a, b, rng))
-    return torch.stack(terms).view(-1, 4)
+        terms.extend(masker_step(cfg, models, optimizer, a, b, rng, mesh,
+                                 whole))
+    return _chunk_losses(torch.stack(terms).view(-1, 4), mesh, whole)
 
 
 def masker_viz(cfg, models, xpos, ypos, xneg, yneg, h: np.ndarray,

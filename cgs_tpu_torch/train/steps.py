@@ -13,6 +13,18 @@ Random draws: the shift offset comes from a CPU `torch.Generator` (no
 device sync per step) and dropout from a generator on the device, both
 seeded by the caller. They differ from the JAX package's `jax.random`
 streams; the parity tests run with shift 0 and dropout 0.
+
+Data parallelism (port of `cgs_tpu/train/steps.py:166-200`): given a
+`parallel.mesh.Mesh`, each rank runs the step on its rows of the batch,
+then one `all_reduce` averages every trained gradient, flattened into
+one buffer, before the optimizer step (`sync_gradients`). Every loss
+term is a mean over the batch, so the mean of the ranks' gradients of
+equal-sized shares is the gradient of the whole batch's mean; XLA
+inserts the same reduction in JAX. A batch that does not divide over
+the ranks runs whole on every rank, and rank 0's gradient is broadcast.
+The shift draws come from a generator seeded alike on every rank (one
+shift for the whole batch, as JAX's replicated key draws), the dropout
+masks from a generator of each rank's own (`StepRng.seeded`).
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ import torch
 
 from cgs_tpu_torch.ops.augment import draw_shift
 from cgs_tpu_torch.ops.kernels import Segment
+from cgs_tpu_torch.parallel.mesh import rank_seed
 from cgs_tpu_torch.train.losses import (
     build_critic_loss, build_masker_loss, ingest_segments,
 )
@@ -40,9 +53,13 @@ class StepRng:
     dropout: torch.Generator
 
     @classmethod
-    def seeded(cls, seed: int, device) -> "StepRng":
+    def seeded(cls, seed: int, device, mesh=None) -> "StepRng":
+        """Both seeded with `seed`; over a mesh the dropout generator
+        with the rank's own seed (`parallel.mesh.rank_seed`: rank 0's is
+        the serial stream, no two ranks share one)."""
         return cls(torch.Generator().manual_seed(seed),
-                   torch.Generator(device=device).manual_seed(seed))
+                   torch.Generator(device=device).manual_seed(
+                       rank_seed(seed, mesh)))
 
     def get_state(self) -> dict:
         """Both generators' states (CPU byte tensors), for a train-state
@@ -89,9 +106,31 @@ def trained_param_keys(cfg) -> list:
         ["sepcrit"] if cfg.separate else [])
 
 
-def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+def sync_gradients(optimizer: torch.optim.Optimizer, mesh,
+                   whole: bool = False) -> None:
+    """The step's one gradient collective: every trained gradient
+    flattened into one buffer, averaged over the ranks, or, when every
+    rank ran the whole batch (`whole`), rank 0's broadcast; then copied
+    back. Exact at world 1."""
+    grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+             if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    if whole:
+        mesh.broadcast_(flat)
+    else:
+        mesh.mean_(flat)
+    for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(f.view(g.shape))
+
+
+def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor,
+           mesh=None, whole: bool = False) -> None:
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        sync_gradients(optimizer, mesh, whole)
     optimizer.step()
 
 
@@ -107,13 +146,15 @@ def shifted(cfg, segments: Sequence[Segment], rng: StepRng) -> list:
 
 def critic_step(cfg, critic: torch.nn.Module,
                 optimizer: torch.optim.Optimizer, x: Segment,
-                rng: StepRng) -> torch.Tensor:
+                rng: StepRng, mesh=None, whole: bool = False
+                ) -> torch.Tensor:
     """One critic step (main.py:182-199) on the (B, 64, 64, 3) uint8
     frames and the labels that `x` names (its labels must be given);
-    returns the detached loss."""
+    returns the detached loss. Over a mesh `x` names this rank's rows
+    (the whole batch with `whole`) and the gradients are synced."""
     xf, y = ingest_segments(shifted(cfg, [x], rng))
     loss = build_critic_loss(cfg)(critic, xf, y, rng.dropout)
-    _apply(optimizer, loss)
+    _apply(optimizer, loss, mesh, whole)
     return loss.detach()
 
 
@@ -127,16 +168,18 @@ def masker_batch(cfg, a: Sequence[Segment], b: Segment, rng: StepRng):
 
 def masker_step(cfg, models: Dict[str, torch.nn.Module],
                 optimizer: torch.optim.Optimizer, a: Sequence[Segment],
-                b: Segment, rng: StepRng) -> Tuple[torch.Tensor, ...]:
+                b: Segment, rng: StepRng, mesh=None,
+                whole: bool = False) -> Tuple[torch.Tensor, ...]:
     """One masker step (main.py:340-463): `a` names the frames of A,
     [K high || K low] (main.py:350), with their labels, `b` the 2K
     contrast-negatives (`masker_batch`). The fused critic pass reads
     the joined batch as it is. Returns the detached (replace, inject,
     norm, critic) loss terms, four 0-dim tensors (stacked once per
-    chunk by the caller)."""
+    chunk by the caller). Over a mesh, as `critic_step`: row i of A
+    and row i of B stay a pair on one rank."""
     ab, y, n = masker_batch(cfg, a, b, rng)
     loss, aux = build_masker_loss(cfg)(
         models, ab[:n], y, ab[n:], rng.dropout, ab=ab)
-    _apply(optimizer, loss)
+    _apply(optimizer, loss, mesh, whole)
     return tuple(aux[t].detach() for t in
                  ("replace", "inject", "norm", "critic"))

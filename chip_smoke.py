@@ -4,6 +4,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py --train-seeds 0,1,2   # the protocol per seed
+    python3 chip_smoke.py --only-dp             # the dp phase alone
 
 Run from the root of a checkout on a machine with an NVIDIA card
 (written for an H100, `sm_90a`) and `nvcc`. It builds the CUDA kernels
@@ -136,11 +137,41 @@ from `cgs_tpu_torch/csrc/`, then:
            frozen (2 masker epochs): the frozen rows read 0 drift
            exactly, the full rows more; `sandbox.ablation.run_ablation`
            of R = 2 over the four variants and its paired summary, at
-           chfak 5 and a small depth.
+           chfak 5 and a small depth;
+  dp       (data-parallel main path, `cgs_tpu_torch/parallel/`) (a) NCCL
+           at world size 1: a chfak-5 critic step and masker step
+           through the DP code bit-equal to the unmeshed chunks, the
+           same launches (2 ingests, 1 + 1 merge, 5 + 5 joins);
+           (b) two ranks on cuda:0 over gloo (NCCL takes one rank per
+           card): the first critic and masker steps (dropout 0, TF32 off,
+           deterministic cuDNN) against one process on the whole batch,
+           losses and gradients within 1e-5 of each tensor's largest, or
+           within 4 times what taking every row twice moves them (the
+           same math at twice the batch: a bias gradient's float32 sum
+           of 262,144 pixels moves with the batch size), and
+           SGD's parameters too (Adam's gap logged); a chfak-5 `-train
+           -eval -synthetic_data -orbax` at 2k frames on both ranks
+           (primary=False): both ranks' parameters bit-identical, only
+           rank 0 wrote files (its train states), the eval IoU from the
+           reduced kernel counts equal to the host numpy IoU of the
+           assembled masks, beside the world-1 run's; the two-rank
+           pipeline's f32 masks bit-equal to the unmeshed pipeline at the
+           per-rank batch, within 1e-5 of the unmeshed whole batch (hard
+           masks equal away from the threshold); a seed-sharded
+           `--ensemble 2` bit-equal to unmeshed; `run_parallel` of R = 2
+           over the 2 ranks bit-equal to each seed's unmeshed R = 1 run,
+           its first step within SP_TOL of the unmeshed R = 2 run and
+           the gap of each later step logged (a seed's grouped
+           convolutions round apart at R = 1 and 2, and Adam grows it);
+           steps/s at world 1 and 2 (two ranks share one card: no
+           scaling figure) and the all_reduce ms per step; (c) the checks
+           of (b) over NCCL across cards when there are two or more, else
+           one line saying it did not run.
 
 Launch counts are set to 0 just before each main path (eval + process;
 ensemble; profile; video; serve-http; int8; train; seed-parallel;
-resume; drift; ablation) and read just after it; every kernel of a path must have
+resume; drift; ablation; dp) and read just after it; every kernel of a
+path must have
 launched there. Weights are random, from a seed. Any
 failed check exits non-zero. Without CUDA, or without the rest of the
 checkout, it fails and prints no result. The next-to-last lines are a JSON `kernels`
@@ -233,6 +264,27 @@ SMALL = ["-synthetic_data", "--chfak", "5", "--dropout", "0.5",
 DRIFT_ARGV = SMALL + ["--mepochs", "2", "--model", "chip-smoke-drift",
                       "--variants", "full,frozen"]
 ABLATION_ARGV = SMALL + ["--mepochs", "1", "--model", "chip-smoke-abl"]
+# data parallelism: a small chfak-5 -train -eval -orbax run per world,
+# the meshed pipeline's batch (each of 2 ranks runs half), the bound on
+# a DP step against the whole-batch step (relative to each tensor's
+# largest |value|: a mean of two half-batch means against one mean),
+# the timed steps, and the seed-parallel runner's short run
+DP_ARGV = ["-train", "-eval", "-synthetic_data", "--chfak", "5",
+           "--dropout", "0.5", "--datasize", "2000", "--testsize", "200",
+           "--cepochs", "3", "--mepochs", "1", "--high-rew-thresh", "0.55",
+           "--low-rew-thresh", "0.45", "--contrastive-min", "50", "-orbax",
+           "--model", "chip-smoke-dp"]
+DP_PIPE_B, DP_FRAMES = 512, 1024
+DP_TOL = 1e-5
+# ... or, for a tensor whose float32 sums round further with the batch
+# size (a bias gradient sums 262,144 pixels a batch; on the CPU the
+# masker's last two conv biases move by 1.4e-4 and 1.0e-3 of their
+# largest when every row is taken twice), DP_FLOOR times the gap that
+# taking every row twice makes (`_doubled`: the same math, twice the
+# batch)
+DP_FLOOR = 4.0
+DP_REPEAT = 20
+DP_EVAL_THRESH = 0.05
 
 
 class SmokeFailure(Exception):
@@ -258,6 +310,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train-seeds", default="0",
                     help="comma-separated seeds of the train protocol")
+    ap.add_argument("--only-dp", action="store_true",
+                    help="run only the dp phase (its NCCL-across-cards "
+                    "part needs a machine with two or more cards)")
     args = ap.parse_args(argv)
     seeds = [int(s) for s in args.train_seeds.split(",")]
     if not torch.cuda.is_available():
@@ -295,6 +350,13 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0]
     log("[setup] tf32:", disable_tf32())
 
+    if args.only_dp:
+        log("[main path: dp] launches:", phase_dp(_build))
+        log(card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     summary = {}
     phase_kernels(_build, summary)
     phase_seeded_ingest(summary)
@@ -353,6 +415,7 @@ def main(argv=None) -> int:
     drift_launches, ablation_launches = phase_drift_ablation(_build)
     later["drift"] = (drift_launches, TRAIN_KERNELS)
     later["ablation"] = (ablation_launches, TRAIN_KERNELS)
+    later["dp"] = (phase_dp(_build), TRAIN_KERNELS)
     for path, (counts, kernels) in later.items():
         log(f"[main path: {path}] launches:", counts)
         for name in kernels:
@@ -2832,6 +2895,300 @@ def phase_drift_ablation(_build):
     log(f"[ablation] R = 2, chfak 5:\n{summary}\n[ablation] phase "
         f"{time.time() - t1:.1f} s")
     return drift_launches, ablation_launches
+
+
+# ---------------------------------------------------------------------
+# dp: data parallelism over ranks
+# ---------------------------------------------------------------------
+
+def _digest(obj) -> str:
+    """A sha256 over every tensor and array in obj, in key order."""
+    import hashlib
+    h = hashlib.sha256()
+
+    def walk(o):
+        if isinstance(o, dict):
+            for k in sorted(o):
+                h.update(str(k).encode())
+                walk(o[k])
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+        elif isinstance(o, torch.Tensor):
+            h.update(o.detach().cpu().contiguous().numpy().tobytes())
+        elif isinstance(o, np.ndarray):
+            h.update(np.ascontiguousarray(o).tobytes())
+        else:
+            h.update(repr(o).encode())
+    walk(obj)
+    return h.hexdigest()
+
+
+def _dp_rank(argv, dirs, params, a, y, b, frames, members, sp):
+    """The meshed half of every dp check, on one rank of the world (a
+    module-level function: rank 1 imports it from this file). Rank 0
+    returns what the checks compare, rank 1 the digests of it."""
+    from cgs_tpu_torch.ops import _build
+    from cgs_tpu_torch.parallel import probes
+    from cgs_tpu_torch.parallel.mesh import current_mesh
+
+    out = {"adam": probes.steps(params, a, y, b, chfak=5),
+           "sgd": probes.steps(params, a, y, b, chfak=5, optim="sgd"),
+           "speed": probes.steps(params, a, y, b, chfak=5,
+                                 repeat=DP_REPEAT)}
+    _build.launches.clear()                 # the dp main path starts
+    out["cli"] = probes.cli_run(argv, dirs, primary=False)
+    out["launches"] = dict(_build.launches)  # ... and ends
+    out["pipe"] = probes.pipeline(out["cli"]["params"], frames, DP_PIPE_B,
+                                  chfak=5)
+    out["ens"] = probes.pipeline(members, frames, DP_PIPE_B, chfak=5,
+                                 ensemble=True)
+    out["sp"] = probes.run_parallel(*sp, masker_steps=2)
+    if current_mesh().rank == 0:
+        return out
+    return {"params": _digest(out["cli"]["params"]),
+            "files": out["cli"]["files"], "pipe": _digest(out["pipe"]),
+            "ens": _digest(out["ens"]),
+            "adam": _digest(out["adam"]["masker"]),
+            "sp": {"seeds": out["sp"]["seeds"],
+                   "mlosses": out["sp"]["mlosses"]}}
+
+
+def _rel_gaps(got, want, prefix="") -> dict:
+    """{tensor name: its largest |got - want| over its largest |want|}
+    of nested dicts of tensors (or one tensor)."""
+    if isinstance(want, dict):
+        out = {}
+        for k in want:
+            out.update(_rel_gaps(got[k], want[k], f"{prefix}{k}."))
+        return out
+    g, w = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return {prefix.rstrip("."): float(
+        (g - w).abs().max() / w.abs().max().clamp_min(1e-30))}
+
+
+def _doubled(a, y, b):
+    """The steps probe's inputs with every row of each half twice, the
+    pairs of A and B kept: the same means (the same math) at twice the
+    batch, which cuDNN sums in another way."""
+    k = a.shape[0] // 2
+
+    def twice(t):
+        return np.concatenate([t[:k], t[:k], t[k:2 * k], t[k:2 * k]])
+
+    return twice(a), twice(y), twice(b)
+
+
+def _untimed(d: dict) -> dict:
+    """A steps probe's result without its timings."""
+    return {k: v for k, v in d.items() if k not in (
+        "critic_s", "masker_s", "allreduce_ms", "allreduce_bytes")}
+
+
+def _dp_checks(tag, ranks, ref) -> dict:
+    """(b)'s checks of one two-rank world against the unmeshed runs."""
+    got, other = ranks
+    keys = ("critic_loss", "masker_terms", "critic_grads", "masker_grads")
+
+    def gaps(run, base):
+        out = {}
+        for key in keys:
+            out.update(_rel_gaps(run["adam"][key], base["adam"][key],
+                                 key + "."))
+        for key in ("critic", "masker"):
+            out.update(_rel_gaps(run["sgd"][key], base["sgd"][key],
+                                 "sgd_" + key + "."))
+        return out
+
+    dp, floor = gaps(got, ref), gaps(ref["doubled"], ref)
+    adam_gap = max(float((got["adam"]["masker"][n][k] - v).abs().max())
+                   for n, st in ref["adam"]["masker"].items()
+                   for k, v in st.items())
+    worst = sorted(dp, key=lambda t: dp[t] / max(DP_TOL, DP_FLOOR
+                                                 * floor[t]))[-3:]
+    log(f"[dp {tag}] first steps against the whole batch, gap over each "
+        f"tensor's largest |value|: largest {max(dp.values()):.3e} "
+        f"(the doubled batch: {max(floor.values()):.3e}); nearest their "
+        f"bound: " + ", ".join(f"{t} {dp[t]:.3e} (doubled {floor[t]:.3e})"
+                               for t in worst)
+        + f"; Adam's masker params |gap| {adam_gap:.3e} (logged only)")
+    for t, gap in dp.items():
+        check(gap <= max(DP_TOL, DP_FLOOR * floor[t]),
+              f"dp {tag}: {t} gap {gap:.3e} > {DP_TOL} and > {DP_FLOOR} x "
+              f"the doubled batch's {floor[t]:.3e}")
+    check(other["adam"] == _digest(got["adam"]["masker"]),
+          f"dp {tag}: the ranks' masker params differ after a step")
+
+    cli, cli1 = got["cli"], ref["cli"]
+    check(other["params"] == _digest(cli["params"]),
+          f"dp {tag}: the ranks' trained params differ")
+    check(other["files"] == [] and cli["files"]
+          and all("/orbax-" in f for f in cli["files"]),
+          f"dp {tag}: rank 0 wrote {cli['files']}, rank 1 {other['files']}")
+    check(cli["ious"][0] == cli["eval_host_iou"],
+          f"dp {tag}: reduced IoU {cli['ious']} != host IoU "
+          f"{cli['eval_host_iou']}")
+    log(f"[dp {tag}] -train -eval, chfak 5, 2k frames: eval IoU "
+        f"{cli['ious']} over 2 ranks (host numpy IoU of the assembled "
+        f"masks {cli['eval_host_iou']}), {cli1['ious']} on 1; run "
+        f"seconds {cli['seconds']:.1f} / {cli1['seconds']:.1f}")
+
+    pipe, half, full = got["pipe"], ref["pipe_half"], ref["pipe_full"]
+    check(other["pipe"] == _digest(pipe),
+          f"dp {tag}: the ranks' pipeline outputs differ")
+    check(np.array_equal(pipe["masks"], half["masks"])
+          and np.array_equal(pipe["preds"], half["preds"]),
+          f"dp {tag}: pipeline masks not bit-equal to the unmeshed run at "
+          f"the per-rank batch")
+    gap = float(np.abs(pipe["masks"] - full["masks"]).max())
+    near = np.abs(full["masks"] - DP_EVAL_THRESH) <= DP_TOL
+    flips = ((pipe["masks"] > DP_EVAL_THRESH)
+             != (full["masks"] > DP_EVAL_THRESH)) & ~near
+    check(gap <= DP_TOL and not flips.any(),
+          f"dp {tag}: pipeline masks {gap:.3e} from the whole batch's, "
+          f"{int(flips.sum())} hard pixels flipped away from the threshold")
+    check(other["ens"] == _digest(got["ens"])
+          and all(np.array_equal(got["ens"][k], ref["ens"][k])
+                  for k in ref["ens"]),
+          f"dp {tag}: seed-sharded --ensemble 2 not bit-equal to unmeshed")
+
+    sp, sp2 = got["sp"], ref["sp"]
+    check(sp["seeds"] == [0, 1] and other["sp"]["seeds"] == [1],
+          f"dp {tag}: run_parallel seeds {sp['seeds']}")
+    for r, single in enumerate(ref["sp_singles"]):
+        for key in ("critic_losses", "masker_losses"):
+            check(np.array_equal(sp[key][r:r + 1], single[key]),
+                  f"dp {tag}: run_parallel seed {r}'s {key} differ from "
+                  f"its unmeshed R = 1 run")
+    first = float(np.abs(sp["critic_losses"][:, 0]
+                         - sp2["critic_losses"][:, 0]).max())
+    steps = np.abs(np.concatenate([sp["critic_losses"], sp["masker_losses"][
+        ..., 0]], 1) - np.concatenate([sp2["critic_losses"], sp2[
+            "masker_losses"][..., 0]], 1)).max(0)
+    log(f"[dp {tag}] run_parallel R = 2 over 2 ranks: bit-equal to each "
+        f"seed's unmeshed R = 1 run; against the unmeshed R = 2 run, the "
+        f"first step's losses {first:.3e} apart, then the largest gap by "
+        f"step (critic, then the masker's replace term) "
+        f"{np.round(steps, 6).tolist()}; IoUs {sp['ious']} / {sp2['ious']}, "
+        f"ensemble {sp['ensemble_iou']} / {sp2['ensemble_iou']}")
+    check(first <= SP_TOL, f"dp {tag}: run_parallel's first critic losses "
+          f"{first:.3e} from the unmeshed R = 2 run > {SP_TOL}")
+
+    speed, speed1 = got["speed"], ref["speed"]
+    rates = {"critic": (DP_REPEAT / speed1["critic_s"],
+                        DP_REPEAT / speed["critic_s"]),
+             "masker": (DP_REPEAT / speed1["masker_s"],
+                        DP_REPEAT / speed["masker_s"])}
+    log(f"[dp {tag}] steps/s at world 1 / world 2 (64-frame batch; "
+        + ("two ranks share one card: no scaling figure" if tag == "gloo"
+           else "one card per rank") + "): "
+        + ", ".join(f"{k} {a:.1f} / {b:.1f}" for k, (a, b) in rates.items())
+        + f"; one all_reduce of the masker step's gradient "
+        f"({speed['allreduce_bytes']} bytes) "
+        f"{speed['allreduce_ms']:.3f} ms")
+    for name in TRAIN_KERNELS:
+        check(got["launches"].get(name, 0) > 0,
+              f"{name} never launched on the dp main path ({tag})")
+    return got["launches"]
+
+
+def phase_dp(_build) -> dict:
+    """Data parallelism over ranks (`cgs_tpu_torch/parallel/`): (a) NCCL
+    at world 1, (b) two ranks on cuda:0 over gloo, (c) NCCL over two
+    cards when there are two. Returns the launches of (b)'s main path
+    (rank 0's process)."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.data.collect import collect_data
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.parallel import multihost, probes
+
+    t0 = time.time()
+    params = _random_params(Critic(chfak=5), UnetDecoder(chfak=5), 21)
+    members = [params, _random_params(Critic(chfak=5), UnetDecoder(chfak=5),
+                                      22)]
+    gen = np.random.default_rng(5)
+    a = gen.integers(0, 256, (MASKER_N, 64, 64, 3), dtype=np.uint8)
+    b = gen.integers(0, 256, (MASKER_N, 64, 64, 3), dtype=np.uint8)
+    y = gen.random(MASKER_N).astype(np.float32)
+    frames = gen.integers(0, 256, (DP_FRAMES, 64, 64, 3), dtype=np.uint8)
+    sp_cfg = parse_args(["-synthetic_data", "--chfak", "5", "--datasize",
+                         "2000", "--cepochs", "1", "--dropout", "0",
+                         "--high-rew-thresh", "0.0", "--low-rew-thresh",
+                         "1.0", "--model", "chip-smoke-dpsp"])
+    x, yy, _ = collect_data(sp_cfg, write=False)
+    xe, gt = synthetic_eval_set(n_frames=5000, seed=99)
+    xe, gt = xe[100:5000:2], gt[100:5000:2]
+
+    # (a) NCCL at world 1: bit-equal to the unmeshed chunks
+    _build.launches.clear()
+    ref_adam = probes.steps(params, a, y, b, chfak=5, meshed=False,
+                            device="cuda")
+    da, dy, db = _doubled(a, y, b)
+    plain = dict(_build.launches)
+    _build.launches.clear()
+    w1 = multihost.launch(probes.steps, 1, (params, a, y, b, 5),
+                          device="cuda")
+    w1_launches = dict(_build.launches)
+    want = {k: v * (2 if k == "normalize_u8" else 1)
+            for k, v in STEP_LAUNCHES.items()}
+    check(plain == w1_launches == want,
+          f"dp world 1: launches {w1_launches}, unmeshed {plain}, "
+          f"want {want}")
+    check(_digest(_untimed(w1)) == _digest(_untimed(ref_adam)),
+          "dp world 1 over NCCL: not bit-equal to the unmeshed chunks")
+    log(f"[dp nccl-1] world 1 through the DP code bit-equal to the "
+        f"unmeshed critic and masker chunks; launches {w1_launches}")
+
+    # the unmeshed references of (b) and (c)
+    with tempfile.TemporaryDirectory() as d:
+        ref = {"adam": ref_adam,
+               "sgd": probes.steps(params, a, y, b, chfak=5, optim="sgd",
+                                   meshed=False, device="cuda"),
+               "doubled": {"adam": probes.steps(params, da, dy, db, chfak=5,
+                                                meshed=False, device="cuda"),
+                           "sgd": probes.steps(params, da, dy, db, chfak=5,
+                                               optim="sgd", meshed=False,
+                                               device="cuda")},
+               "speed": probes.steps(params, a, y, b, chfak=5,
+                                     meshed=False, device="cuda",
+                                     repeat=DP_REPEAT),
+               "cli": probes.cli_run(DP_ARGV + ["--data-parallel", "1"],
+                                     [d], primary=False, meshed=False)}
+    sp = (sp_cfg, x, yy, 2, 0, xe, gt)
+
+    def worlds(tag, **kw):
+        with tempfile.TemporaryDirectory() as d0, \
+                tempfile.TemporaryDirectory() as d1:
+            ranks = multihost.launch(
+                _dp_rank, 2, (DP_ARGV, [d0, d1], params, a, y, b, frames,
+                              members, sp), device="cuda", gather=True,
+                **kw)
+        # the pipeline references read the weights the world trained
+        dp_params = ranks[0]["cli"]["params"]
+        ref.update(
+            pipe_half=probes.pipeline(dp_params, frames, DP_PIPE_B // 2,
+                                      chfak=5, meshed=False, device="cuda"),
+            pipe_full=probes.pipeline(dp_params, frames, DP_PIPE_B,
+                                      chfak=5, meshed=False, device="cuda"))
+        return _dp_checks(tag, ranks, ref)
+
+    ref.update(
+        ens=probes.pipeline(members, frames, DP_PIPE_B, chfak=5,
+                            ensemble=True, meshed=False, device="cuda"),
+        sp=probes.run_parallel(*sp, meshed=False, masker_steps=2),
+        sp_singles=[probes.run_parallel(sp_cfg, x, yy, 1, s, xe, gt,
+                                        meshed=False, masker_steps=2)
+                    for s in (0, 1)])
+    launches = worlds("gloo", backend="gloo", device_indices=[0, 0])
+    if torch.cuda.device_count() >= 2:
+        worlds("nccl")
+    else:
+        log("[dp nccl-2] (c) NCCL across cards did not run: this machine "
+            "has one card")
+    log(f"[dp] phase {time.time() - t0:.1f} s")
+    return launches
 
 
 if __name__ == "__main__":

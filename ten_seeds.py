@@ -6,6 +6,8 @@ with the JAX package's published spreads (`RESULTS.md`).
     python3 ten_seeds.py --protocol B --runner seed-parallel --out runs/sp
     python3 ten_seeds.py --protocol B --runner seed-parallel \
         --base-seed 19 --runs 1 --masker-steps 108 --out runs/sp19
+    python3 ten_seeds.py --protocol B --runner seed-parallel \
+        --base-seed 19 --masker-steps 108 --tf32 --out runs/sp19tf32
 
 runs, on the CUDA card, each protocol over seeds base..base+runs-1
 through `cgs_tpu_torch.sandbox.multirun.run_seeds(..., primary=False)`,
@@ -19,7 +21,9 @@ its masker step count is the R seeds' common one, which also sets the
 chunks its index stacks are drawn in, and R sets the grouped
 convolutions' rounding, so a seed's result depends on --runs and
 --base-seed; `--masker-steps N` reruns a seed for the N steps an epoch
-it ran beside others):
+it ran beside others; `--tf32` lets cuDNN run the f32 convolutions in
+TF32, nearer the TPU's default f32 convolution precision than the
+port's full f32):
 
   A  the default (live) model, chfak 1, easy fixture, 20k frames,
      critic 10 / masker 12 epochs (`RESULTS.md:90-99`: JAX 0.707 +-
@@ -45,8 +49,10 @@ Nothing but checkpoints (B's, under `{model}-seed{s}/saves/`, for the
 ensemble; the seed-parallel runner's model names end in `-sp`) and the
 data cache is written in the working directory; the results go to
 --out: `results.txt` (the runner's lines), `seeds.jsonl`
-(one line per seed, written as each seed ends) and `summary.jsonl`
-(one line per protocol). Every line carries the card's name and power
+(one line per seed, written as each seed ends), `summary.jsonl`
+(one line per protocol) and, from the seed-parallel runner,
+`masker_losses_<protocol>.npy`, every seed's (replace, inject, norm,
+critic) terms per masker step, (R, steps, 4). Every line carries the card's name and power
 limit from nvidia-smi.
 """
 
@@ -164,12 +170,15 @@ def seed_parallel_argv(name: str):
 
 
 def run_protocol_parallel(name: str, base_seed: int, runs: int, out: Path,
-                          gpu: str, masker_steps=None) -> dict:
+                          gpu: str, masker_steps=None,
+                          tf32: bool = False) -> dict:
     """The protocol's seeds in one `run_parallel` on the data of
     DATA_SEED, scored on seed 99's eval set, with the switches the CLI's
-    -train sets; B also saves each seed's checkpoints for the
-    `--ensemble` evals. masker_steps: run_parallel's masker steps per
-    epoch (None: the common count)."""
+    -train sets (tf32: then cuDNN's TF32 back on); B also saves each
+    seed's checkpoints for the `--ensemble` evals. masker_steps:
+    run_parallel's masker steps per epoch (None: the common count).
+    Writes every seed's masker terms per step to --out."""
+    import torch
     from cgs_tpu_torch.core.config import parse_args
     from cgs_tpu_torch.core.device import train_switches
     from cgs_tpu_torch.data.collect import collect_data
@@ -178,7 +187,11 @@ def run_protocol_parallel(name: str, base_seed: int, runs: int, out: Path,
 
     argv = seed_parallel_argv(name)
     cfg = parse_args(argv + ["--seed", str(DATA_SEED)])
-    print(f"[ten_seeds] switches: {train_switches(cfg.bf16)}", flush=True)
+    switches = train_switches(cfg.bf16)
+    if tf32:
+        torch.backends.cudnn.allow_tf32 = True
+        switches["cudnn.allow_tf32"] = True
+    print(f"[ten_seeds] switches: {switches}", flush=True)
     t = time.time()
     x, y, _ = collect_data(cfg, write=False)
     x99, gt99 = synthetic_eval_set(n_frames=5000, seed=99,
@@ -189,6 +202,7 @@ def run_protocol_parallel(name: str, base_seed: int, runs: int, out: Path,
                        gt_eval=gt99, results_path=str(out / "results.txt"),
                        save_checkpoints=name == "B",
                        masker_steps=masker_steps)
+    np.save(out / f"masker_losses_{name}.npy", res["masker_losses"])
     for r, seed in enumerate(res["seeds"]):
         rec = {"protocol": name, "runner": "seed-parallel", "seed": seed,
                "iou_eval99": res["ious"][r],
@@ -205,7 +219,8 @@ def run_protocol_parallel(name: str, base_seed: int, runs: int, out: Path,
             "steps": res["steps"],
             "phase_seconds": {k: round(v, 1)
                               for k, v in res["seconds"].items()},
-            "data_s": round(data_s, 1), "jax": JAX[name], "card": gpu}
+            "data_s": round(data_s, 1), "switches": switches,
+            "jax": JAX[name], "card": gpu}
 
 
 def run_ensemble(base_seed: int, runs: int, gpu: str,
@@ -248,9 +263,14 @@ def main(argv=None) -> int:
                     help="seed-parallel only: masker steps per epoch in "
                     "place of the common count, to rerun a seed alone for "
                     "the steps it ran beside others")
+    ap.add_argument("--tf32", action="store_true",
+                    help="seed-parallel only: cuDNN runs the f32 "
+                    "convolutions in TF32")
     args = ap.parse_args(argv)
     if args.masker_steps is not None and args.runner != "seed-parallel":
         ap.error("--masker-steps needs --runner seed-parallel")
+    if args.tf32 and args.runner != "seed-parallel":
+        ap.error("--tf32 needs --runner seed-parallel")
     import torch
     if not torch.cuda.is_available():
         print("ten_seeds: no CUDA device", file=sys.stderr)
@@ -265,7 +285,8 @@ def main(argv=None) -> int:
         parallel = args.runner == "seed-parallel"
         if parallel:
             summary = run_protocol_parallel(name, args.base_seed, args.runs,
-                                            out, gpu, args.masker_steps)
+                                            out, gpu, args.masker_steps,
+                                            args.tf32)
         else:
             summary = run_protocol(name, args.base_seed, args.runs, out, gpu)
         summary["seconds"] = round(time.time() - t, 1)

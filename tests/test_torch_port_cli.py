@@ -274,6 +274,8 @@ def test_port_imports_no_jax_and_nothing_of_cgs_tpu():
     files += [REPO / "chip_smoke.py", REPO / "ten_seeds.py",
               REPO / "time_ingest.py"]
     assert len(files) > 20
+    assert {"mesh.py", "multihost.py", "probes.py"} <= {
+        p.name for p in files if p.parent.name == "parallel"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -475,3 +475,54 @@ def test_masker_step_kernel_path_equals_plain_path(dev, monkeypatch):
         assert torch.equal(_bits(g), _bits(pg))
     for name, p in models["masker"].named_parameters():
         assert bool(p.grad.abs().sum() > 0), name
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a launch with the current "
+                    "device set to another card than its tensors'")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+def test_launch_lands_on_the_tensors_card(two_cards):
+    """Each wrapper launches on its tensors' card whatever the calling
+    thread's current device is (cuda:0 here, tensors on cuda:1), as a
+    rank whose current device was never set, or the serve completion
+    thread, calls them."""
+    d1 = two_cards
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8,
+                      generator=gen)
+    a, b = (torch.rand(4, 3, 64, 64, generator=gen).to(
+        memory_format=torch.channels_last) for _ in range(2))
+    z = torch.rand(4, 1, 64, 64, generator=gen)
+    g = torch.rand(8, 3, 64, 64, generator=gen)
+    up = torch.rand(2, 4, 4, 8, generator=gen)
+    gup = torch.rand(2, 8, 8, 8, generator=gen)
+    masks = torch.rand(8, 4096, generator=gen)
+    gt = torch.rand(8, 4096, generator=gen) > 0.5
+    with torch.cuda.device(0):
+        got = {
+            "normalize_u8": normalize_u8(x.to(d1)),
+            "merge_pair": merge_pair(a.to(d1), b.to(d1), z.to(d1)),
+            "merge_pair_bwd": merge_pair_bwd(a.to(d1), b.to(d1), z.to(d1),
+                                             g.to(d1))[2],
+            "upsample2x": upsample2x(up.to(d1)),
+            "upsample2x_bwd": upsample2x_bwd(gup.to(d1)),
+            "threshold_iou": torch.stack(threshold_iou(
+                masks.to(d1), gt.to(d1), 0.5)),
+        }
+        torch.cuda.synchronize(d1)
+    want = {
+        "normalize_u8": normalize_u8_plain(x),
+        "merge_pair": merge_pair_plain(a, b, z),
+        "merge_pair_bwd": merge_pair_bwd_plain(a, b, z, g)[2],
+        "upsample2x": upsample2x_plain(up),
+        "upsample2x_bwd": upsample2x_bwd_plain(gup),
+        "threshold_iou": torch.stack(threshold_iou_plain(masks, gt, 0.5)),
+    }
+    for name, t in got.items():
+        assert t.device == d1, name
+        assert torch.equal(t.cpu(), want[name]), name

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from cgs_tpu.pipeline import MaskPipeline as JPipeline
+from cgs_tpu_torch.parallel.mesh import Mesh
 from cgs_tpu_torch.pipeline import MaskPipeline
 from torch_port_common import jax_models, port_models, port_params
 
@@ -160,8 +161,11 @@ def test_empty_input_and_unported_modes(both):
     out = pipe.run(np.zeros((0, 64, 64, 3), np.uint8))
     assert out.masks is None
     assert out.masks_u8.shape == out.hard.shape == (0, 64, 64, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MaskPipeline(pc, pm, pp, device="cpu", mesh=object())
+    # a mesh is ported; a seed-sharded ensemble whose members do not
+    # divide over the ranks is refused
+    with pytest.raises(ValueError, match="R % ranks"):
+        MaskPipeline(pc, pm, [pp] * 3, device="cpu", ensemble=True,
+                     mesh=Mesh(rank=0, world=2, device=torch.device("cpu")))
     # int8 is ported: an empty input runs through it too
     q8 = MaskPipeline(pc, pm, pp, batch_size=8, device="cpu",
                       quantize="int8")

@@ -28,6 +28,7 @@ from cgs_tpu.ops import quant as jq
 from cgs_tpu.pipeline import MaskPipeline as JPipeline
 from cgs_tpu_torch.models.interop import CRITIC_KEYMAP, DECODER_KEYMAP
 from cgs_tpu_torch.ops import quant as pq
+from cgs_tpu_torch.parallel.mesh import Mesh
 from cgs_tpu_torch.pipeline import MaskPipeline
 from torch_port_common import (  # noqa: F401 (one_torch_thread: fixture)
     jax_models, nchw, one_torch_thread, port_models, port_params,
@@ -236,8 +237,12 @@ def test_pipeline_int8_guards(setup):
                      device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         MaskPipeline(critic, masker, pp, quantize="fp8", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        MaskPipeline(critic, masker, pp, mesh=object(), device="cpu")
+    # a mesh is ported; int8 members that do not divide over the ranks
+    # are refused like f32 ones
+    with pytest.raises(ValueError, match="R % ranks"):
+        MaskPipeline(critic, masker, [pp] * 3, ensemble=True,
+                     quantize="int8", device="cpu",
+                     mesh=Mesh(rank=0, world=2, device=torch.device("cpu")))
 
 
 def test_zero_calibrated_scale_is_clamped(setup, one_torch_thread):

@@ -200,9 +200,13 @@ def test_eval_seeds_and_ensemble_match_host_numpy(one_torch_thread):
 
 
 def test_mesh_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        sp.run_parallel(Config(device="cpu").derive(), None, None, 2,
-                        mesh=object())
+    """mesh= is ported (queue 1 item 4, `test_torch_port_dp_train.py`):
+    what raises now is a seed count that does not divide over the
+    ranks, before any work."""
+    from cgs_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match="must divide over the 2 ranks"):
+        sp.run_parallel(Config(device="cpu").derive(), None, None, 3,
+                        mesh=Mesh(rank=0, world=2, device=CPU))
 
 
 def test_run_parallel_end_to_end(tmp_path, monkeypatch, one_torch_thread):
@@ -286,3 +290,18 @@ def test_ten_seeds_masker_steps_needs_the_seed_parallel_runner(capsys):
     assert e.value.code == 2
     assert "--masker-steps needs --runner seed-parallel" in \
         capsys.readouterr().err
+
+
+def test_ten_seeds_tf32_needs_the_seed_parallel_runner(capsys):
+    """--tf32 switches cuDNN's TF32 on in the seed-parallel runner only
+    (the serial runner's CLI sets the switches of its own)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "ten_seeds.py"
+    spec = importlib.util.spec_from_file_location("ten_seeds", path)
+    ten_seeds = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ten_seeds)
+    with pytest.raises(SystemExit) as e:
+        ten_seeds.main(["--protocol", "B", "--tf32"])
+    assert e.value.code == 2
+    assert "--tf32 needs --runner seed-parallel" in capsys.readouterr().err
