@@ -1,13 +1,18 @@
 // Nearest-neighbour upsample into a channel concat, NHWC: the decoder's
 // skip joins, and their gradient.
 //
-//   out[b, y, x, c] = skip[b, y, x, c]              c <  Cs
-//                   = in[b, y / f, x / f, c - Cs]    c >= Cs
+//   out[b, y, x, c] = skip[b, y, x, c - So]         So <= c < So + Cs
+//                   = in[b, y / f, x / f, c - Uo]    Uo <= c < Uo + Cu
 //
 // skip (B, fH, fW, Cs), in (B, H, W, Cu), out (B, fH, fW, Cs + Cu), f = 2
-// or 4: out = cat([skip, up_f(in)], channels), skip first, the JAX
-// decoder's channel order (cgs_tpu/models/decoder.py:124-138). Cs = 0 is
-// the plain upsample. The x4 join (the bottleneck) is one launch.
+// or 4. Skip first (So = 0, Uo = Cs): out = cat([skip, up_f(in)],
+// channels), the JAX decoder's channel order
+// (cgs_tpu/models/decoder.py:124-138). Upsampled first (Uo = 0, So = Cu):
+// out = cat([up_f(in), skip]), the order of the model zoo's U-Nets
+// (cgs_tpu/models/zoo.py:316-322, 348-351, 391-398). A runtime flag picks
+// the order; the two orders differ only in these two channel offsets.
+// Cs = 0 is the plain upsample. The x4 join (the bottleneck) is one
+// launch.
 //
 // Replaces cgs_tpu/ops/pallas_upsample.py:upsample2x_pallas (forward
 // _up2_kernel; backward _up2_bwd, a 2x2 sum-pool) together with the
@@ -122,6 +127,7 @@ struct CatSource {
   const E* skip;  // shared: f rows x fW pixels x Cs
   const E* in;    // shared: W pixels x Cu
   uint32_t Cs, Cu, Ct, fW, fshift;
+  uint32_t so, uo;  // the first channel of the skip, of the upsampled
   Divider by_ct, by_fw;
 
   template <int N>
@@ -131,8 +137,8 @@ struct CatSource {
     uint32_t p = pix - divide(pix, by_fw) * fW;  // column in its row
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      out[j] = c < Cs ? skip[pix * Cs + c]
-                      : in[(p >> fshift) * Cu + (c - Cs)];
+      out[j] = c - so < Cs ? skip[pix * Cs + (c - so)]
+                           : in[(p >> fshift) * Cu + (c - uo)];
       if (++c == Ct) {
         c = 0;
         ++pix;
@@ -180,7 +186,7 @@ int allow_smem(K kernel, size_t bytes) {
 template <typename E>
 int launch_fwd(const void* skip, const void* in, void* out, int64_t B,
                int64_t H, int64_t W, int64_t Cs, int64_t Cu,
-               uint32_t fshift, cudaStream_t s) {
+               uint32_t fshift, bool up_first, cudaStream_t s) {
   constexpr int64_t V = 16 / sizeof(E);
   const int64_t f = 1 << fshift, fW = W << fshift, Ct = Cs + Cu;
   const int64_t n_skip = f * fW * Cs, n_in = W * Cu, n_out = f * fW * Ct;
@@ -192,6 +198,8 @@ int launch_fwd(const void* skip, const void* in, void* out, int64_t B,
   if (err) return err;
   const CatSource<E> src{nullptr, nullptr, (uint32_t)Cs, (uint32_t)Cu,
                          (uint32_t)Ct, (uint32_t)fW, fshift,
+                         up_first ? (uint32_t)Cu : 0u,
+                         up_first ? 0u : (uint32_t)Cs,
                          make_divider((uint32_t)Ct),
                          make_divider((uint32_t)fW)};
   upsample_cat_fwd<E><<<grid_rows(B * H), kThreads, smem, s>>>(
@@ -255,7 +263,7 @@ __device__ __forceinline__ typename Ty::E pool(const typename Ty::E* p,
 template <typename E>
 struct SkipSource {
   const E* g;
-  uint32_t Cs, Ct;
+  uint32_t Cs, Ct, so;
   Divider by_cs;
 
   template <int N>
@@ -264,7 +272,7 @@ struct SkipSource {
     uint32_t c = e - pix * Cs;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      out[j] = g[pix * Ct + c];
+      out[j] = g[pix * Ct + so + c];
       if (++c == Cs) {
         c = 0;
         ++pix;
@@ -278,7 +286,7 @@ template <typename Ty>
 struct PoolSource {
   using E = typename Ty::E;
   const E* g;
-  uint32_t Cs, Cu, Ct, fW, fshift;
+  uint32_t uo, Cu, Ct, fW, fshift;
   Divider by_cu;
 
   template <int N>
@@ -287,7 +295,7 @@ struct PoolSource {
     uint32_t c = e - j * Cu;
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      out[k] = pool<Ty>(g + (j << fshift) * Ct + Cs + c, (int64_t)fW * Ct,
+      out[k] = pool<Ty>(g + (j << fshift) * Ct + uo + c, (int64_t)fW * Ct,
                         Ct, fshift);
       if (++c == Cu) {
         c = 0;
@@ -321,8 +329,8 @@ template <typename Ty>
 __global__ void __launch_bounds__(kThreads) upsample_cat_bwd_strided(
     const typename Ty::E* __restrict__ g, typename Ty::E* __restrict__ dskip,
     typename Ty::E* __restrict__ dx, int64_t B, int64_t H, int64_t W,
-    int64_t Cs, int64_t Cu, uint32_t fshift, int64_t sb, int64_t sh,
-    int64_t sw, int64_t sc) {
+    int64_t Cs, int64_t Cu, uint32_t fshift, int64_t so, int64_t uo,
+    int64_t sb, int64_t sh, int64_t sw, int64_t sc) {
   const int64_t fH = H << fshift, fW = W << fshift;
   const int64_t n_skip = dskip != nullptr ? B * fH * fW * Cs : 0;
   const int64_t n_dx = B * H * W * Cu;
@@ -331,13 +339,13 @@ __global__ void __launch_bounds__(kThreads) upsample_cat_bwd_strided(
   for (int64_t i = first; i < n_skip; i += step) {
     const int64_t c = i % Cs, pix = i / Cs;
     const int64_t x = pix % fW, by = pix / fW;
-    dskip[i] = g[(by / fH) * sb + (by % fH) * sh + x * sw + c * sc];
+    dskip[i] = g[(by / fH) * sb + (by % fH) * sh + x * sw + (so + c) * sc];
   }
   for (int64_t i = first; i < n_dx; i += step) {
     const int64_t c = i % Cu, pix = i / Cu;
     const int64_t j = pix % W, bi = pix / W;
     dx[i] = pool<Ty>(g + (bi / H) * sb + ((bi % H) << fshift) * sh +
-                         (j << fshift) * sw + (Cs + c) * sc,
+                         (j << fshift) * sw + (uo + c) * sc,
                      sh, sw, fshift);
   }
 }
@@ -345,11 +353,12 @@ __global__ void __launch_bounds__(kThreads) upsample_cat_bwd_strided(
 template <typename Ty>
 int launch_bwd(const void* g, void* dskip, void* dx, int64_t B, int64_t H,
                int64_t W, int64_t Cs, int64_t Cu, uint32_t fshift,
-               int64_t sb, int64_t sh, int64_t sw, int64_t sc,
+               bool up_first, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
                cudaStream_t s) {
   using E = typename Ty::E;
   const int64_t f = 1 << fshift, fH = H << fshift, fW = W << fshift;
   const int64_t Ct = Cs + Cu;
+  const int64_t so = up_first ? Cu : 0, uo = up_first ? 0 : Cs;
   const int64_t n_g = f * fW * Ct;
   if (B * H == 0 || n_g == 0) return 0;
   if (Cs == 0) dskip = nullptr;
@@ -360,8 +369,9 @@ int launch_bwd(const void* g, void* dskip, void* dx, int64_t B, int64_t H,
     const int err = allow_smem(upsample_cat_bwd_staged<Ty>, smem);
     if (err) return err;
     const SkipSource<E> skip_src{nullptr, (uint32_t)Cs, (uint32_t)Ct,
+                                 (uint32_t)so,
                                  make_divider(Cs > 0 ? (uint32_t)Cs : 1)};
-    const PoolSource<Ty> pool_src{nullptr,      (uint32_t)Cs, (uint32_t)Cu,
+    const PoolSource<Ty> pool_src{nullptr,      (uint32_t)uo, (uint32_t)Cu,
                                   (uint32_t)Ct, (uint32_t)fW, fshift,
                                   make_divider(Cu > 0 ? (uint32_t)Cu : 1)};
     upsample_cat_bwd_staged<Ty><<<grid_rows(B * H), kThreads, smem, s>>>(
@@ -373,8 +383,8 @@ int launch_bwd(const void* g, void* dskip, void* dx, int64_t B, int64_t H,
     const int64_t cap = (int64_t)132 * 64;
     blocks = blocks < cap ? (blocks > 0 ? blocks : 1) : cap;
     upsample_cat_bwd_strided<Ty><<<(unsigned)blocks, kThreads, 0, s>>>(
-        (const E*)g, (E*)dskip, (E*)dx, B, H, W, Cs, Cu, fshift, sb, sh, sw,
-        sc);
+        (const E*)g, (E*)dskip, (E*)dx, B, H, W, Cs, Cu, fshift, so, uo, sb,
+        sh, sw, sc);
   }
   return (int)cudaGetLastError();
 }
@@ -387,36 +397,40 @@ int fshift_of(int64_t factor) {
 
 // skip (B, fH, fW, Cs) (may be null when Cs = 0), in (B, H, W, Cu) and
 // out (B, fH, fW, Cs + Cu), all contiguous NHWC; factor f in {2, 4};
-// elem_bytes 4 (float32) or 2 (bfloat16).
+// up_first != 0 puts the upsampled channels first; elem_bytes 4
+// (float32) or 2 (bfloat16).
 extern "C" int cgs_upsample2x(const void* skip, const void* in, void* out,
                               int64_t B, int64_t H, int64_t W, int64_t Cs,
-                              int64_t Cu, int64_t factor, int64_t elem_bytes,
-                              void* stream) {
+                              int64_t Cu, int64_t factor, int64_t up_first,
+                              int64_t elem_bytes, void* stream) {
   const int fshift = fshift_of(factor);
   if (fshift == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_bytes == 4)
-    return launch_fwd<uint32_t>(skip, in, out, B, H, W, Cs, Cu, fshift, s);
+    return launch_fwd<uint32_t>(skip, in, out, B, H, W, Cs, Cu, fshift,
+                                up_first != 0, s);
   if (elem_bytes == 2)
-    return launch_fwd<uint16_t>(skip, in, out, B, H, W, Cs, Cu, fshift, s);
+    return launch_fwd<uint16_t>(skip, in, out, B, H, W, Cs, Cu, fshift,
+                                up_first != 0, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// g: (B, fH, fW, Cs + Cu) with element strides (sb, sh, sw, sc); dskip
-// (B, fH, fW, Cs) contiguous or null (not wanted); dx (B, H, W, Cu)
-// contiguous; factor f in {2, 4}; bf16 != 0 selects bfloat16, else
-// float32.
+// g: (B, fH, fW, Cs + Cu) with element strides (sb, sh, sw, sc), the
+// upsampled channels first when up_first != 0; dskip (B, fH, fW, Cs)
+// contiguous or null (not wanted); dx (B, H, W, Cu) contiguous; factor f
+// in {2, 4}; bf16 != 0 selects bfloat16, else float32.
 extern "C" int cgs_upsample2x_bwd(const void* g, void* dskip, void* dx,
                                   int64_t B, int64_t H, int64_t W,
                                   int64_t Cs, int64_t Cu, int64_t factor,
-                                  int64_t sb, int64_t sh, int64_t sw,
+                                  int64_t up_first, int64_t sb, int64_t sh,
+                                  int64_t sw,
                                   int64_t sc, int64_t bf16, void* stream) {
   const int fshift = fshift_of(factor);
   if (fshift == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return launch_bwd<BF16>(g, dskip, dx, B, H, W, Cs, Cu, fshift, sb, sh,
-                            sw, sc, s);
-  return launch_bwd<F32>(g, dskip, dx, B, H, W, Cs, Cu, fshift, sb, sh, sw,
-                         sc, s);
+    return launch_bwd<BF16>(g, dskip, dx, B, H, W, Cs, Cu, fshift,
+                            up_first != 0, sb, sh, sw, sc, s);
+  return launch_bwd<F32>(g, dskip, dx, B, H, W, Cs, Cu, fshift,
+                         up_first != 0, sb, sh, sw, sc, s);
 }

@@ -12,6 +12,20 @@ mid-training state. `stack_state_dicts` / `stack_seeds` stack R seeds'
 weights into the layout of `models/seeded.py`, and `unstack_seed` cuts
 seed r back out in the reference layout.
 
+The model zoo (`models/zoo.py`; port of `torch_interop.py:118-281`):
+`zoo_state_dict_from_flax` carries any zoo module's JAX tree across by
+layer name (a transposed conv's kernel flipped), `vgg_state_dict_from_
+flax` and `resnet_state_dict_from_flax` the two torchvision-backbone
+critics' (their BatchNorm `batch_stats` as `running_mean` /
+`running_var`), into the reference's key grammar, where a flattened
+head's input axis goes from NHWC to NCHW order. `load_pt_vgg_critic`
+and `load_pt_resnet_critic` read a reference or torchvision `.pt`
+directly: the port's modules use its keys and its NCHW flatten.
+
+The JAX package's `core/init.py` (torch's default init in flax) has no
+module here: the port's modules draw torch's own defaults, and
+`init_torch_default` redraws them from an explicit generator.
+
 Weight layout: torch conv (out, in, kh, kw) <-> flax (kh, kw, in, out);
 torch linear (out, in) <-> flax (in, out).
 """
@@ -172,3 +186,186 @@ def unstack_seed(state: Dict[str, torch.Tensor], r: int, seeds: int
             v = v[r]
         out[key] = v.detach().to("cpu", torch.float32).contiguous().clone()
     return out
+
+
+# ---------------------------------------------------------------------
+# the model zoo (port of cgs_tpu/models/torch_interop.py:118-281)
+# ---------------------------------------------------------------------
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32).copy())
+
+
+def _flax_leaf(tree: Dict, path: str) -> Dict:
+    for part in path.split("."):
+        tree = tree[part]
+    return tree
+
+
+def zoo_state_dict_from_flax(module: nn.Module, params: Dict
+                             ) -> Dict[str, torch.Tensor]:
+    """A zoo module's JAX parameter tree (numpy) -> its state_dict: each
+    conv, transposed conv and linear of `module` takes the JAX layer of
+    the same dotted name. Conv (kh, kw, in, out) -> (out, in, kh, kw);
+    transposed conv (kh, kw, in, out) -> (in, out, kh, kw) flipped in
+    both spatial axes (flax's transpose does not flip its kernel,
+    torch's does); linear (in, out) -> (out, in)."""
+    out = {}
+    for name, m in module.named_modules():
+        if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            continue
+        leaf = _flax_leaf(params, name)
+        k = np.asarray(leaf["kernel"], np.float32)
+        if isinstance(m, nn.ConvTranspose2d):
+            w = np.transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+        else:
+            w = _to_torch_w(k)
+        out[f"{name}.weight"] = _t(w)
+        if m.bias is not None:
+            out[f"{name}.bias"] = _t(leaf["bias"])
+    return out
+
+
+# the conv slots of torchvision vgg11 `.features`: flax conv0..conv7
+VGG11_FEATURE_CONV_IDX = (0, 3, 6, 8, 11, 13, 16, 18)
+
+
+def flattened_head_weight(kernel: np.ndarray, channels: int) -> np.ndarray:
+    """A flax dense kernel (H*W*C, out) that eats an NHWC-flattened
+    feature map -> the torch weight (out, C*H*W) that eats the same map
+    flattened NCHW. The side is read from the kernel's input width, so a
+    head built for another `resize` converts too."""
+    k = np.asarray(kernel, np.float32)
+    hw, rem = divmod(k.shape[0], channels)
+    side = int(round(hw ** 0.5))
+    if rem or side * side != hw:
+        raise ValueError(f"dense input width {k.shape[0]} is not {channels}"
+                         " x side^2 — unexpected head geometry")
+    w = k.T.reshape(k.shape[1], side, side, channels)
+    return w.transpose(0, 3, 1, 2).reshape(k.shape[1], channels * hw)
+
+
+def _wb(leaf: Dict) -> tuple:
+    return _t(_to_torch_w(np.asarray(leaf["kernel"], np.float32))), \
+        _t(leaf["bias"])
+
+
+def vgg_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """zoo.VGGCritic's JAX tree {'features': {conv0..7}, 'fc0', 'fc1',
+    'fc2'} -> the port's VGGCritic state_dict (`features.{0,3,...}`,
+    `head.{1,3,5}`); a bare VGG11Features tree {conv0..7} -> the port's
+    VGG11Features state_dict (`{0,3,...}`)."""
+    feats = params.get("features", params)
+    prefix = "features." if "features" in params else ""
+    out = {}
+    for li, ti in enumerate(VGG11_FEATURE_CONV_IDX):
+        out[f"{prefix}{ti}.weight"], out[f"{prefix}{ti}.bias"] = _wb(
+            feats[f"conv{li}"])
+    if "fc0" in params:
+        out["head.1.weight"] = _t(flattened_head_weight(
+            params["fc0"]["kernel"], 512))
+        out["head.1.bias"] = _t(params["fc0"]["bias"])
+        for slot, name in ((3, "fc1"), (5, "fc2")):
+            out[f"head.{slot}.weight"], out[f"head.{slot}.bias"] = _wb(
+                params[name])
+    return out
+
+
+def _bn_state(p: Dict, s: Dict, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(
+        p["bias"]), f"{prefix}.running_mean": _t(s["mean"]),
+        f"{prefix}.running_var": _t(s["var"]),
+        f"{prefix}.num_batches_tracked": torch.tensor(0)}
+
+
+def resnet_state_dict_from_flax(params: Dict, batch_stats: Dict
+                                ) -> Dict[str, torch.Tensor]:
+    """zoo.ResNetCritic's JAX trees (params, batch_stats) -> the port's
+    ResNetCritic state_dict in the reference's grammar (`resnet.0`
+    stem conv, `resnet.1` its BatchNorm, `resnet.{4..7}.{0,1}` the
+    blocks, `head.{1,3}`); without 'fc0' the backbone alone."""
+    p, s = params["resnet"], batch_stats["resnet"]
+    out = {"resnet.0.weight": _t(_to_torch_w(np.asarray(
+        p["Conv_0"]["kernel"], np.float32)))}
+    out.update(_bn_state(p["BatchNorm_0"], s["BatchNorm_0"], "resnet.1"))
+    for stage in range(4):
+        for block in range(2):
+            fp, fs = (t[f"ResNetBlock_{stage * 2 + block}"] for t in (p, s))
+            tp = f"resnet.{4 + stage}.{block}"
+            for i, (conv, bn) in enumerate((("conv1", "bn1"),
+                                            ("conv2", "bn2"),
+                                            ("downsample.0",
+                                             "downsample.1"))):
+                if f"Conv_{i}" not in fp:
+                    continue
+                out[f"{tp}.{conv}.weight"] = _t(_to_torch_w(np.asarray(
+                    fp[f"Conv_{i}"]["kernel"], np.float32)))
+                out.update(_bn_state(fp[f"BatchNorm_{i}"],
+                                     fs[f"BatchNorm_{i}"], f"{tp}.{bn}"))
+    if "fc0" in params:
+        out["head.1.weight"] = _t(flattened_head_weight(
+            params["fc0"]["kernel"], 512))
+        out["head.1.bias"] = _t(params["fc0"]["bias"])
+        out["head.3.weight"], out["head.3.bias"] = _wb(params["fc1"])
+    return out
+
+
+def _load_pt(path: str) -> Dict[str, torch.Tensor]:
+    state = torch.load(path, map_location="cpu")
+    return {k: v.detach().clone() for k, v in state.items()}
+
+
+def load_pt_vgg_critic(path: str, head: bool = True,
+                       features_prefix: str = "features"
+                       ) -> Dict[str, torch.Tensor]:
+    """A reference VGGCritic `.pt` (nets.py:761-787) -> the state_dict
+    of the port's VGGCritic; head=False reads the backbone alone (a bare
+    vgg11 `.features`, or VGGEmbedder's with features_prefix 'model')
+    as the state_dict of the port's VGG11Features."""
+    state = _load_pt(path)
+    if not head:
+        pre = features_prefix + "."
+        return {k[len(pre):]: v for k, v in state.items()
+                if k.startswith(pre)}
+    if "head.1.weight" not in state:
+        raise ValueError(
+            "state_dict has no VGGCritic head ('head.1.*' missing — a bare "
+            "vgg11 .features dict has none): pass head=False to read the "
+            "backbone alone")
+    return state
+
+
+def resnet_state_from_torch(state: Dict[str, torch.Tensor],
+                            head: bool = True) -> Dict[str, torch.Tensor]:
+    """A ResNetCritic state_dict in the reference's grammar
+    ('resnet.0.weight', 'resnet.4.0.conv1.weight', ...) or a raw
+    torchvision resnet18's ('conv1.weight', 'layer1.0.conv1.weight', ...,
+    renamed first) -> the port's ResNetCritic keys; head=False keeps the
+    backbone alone (a raw resnet18's 1000-class 'fc' is not the critic
+    head)."""
+    if "conv1.weight" in state:     # raw torchvision grammar
+        renames = {"conv1": "resnet.0", "bn1": "resnet.1",
+                   **{f"layer{i + 1}": f"resnet.{4 + i}" for i in range(4)}}
+        renamed = {}
+        for k, v in state.items():
+            top, rest = k.split(".", 1)
+            renamed[f"{renames[top]}.{rest}" if top in renames else k] = v
+        state = renamed
+    if not head:
+        return {k: v for k, v in state.items() if k.startswith("resnet.")}
+    if "head.1.weight" not in state:
+        raise ValueError(
+            "state_dict has no ResNetCritic head ('head.1.*' missing — a "
+            "raw torchvision resnet18 carries only its 1000-class 'fc' "
+            "instead): pass head=False to read the backbone alone")
+    return {k: v for k, v in state.items()
+            if k.startswith(("resnet.", "head."))}
+
+
+def load_pt_resnet_critic(path: str, head: bool = True
+                          ) -> Dict[str, torch.Tensor]:
+    """A reference ResNetCritic `.pt` (nets.py:704-730), or a raw
+    torchvision resnet18 `.pt` with head=False -> the state_dict of the
+    port's ResNetCritic (head=False: its `resnet.*` keys; load them with
+    `strict=False`)."""
+    return resnet_state_from_torch(_load_pt(path), head)

@@ -39,8 +39,8 @@ _P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "normalize_u8": {"cgs_normalize_u8": (_P, _I64, _I64, _P)
                      + (_I64,) * 3 + (_P, _P, _I64, _P)},
-    "upsample2x": {"cgs_upsample2x": (_P,) * 3 + (_I64,) * 7 + (_P,),
-                   "cgs_upsample2x_bwd": (_P,) * 3 + (_I64,) * 11 + (_P,)},
+    "upsample2x": {"cgs_upsample2x": (_P,) * 3 + (_I64,) * 8 + (_P,),
+                   "cgs_upsample2x_bwd": (_P,) * 3 + (_I64,) * 12 + (_P,)},
     "threshold_iou": {"cgs_threshold_iou": (_P, _P, _I64, _F32, _P, _P,
                                             _P)},
     "merge_pair": {"cgs_merge_pair": (_P,) * 5 + (_I64, _I64, _P),

@@ -11,16 +11,19 @@ XLA fused into the repeat. One kernel (`csrc/upsample2x.cu`:
 4 into one fresh buffer, and its backward (`cgs_upsample2x_bwd`) reads
 that buffer's gradient once and writes the skip's gradient and the f x f
 sum-pool. The decoder's five skip joins are 5 launches per forward and
-5 per backward. On a CUDA tensor each wrapper launches its kernel or
+5 per backward. With `up_first=True` the same kernels join in the other
+order, `cat([up_f(x), skip])`, the order of the model zoo's U-Nets
+(`cgs_tpu/models/zoo.py:316-322,348-351,391-398`); the launch counters
+keep their names. On a CUDA tensor each wrapper launches its kernel or
 raises; on a CPU tensor it runs the plain version. The forward is an
 exact copy and the backward sums in one fixed order, so kernel and
 plain version are bit-identical.
 
-`up_cat` and `upsample2x` are differentiable through `UpCat` and
-`Upsample2x`. (A kernel launched through ctypes into a fresh tensor has
-no `grad_fn`; without the `Function` every gradient through the
-decoder's up-steps would be dropped on the card.) `upsample2x` is the
-join with no skip channels.
+`up_cat` and `upsample2x` are differentiable through `UpCat`. (A
+kernel launched through ctypes into a fresh tensor has no `grad_fn`;
+without the `Function` every gradient through the decoder's up-steps
+would be dropped on the card.) `upsample2x` is the join with no skip
+channels.
 
 The decoder keeps its activations in `torch.channels_last`, so the NHWC
 tensors the kernels take are `permute(0, 2, 3, 1)` views of NCHW
@@ -57,23 +60,29 @@ def upsample2x_bwd_plain(g: torch.Tensor) -> torch.Tensor:
 
 
 def upcat_plain(skip: Optional[torch.Tensor], x: torch.Tensor,
-                factor: int = 2) -> torch.Tensor:
-    """NHWC `cat([skip, up_factor(x)], -1)`, the x4 as two x2 steps;
-    skip None is the plain upsample."""
+                factor: int = 2, up_first: bool = False) -> torch.Tensor:
+    """NHWC `cat([skip, up_factor(x)], -1)` (with up_first,
+    `cat([up_factor(x), skip], -1)`), the x4 as two x2 steps; skip None
+    is the plain upsample."""
     for _ in range(LEVELS[factor]):
         x = upsample2x_plain(x)
-    return x if skip is None else torch.cat([skip, x], -1)
+    if skip is None:
+        return x
+    return torch.cat([x, skip] if up_first else [skip, x], -1)
 
 
 def upcat_bwd_plain(g: torch.Tensor, cs: int, factor: int = 2,
-                    need_skip: bool = True
+                    need_skip: bool = True, up_first: bool = False
                     ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The gradient of `upcat_plain` from the NHWC gradient g of its
     output: (the skip channels of g, contiguous, or None when not
     wanted; the sum-pool of the other channels, the x4 as two chained
-    x2 sum-pools, each rounded to g's type)."""
-    dskip = g[..., :cs].contiguous() if need_skip else None
-    dx = g[..., cs:]
+    x2 sum-pools, each rounded to g's type). up_first: the skip's cs
+    channels are g's last, not its first."""
+    cu = g.shape[3] - cs
+    skip_ch = slice(cu, None) if up_first else slice(0, cs)
+    dskip = g[..., skip_ch].contiguous() if need_skip else None
+    dx = g[..., :cu] if up_first else g[..., cs:]
     for _ in range(LEVELS[factor]):
         dx = upsample2x_bwd_plain(dx)
     return dskip, dx
@@ -93,11 +102,11 @@ def _check_factor(factor: int, name: str) -> None:
 
 
 def upcat_fwd(skip: Optional[torch.Tensor], x: torch.Tensor,
-              factor: int = 2) -> torch.Tensor:
+              factor: int = 2, up_first: bool = False) -> torch.Tensor:
     """The forward kernel's wrapper, not differentiable: skip (B, fH,
     fW, Cs) or None and x (B, H, W, Cu), contiguous NHWC, one dtype (f32
-    or bf16), any C and W -> (B, fH, fW, Cs + Cu) contiguous,
-    bit-equal to `upcat_plain`."""
+    or bf16), any C and W -> (B, fH, fW, Cs + Cu) contiguous, the skip's
+    channels first unless `up_first`, bit-equal to `upcat_plain`."""
     _check_factor(factor, "upsample2x")
     for t in (x,) if skip is None else (skip, x):
         _check(t, "upsample2x")
@@ -118,7 +127,7 @@ def upcat_fwd(skip: Optional[torch.Tensor], x: torch.Tensor,
                 f"not match x {tuple(x.shape)} {x.dtype} upsampled "
                 f"x{factor}")
     if x.device.type == "cpu":
-        return upcat_plain(skip, x, factor)
+        return upcat_plain(skip, x, factor, up_first)
     _build.require_cuda_tensor(x, "upsample2x")
     out = torch.empty((b, factor * h, factor * w, cs + cu), dtype=x.dtype,
                       device=x.device)
@@ -128,7 +137,7 @@ def upcat_fwd(skip: Optional[torch.Tensor], x: torch.Tensor,
     with torch.cuda.device(x.device):   # launch on the tensor's card
         err = lib.cgs_upsample2x(None if skip is None else skip.data_ptr(),
                                  x.data_ptr(), out.data_ptr(), b, h, w, cs, cu,
-                                 factor, x.element_size(),
+                                 factor, int(up_first), x.element_size(),
                                  _build.stream_ptr(x.device))
     _build.check(err, "upsample2x")
     _build.launches["upsample2x"] += 1
@@ -136,13 +145,13 @@ def upcat_fwd(skip: Optional[torch.Tensor], x: torch.Tensor,
 
 
 def upcat_bwd(g: torch.Tensor, cs: int, factor: int = 2,
-              need_skip: bool = True
+              need_skip: bool = True, up_first: bool = False
               ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The backward kernel's wrapper: g (B, fH, fW, Cs + Cu), any
     strides (either memory format of the concat buffer's gradient is
-    read in place) -> (d_skip (B, fH, fW, Cs) contiguous, or None
-    unless `need_skip`; dx (B, H, W, Cu) contiguous). Bit-equal to
-    `upcat_bwd_plain`."""
+    read in place), the skip's channels first unless `up_first` ->
+    (d_skip (B, fH, fW, Cs) contiguous, or None unless `need_skip`; dx
+    (B, H, W, Cu) contiguous). Bit-equal to `upcat_bwd_plain`."""
     _check(g, "upsample2x_bwd")
     _check_factor(factor, "upsample2x_bwd")
     if g.shape[1] % factor or g.shape[2] % factor:
@@ -152,7 +161,7 @@ def upcat_bwd(g: torch.Tensor, cs: int, factor: int = 2,
         raise ValueError(f"upsample2x_bwd: {cs} skip channels of "
                          f"{tuple(g.shape)}")
     if g.device.type == "cpu":
-        return upcat_bwd_plain(g, cs, factor, need_skip)
+        return upcat_bwd_plain(g, cs, factor, need_skip, up_first)
     if g.device.type != "cuda":
         raise ValueError(f"upsample2x_bwd: expected a CUDA tensor, got "
                          f"{g.device}")
@@ -167,7 +176,8 @@ def upcat_bwd(g: torch.Tensor, cs: int, factor: int = 2,
     with torch.cuda.device(g.device):   # launch on the tensor's card
         err = lib.cgs_upsample2x_bwd(
             g.data_ptr(), None if dskip is None else dskip.data_ptr(),
-            dx.data_ptr(), b, h, w, cs, ct - cs, factor, *g.stride(),
+            dx.data_ptr(), b, h, w, cs, ct - cs, factor, int(up_first),
+            *g.stride(),
             int(g.dtype == torch.bfloat16), _build.stream_ptr(g.device))
     _build.check(err, "upsample2x_bwd")
     _build.launches["upsample2x_bwd"] += 1
@@ -181,47 +191,40 @@ def upsample2x_bwd(g: torch.Tensor) -> torch.Tensor:
     return upcat_bwd(g, 0, need_skip=False)[1]
 
 
-class Upsample2x(torch.autograd.Function):
-    """The forward kernel with no skip, with `upsample2x_bwd` as its
-    gradient."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return upcat_fwd(None, x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return upsample2x_bwd(g)
-
-
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Differentiable (B, H, W, C) contiguous NHWC -> (B, 2H, 2W, C),
-    f32 or bf16: the forward kernel, and the sum-pool kernel as its
-    backward."""
-    return Upsample2x.apply(x)
+    f32 or bf16: `UpCat` with no skip, the forward kernel and the
+    sum-pool kernel as its backward."""
+    return UpCat.apply(None, x, 2, False)
 
 
 class UpCat(torch.autograd.Function):
     """`upcat_fwd` with `upcat_bwd` as its gradient (NHWC); the skip's
-    gradient is written only when autograd asks for it."""
+    gradient is written only when autograd asks for it. skip None is the
+    plain upsample by `factor`."""
 
     @staticmethod
-    def forward(ctx, skip, x, factor):
-        ctx.cs, ctx.factor = skip.shape[3], factor
-        return upcat_fwd(skip, x, factor)
+    def forward(ctx, skip, x, factor, up_first):
+        ctx.cs = 0 if skip is None else skip.shape[3]
+        ctx.factor, ctx.up_first = factor, up_first
+        return upcat_fwd(skip, x, factor, up_first)
 
     @staticmethod
     def backward(ctx, g):
         dskip, dx = upcat_bwd(g, ctx.cs, ctx.factor,
-                              need_skip=ctx.needs_input_grad[0])
-        return dskip, dx, None
+                              need_skip=ctx.needs_input_grad[0],
+                              up_first=ctx.up_first)
+        return dskip, dx, None, None
 
 
-def up_cat(skip: torch.Tensor, x: torch.Tensor,
-           factor: int = 2) -> torch.Tensor:
-    """One skip join of the decoder, differentiable: skip (B, Cs, fH,
-    fW) and x (B, Cu, H, W), NCHW stored channels_last, one dtype ->
-    `cat([skip, upsample_factor(x)], dim=1)` (B, Cs + Cu, fH, fW), NCHW
-    stored channels_last. One kernel launch forward, one backward."""
-    return UpCat.apply(skip.permute(0, 2, 3, 1), x.permute(0, 2, 3, 1),
-                       factor).permute(0, 3, 1, 2)
+def up_cat(skip: Optional[torch.Tensor], x: torch.Tensor,
+           factor: int = 2, up_first: bool = False) -> torch.Tensor:
+    """One skip join, differentiable: skip (B, Cs, fH, fW) or None and
+    x (B, Cu, H, W), NCHW stored channels_last, one dtype ->
+    `cat([skip, upsample_factor(x)], dim=1)`, or with up_first
+    `cat([upsample_factor(x), skip], dim=1)` (the zoo U-Nets' order),
+    (B, Cs + Cu, fH, fW), NCHW stored channels_last; skip None gives the
+    upsample alone. One kernel launch forward, one backward."""
+    nhwc = None if skip is None else skip.permute(0, 2, 3, 1)
+    return UpCat.apply(nhwc, x.permute(0, 2, 3, 1), factor,
+                       up_first).permute(0, 3, 1, 2)

@@ -89,6 +89,14 @@ class Mesh:
     def gather_object(self, obj: Any) -> Optional[List[Any]]:
         return multihost.gather_object(obj)
 
+    def broadcast_ints(self, values, src: int = 0) -> list:
+        """Rank `src`'s integers on every rank, one host-group broadcast
+        (a dispatch's header, without pickling); the other ranks pass as
+        many placeholders."""
+        t = torch.tensor(list(values), dtype=torch.int64)
+        dist.broadcast(t, src=src, group=self.host_group)
+        return t.tolist()
+
     def max_int(self, v: int) -> int:
         """The largest of the ranks' integers."""
         t = torch.tensor([int(v)], dtype=torch.int64)
@@ -163,15 +171,20 @@ def replicate_tree(mesh: Optional[Mesh], tree):
     return tree if mesh is None else mesh.broadcast_object(tree)
 
 
+def check_seed_shards(r: int, world: int) -> None:
+    """Raise unless R seeds divide over `world` ranks."""
+    if r % world:
+        raise ValueError(f"{r} seeds do not divide over {world} ranks "
+                         "(seed sharding needs R % ranks == 0)")
+
+
 def seed_shard_tree(mesh: Optional[Mesh], members: List) -> List:
     """This rank's members of a list of R per-seed items (R divisible by
     the world size): seeds [rR/N, (r+1)R/N)."""
     if mesh is None:
         return list(members)
     r = len(members)
-    if r % mesh.world:
-        raise ValueError(f"{r} seeds do not divide over {mesh.world} ranks "
-                         "(seed sharding needs R % ranks == 0)")
+    check_seed_shards(r, mesh.world)
     per = r // mesh.world
     return list(members[mesh.rank * per:(mesh.rank + 1) * per])
 

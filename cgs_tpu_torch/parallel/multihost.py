@@ -23,7 +23,9 @@ Two ways in:
     (start method `spawn`), rendezvous through a `file://` in a fresh
     temporary directory, so two launches on one host never race for a
     port. `fn` must be importable by the spawned ranks (a module-level
-    function).
+    function). `start` is its first half, for a rank 0 that goes on with
+    work of its own (the HTTP server, `serve.py`) and ends the world
+    later with `Ranks.close`.
 
 Every group has a timeout and every join of a rank a limit: a rank that
 dies makes rank 0 raise, never hang.
@@ -160,6 +162,73 @@ def _worker(rank: int, world: int, init_method: str, device_type: str,
         shutdown()
 
 
+class Ranks:
+    """Ranks 1..N-1 of a world that `start` spawned, this process its
+    rank 0."""
+
+    def __init__(self, procs: list, rdzv: str):
+        self.procs, self._rdzv = procs, rdzv
+
+    def close(self, join_s: float = JOIN_S, check: bool = True) -> None:
+        """Leave the group, wait up to join_s for the ranks to exit and
+        kill any left; with check, raise if any failed or outlived
+        join_s."""
+        shutdown()
+        try:
+            for p in self.procs:
+                p.join(join_s)
+            failed = {r: p.exitcode for r, p in enumerate(self.procs, 1)
+                      if p.exitcode != 0}
+            if check and failed:
+                raise RuntimeError(
+                    f"rank(s) {sorted(failed)} of {len(self.procs) + 1} "
+                    f"failed or did not exit within {join_s:.0f} s (exit "
+                    f"codes {failed})")
+        finally:
+            for p in self.procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+            shutil.rmtree(self._rdzv, ignore_errors=True)
+
+
+def start(fn: Callable, world: int, args: Sequence = (),
+          device: str = "cuda", backend: Optional[str] = None,
+          device_indices: Optional[Sequence[int]] = None,
+          gather: bool = False, timeout_s: float = TIMEOUT_S) -> Ranks:
+    """Make this process rank 0 of a fresh world of `world` ranks and
+    spawn ranks 1..world-1, each running `fn(*args)` pinned to its card
+    (`device_indices[r]`, default card r) or the CPU, and leaving when
+    it returns (with gather=True, after sending its result to rank 0).
+    Returns once this process has joined; rank 0's own part is the
+    caller's, and `Ranks.close` ends the world."""
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    device_type = torch.device(device).type
+    if device_indices is not None and len(device_indices) != world:
+        raise ValueError(f"device_indices names {len(device_indices)} "
+                         f"cards for {world} ranks")
+    index = (lambda r: None) if device_indices is None else \
+        (lambda r: int(device_indices[r]))
+    rdzv = tempfile.mkdtemp(prefix="cgs-rdzv-")
+    init_method = "file://" + os.path.join(rdzv, "store")
+    ctx = torch.multiprocessing.get_context("spawn")
+    ranks = Ranks([ctx.Process(
+        target=_worker, daemon=True,
+        args=(r, world, init_method, device_type, index(r), backend,
+              timeout_s, torch.get_num_threads(), fn, tuple(args), gather))
+        for r in range(1, world)], rdzv)
+    try:
+        for p in ranks.procs:
+            p.start()
+        init_rank(0, world, init_method, device_type, index(0), backend,
+                  timeout_s)
+    except BaseException:
+        ranks.close(0.0, check=False)
+        raise
+    return ranks
+
+
 def launch(fn: Callable, world: int, args: Sequence = (),
            device: str = "cuda", backend: Optional[str] = None,
            device_indices: Optional[Sequence[int]] = None,
@@ -172,45 +241,14 @@ def launch(fn: Callable, world: int, args: Sequence = (),
     travel pickled over the host group). Raises if any rank fails; the
     spawned ranks are killed on the way out whatever happens. World 1
     starts no process."""
-    if world < 1:
-        raise ValueError(f"world must be >= 1, got {world}")
-    device_type = torch.device(device).type
-    if device_indices is not None and len(device_indices) != world:
-        raise ValueError(f"device_indices names {len(device_indices)} "
-                         f"cards for {world} ranks")
-    index = (lambda r: None) if device_indices is None else \
-        (lambda r: int(device_indices[r]))
-    rdzv = tempfile.mkdtemp(prefix="cgs-rdzv-")
-    init_method = "file://" + os.path.join(rdzv, "store")
-    ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(
-        target=_worker, daemon=True,
-        args=(r, world, init_method, device_type, index(r), backend,
-              timeout_s, torch.get_num_threads(), fn, tuple(args), gather))
-        for r in range(1, world)]
-    try:
-        for p in procs:
-            p.start()
-        init_rank(0, world, init_method, device_type, index(0), backend,
+    ranks = start(fn, world, args, device, backend, device_indices, gather,
                   timeout_s)
-        try:
-            out = fn(*args)
-            if gather:
-                out = gather_object(out)
-        finally:
-            shutdown()
-        for p in procs:
-            p.join(join_s)
-        failed = {r: p.exitcode for r, p in enumerate(procs, 1)
-                  if p.exitcode != 0}
-        if failed:
-            raise RuntimeError(
-                f"rank(s) {sorted(failed)} of {world} failed or did not "
-                f"exit within {join_s:.0f} s (exit codes {failed})")
-        return out
+    done = False
+    try:
+        out = fn(*args)
+        if gather:
+            out = gather_object(out)
+        done = True
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-        shutil.rmtree(rdzv, ignore_errors=True)
+        ranks.close(join_s if done else 0.0, check=done)
+    return out

@@ -31,8 +31,28 @@ uint8 (a quarter of the bytes; `raw` stays bit-identical) and, with
 --binarymaskthreshold, the in-graph hard plane for `thresholded` at the
 server's threshold; per-request thresholds and -crf need the f32 mask
 and are refused there (400). The server runs on the card unless
---device cpu; --data-parallel N > 1 (a batch sharded over cards) is not
-ported yet.
+--device cpu.
+
+Over several cards (port of `cgs_tpu/serve.py:262-309`, where one JAX
+process shards each dispatch over a local mesh): one process per card,
+--data-parallel N ranks (0, the default, and 1 serve on one rank;
+under torchrun, torchrun's world). Rank 0 is the server: the HTTP
+front, `MaskServer` and the `MicroBatcher`. Each dispatch is a
+collective that the dispatch thread leads: a two-integer header
+(segment / reload / stop) over the host group, then the padded uint8
+batch with `Mesh.broadcast_`; every rank runs its rows through
+`MaskPipeline(mesh=...)` and rank 0 reads the assembled outputs back. Ranks 1..N-1 run `serve_worker`, a loop
+that waits for the next header. `MaskServer` starts them itself
+(`parallel/multihost.py:start`) unless this process already is rank 0
+of a world (torchrun; `main` sends the other ranks to `serve_worker`).
+`--ensemble R` shards the members over the ranks and refuses R % N != 0
+(the JAX server runs such an ensemble unmeshed instead). A `/reload`
+loads on rank 0 and is itself a dispatch: the new weight set is
+broadcast and every rank swaps it in with one assignment between the
+same two batches, so no response mixes two sets. A collective that
+fails (a dead rank) fails its requests and ends the serving; later
+requests fail at once (503), and `/healthz` reports it. `/stats` also
+reports the world size.
 
 Threads on the card: the dispatch thread launches each batch on the
 device's default stream and the completion thread's `.cpu()` readback
@@ -57,9 +77,18 @@ import numpy as np
 import torch
 
 from cgs_tpu_torch.core.config import Config, parse_args
+from cgs_tpu_torch.parallel import multihost
+from cgs_tpu_torch.parallel.mesh import (
+    check_seed_shards, current_mesh,
+)
 
 VARIANTS = ("raw", "thresholded", "crf")
 MAX_INFLIGHT = 2    # dispatched batches whose outputs wait on the device
+# a dispatch's header over the ranks: (operation, frames); an idle
+# header every HEARTBEAT_S without traffic keeps the workers' waits
+# inside the collective timeout, and finds a dead rank while idle
+OP_SEGMENT, OP_RELOAD, OP_STOP, OP_IDLE = 1, 2, 3, 4
+HEARTBEAT_S = 1.0
 
 
 class _Server(ThreadingHTTPServer):
@@ -97,10 +126,19 @@ class MicroBatcher:
     outputs back and completes the requests. Launches are asynchronous,
     so batch N+1 forms and launches while batch N is read back; at most
     `MAX_INFLIGHT` batches' outputs wait on the device.
+
+    Over a mesh (this is rank 0) the dispatch thread leads each dispatch
+    and each `control` operation (a reload) as a collective that every
+    rank's `serve_worker` joins, in one order; a failed collective ends
+    the serving (`broken`).
     """
 
-    def __init__(self, pipeline, batch: int, max_wait_ms: float = 2.0):
+    def __init__(self, pipeline, batch: int, max_wait_ms: float = 2.0,
+                 mesh=None):
         self.pipeline = pipeline
+        self.mesh = mesh
+        self.broken: Optional[str] = None   # why the ranks stopped serving
+        self._ctl: "queue.Queue" = queue.Queue()
         self._has_hard = getattr(pipeline, "hard_threshold",
                                  None) is not None
         self.batch = int(batch)
@@ -117,6 +155,8 @@ class MicroBatcher:
         self._completer.start()
 
     def submit(self, frame: np.ndarray, timeout: float = 30.0) -> _Request:
+        if self._dispatch_dead.is_set():
+            raise ServerError(f"not serving: {self.broken or 'stopped'}")
         frame = np.asarray(frame)
         if frame.shape != (64, 64, 3):
             raise ValueError(
@@ -131,6 +171,35 @@ class MicroBatcher:
         if req.error is not None:
             raise ServerError(req.error)
         return req
+
+    def control(self, payload, timeout: float = 120.0) -> None:
+        """Over a mesh: swap in the weight set `payload` on every rank,
+        between two dispatches (the dispatch thread broadcasts it);
+        returns once rank 0 has swapped."""
+        if self._dispatch_dead.is_set():
+            raise ServerError(f"not serving: {self.broken or 'stopped'}")
+        box = {"done": threading.Event(), "error": None}
+        self._ctl.put((payload, box))
+        if not box["done"].wait(timeout):
+            raise ServerError("reload timed out")
+        if box["error"] is not None:
+            raise ServerError(box["error"])
+
+    def _controls(self) -> None:
+        while True:
+            try:
+                payload, box = self._ctl.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                self.mesh.broadcast_ints((OP_RELOAD, 0))
+                self.mesh.broadcast_object(payload)
+                self.pipeline.update_params(payload)
+            except Exception as e:
+                box["error"] = f"{type(e).__name__}: {e}"
+                raise
+            finally:
+                box["done"].set()
 
     def close(self) -> None:
         self._stop.set()
@@ -179,24 +248,62 @@ class MicroBatcher:
     def _loop(self) -> None:
         try:
             self._loop_body()
+        except Exception as e:          # a collective failed (a dead rank)
+            self.broken = f"{type(e).__name__}: {e}"
+            print(f"[cgs-tpu-torch serve] the ranks stopped serving: "
+                  f"{self.broken}")
         finally:
+            if self.mesh is not None and self.broken is None:
+                try:                    # the workers' loops end
+                    self.mesh.broadcast_ints((OP_STOP, 0))
+                except Exception:
+                    pass
             self._dispatch_dead.set()
+            if self.broken is not None:
+                self._fail_queued(self.broken)
+
+    def _fail_queued(self, msg: str) -> None:
+        for q in (self.q, self._ctl):
+            while True:
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    break
+                if q is self._ctl:
+                    item[1]["error"] = msg
+                    item[1]["done"].set()
+                else:
+                    item.error = msg
+                    item.done.set()
 
     def _loop_body(self) -> None:
+        beat = time.monotonic()
         while not self._stop.is_set():
+            if self.mesh is not None:
+                self._controls()
             reqs = self._drain()
             if not reqs:
+                if (self.mesh is not None
+                        and time.monotonic() - beat > HEARTBEAT_S):
+                    self.mesh.broadcast_ints((OP_IDLE, 0))
+                    beat = time.monotonic()
                 continue
+            beat = time.monotonic()
             try:
                 # a fresh host batch per dispatch: the upload has read
                 # it when place_input returns
                 frames = np.zeros((self.batch, 64, 64, 3), np.uint8)
                 for i, r in enumerate(reqs):
                     frames[i] = r.frame
-                out = self.pipeline.run_device(
-                    self.pipeline.place_input(frames))
+                x = self.pipeline.place_input(frames)
+                if self.mesh is not None:   # every rank joins the dispatch
+                    self.mesh.broadcast_ints((OP_SEGMENT, len(reqs)))
+                    self.mesh.broadcast_(x)
+                out = self.pipeline.run_device(x)
             except Exception as e:      # fail the batch, keep the thread
                 self._fail(reqs, e, self.stats)
+                if self.mesh is not None:
+                    raise               # ... unless the world is broken
                 continue
             self.stats["dispatches"] += 1
             self.stats["frames"] += len(reqs)
@@ -224,64 +331,165 @@ class MicroBatcher:
                 r.done.set()
 
 
+def _templates(cfg):
+    """The critic and masker modules that fix the served architecture."""
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+
+    cdt = torch.bfloat16 if cfg.bf16 else torch.float32
+    return (Critic(bottleneck=cfg.neck, chfak=cfg.chfak, dropout=cfg.dropout,
+                   compute_dtype=cdt),
+            UnetDecoder(bottleneck=cfg.neck, chfak=cfg.chfak,
+                        compute_dtype=cdt))
+
+
+def _wire(cfg):
+    """(wire, the in-graph hard threshold or None) of the server."""
+    wire = cfg.serve_wire
+    hard = (float(cfg.binarymaskthreshold)
+            if wire == "u8" and cfg.binarymaskthreshold else None)
+    if wire == "u8" and cfg.crf:
+        raise ValueError(
+            "--serve-wire u8 is incompatible with --crf: CRF "
+            "refinement consumes f32 soft-mask probabilities")
+    return wire, hard
+
+
+def _make_pipeline(cfg, params, mesh):
+    """The served pipeline on this rank's device, warmed with one batch
+    (over a mesh a collective every rank makes): cuDNN settles its
+    algorithms for the batch shape the batcher always dispatches."""
+    from cgs_tpu_torch.pipeline import MaskPipeline
+
+    critic, masker = _templates(cfg)
+    ensemble = cfg.ensemble > 0
+    wire, hard = _wire(cfg)
+    # separate: a -separate run's masker reads the sepcrit's features
+    # (main.py:946-947), as the offline -process does
+    pipe = MaskPipeline(critic, masker, params,
+                        batch_size=cfg.infer_batch or 256,
+                        eval_mode=not cfg.noevalmode, seed=cfg.seed,
+                        separate=cfg.separate and not ensemble,
+                        ensemble=ensemble, wire=wire, hard_threshold=hard,
+                        device=cfg.device if mesh is None else mesh.device,
+                        mesh=mesh)
+    warm = pipe.run_device(pipe.place_input(
+        np.zeros((pipe.batch, 64, 64, 3), np.uint8)))
+    warm[1].cpu()
+    return pipe
+
+
+def serve_worker(cfg: Config) -> None:
+    """Rank 1..N-1 of a served world: take rank 0's weights, build the
+    same pipeline, then join every dispatch rank 0's batcher leads (its
+    rows of each batch; a reload's swap) until the stop header. A Ctrl-C
+    at the terminal reaches the whole process group: a worker leaves it
+    to rank 0, whose shutdown sends the stop header."""
+    import signal
+
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    mesh = current_mesh()
+    pipe = _make_pipeline(cfg, mesh.broadcast_object(None), mesh)
+    frames = torch.empty((pipe.batch, 64, 64, 3), dtype=torch.uint8,
+                         device=mesh.device)
+    while True:
+        op, _ = mesh.broadcast_ints((0, 0))
+        if op == OP_STOP:
+            return
+        if op == OP_RELOAD:
+            pipe.update_params(mesh.broadcast_object(None))
+        elif op == OP_SEGMENT:
+            pipe.run_device(mesh.broadcast_(frames))
+
+
+def _serve_world(cfg: Config, backend=None, device_indices=None,
+                 timeout_s: float = multihost.TIMEOUT_S):
+    """(this rank 0's Mesh or None, the Ranks this call started or None):
+    the world this process already is rank 0 of, else --data-parallel
+    ranks, where 0 (the default) and 1 serve on one rank. (Unlike the
+    CLI's, the server's default is not every card: a second card does
+    not lift a host-bound server.)"""
+    n = max(1, int(cfg.data_parallel))
+    mesh = current_mesh()
+    if mesh is not None:
+        if cfg.data_parallel > 0 and cfg.data_parallel != mesh.world:
+            raise ValueError(f"--data-parallel {cfg.data_parallel} but this "
+                             f"process is a rank of a world of {mesh.world}")
+        if mesh.rank != 0:
+            raise ValueError("MaskServer runs on rank 0; the other ranks "
+                             "run serve_worker")
+        n = mesh.world
+    if cfg.ensemble > 0 and n > 1:
+        check_seed_shards(cfg.ensemble, n)
+    if mesh is not None or n <= 1:
+        return (mesh if mesh is not None and mesh.world > 1 else None), None
+    if (torch.device(cfg.device).type == "cuda" and device_indices is None
+            and n > torch.cuda.device_count()):
+        raise ValueError(
+            f"--data-parallel {n} needs {n} cards (NCCL takes one rank per "
+            f"card); {torch.cuda.device_count()} are present")
+    ranks = multihost.start(serve_worker, n, (cfg,), device=cfg.device,
+                            backend=backend, device_indices=device_indices,
+                            timeout_s=timeout_s)
+    return current_mesh(), ranks
+
+
 class MaskServer:
     """Checkpointed models + micro-batcher + HTTP front, on cfg.device
-    (cuda unless `--device cpu`)."""
+    (cuda unless `--device cpu`).
 
-    def __init__(self, cfg: Config, crf_fn=None):
-        from cgs_tpu_torch.models.critic import Critic
-        from cgs_tpu_torch.models.decoder import UnetDecoder
-        from cgs_tpu_torch.pipeline import MaskPipeline
+    Over N > 1 ranks (module docstring) this is rank 0: it starts ranks
+    1..N-1 running `serve_worker` unless it already is rank 0 of a
+    joined world. backend, device_indices and timeout_s (a collective's
+    limit: a dead rank fails the requests within it) go to
+    `parallel/multihost.py:start` (e.g. "gloo" and [0, 0]: two ranks on
+    one card). A process holds one served world at a time."""
 
-        if cfg.data_parallel > 1:
-            raise NotImplementedError(
-                f"--data-parallel {cfg.data_parallel}: serving over several "
-                "cards is not ported to cgs_tpu_torch yet (ROADMAP.md queue "
-                "1 item 8, multi-GPU serving; training, eval and -process "
-                "run over cards since queue 1 item 4); the JAX package "
-                "cgs_tpu has it")
+    def __init__(self, cfg: Config, crf_fn=None, backend=None,
+                 device_indices=None,
+                 timeout_s: float = multihost.TIMEOUT_S):
         self.cfg = cfg
-        cdt = torch.bfloat16 if cfg.bf16 else torch.float32
-        critic = Critic(bottleneck=cfg.neck, chfak=cfg.chfak,
-                        dropout=cfg.dropout, compute_dtype=cdt)
-        masker = UnetDecoder(bottleneck=cfg.neck, chfak=cfg.chfak,
-                             compute_dtype=cdt)
-        ensemble = cfg.ensemble > 0
-        if ensemble:
-            # --ensemble N: the mean mask of the runs {model}-seed{s};
-            # every member must exist (a random one would corrupt it)
-            from cgs_tpu_torch.train.checkpoints import load_seed_ensemble
-            params = load_seed_ensemble(cfg, cfg.ensemble)
-        else:
-            params = self._load_params(cfg, critic, masker)
-        batch = cfg.infer_batch or 256
-        self.wire = cfg.serve_wire
-        self.hard_thr = (float(cfg.binarymaskthreshold)
-                         if self.wire == "u8" and cfg.binarymaskthreshold
-                         else None)
-        if self.wire == "u8" and cfg.crf:
-            raise ValueError(
-                "--serve-wire u8 is incompatible with --crf: CRF "
-                "refinement consumes f32 soft-mask probabilities")
-        # separate: a -separate run's masker reads the sepcrit's
-        # features (main.py:946-947), as the offline -process does
-        pipe = MaskPipeline(critic, masker, params, batch_size=batch,
-                            eval_mode=not cfg.noevalmode, seed=cfg.seed,
-                            separate=cfg.separate and not ensemble,
-                            ensemble=ensemble, wire=self.wire,
-                            hard_threshold=self.hard_thr, device=cfg.device)
-        # one warm batch before taking traffic: cuDNN settles its
-        # algorithms for the batch shape the batcher always dispatches
-        warm = pipe.run_device(pipe.place_input(
-            np.zeros((batch, 64, 64, 3), np.uint8)))
-        warm[1].cpu()
-        self.pipe = pipe
-        self.batcher = MicroBatcher(pipe, batch,
-                                    max_wait_ms=cfg.serve_wait_ms)
+        mesh, self._ranks = _serve_world(cfg, backend, device_indices,
+                                         timeout_s)
+        self.mesh = mesh
+        self.world = 1 if mesh is None else mesh.world
+        try:
+            self.wire, self.hard_thr = _wire(cfg)
+            if cfg.ensemble > 0:
+                # --ensemble N: the mean mask of the runs {model}-seed{s};
+                # every member must exist (a random one would corrupt it)
+                from cgs_tpu_torch.train.checkpoints import (
+                    load_seed_ensemble,
+                )
+                params = load_seed_ensemble(cfg, cfg.ensemble)
+            else:
+                params = self._load_params(cfg, *_templates(cfg))
+            if mesh is not None:        # rank 0's weights on every rank
+                params = mesh.broadcast_object(params)
+            self.pipe = _make_pipeline(cfg, params, mesh)
+        except BaseException:
+            self._end_ranks(check=False)
+            raise
+        self.batcher = MicroBatcher(self.pipe, self.pipe.batch,
+                                    max_wait_ms=cfg.serve_wait_ms, mesh=mesh)
         self.crf_fn = crf_fn
         self.httpd: Optional[ThreadingHTTPServer] = None
         self._reload_lock = threading.Lock()
         self.reloads = 0
+
+    def _end_ranks(self, check: bool = True) -> None:
+        """Leave the world this server started; its workers have the
+        stop header (check: they must exit cleanly) or are failed."""
+        if self._ranks is not None:
+            ranks, self._ranks = self._ranks, None
+            ranks.close(multihost.JOIN_S if check else 5.0, check=check)
+
+    def _swap(self, params) -> None:
+        """Serve `params` from the next dispatch on, on every rank."""
+        if self.mesh is None:
+            self.pipe.update_params(params)
+        else:
+            self.batcher.control(params)
 
     @staticmethod
     def _load_params(cfg, critic, masker):
@@ -323,7 +531,8 @@ class MaskServer:
         weights of that model, never a random init; an ensemble reloads
         all members or none. The swap is `MaskPipeline.update_params`:
         a dispatch in flight finishes on the old weights, the next one
-        reads the new. Returns {model name: loaded}."""
+        reads the new (over ranks, on every rank between the same two
+        dispatches). Returns {model name: loaded}."""
         from cgs_tpu_torch.train.checkpoints import (
             checkpoint_paths, load_model_pt, load_seed_ensemble,
         )
@@ -339,7 +548,7 @@ class MaskServer:
                           f"{type(e).__name__}: {e} — keeping served "
                           "weights")
                     return {"ensemble": False}
-                self.pipe.update_params(params)
+                self._swap(params)
                 self.reloads += 1
                 print(f"[cgs-tpu-torch serve] reloaded ensemble of "
                       f"{self.cfg.ensemble}")
@@ -365,7 +574,7 @@ class MaskServer:
                 if new is not None:
                     params[name] = new
             if any(loaded.values()):
-                self.pipe.update_params(params)
+                self._swap(params)
                 self.reloads += 1
                 ok = sorted(n for n, got in loaded.items() if got)
                 print(f"[cgs-tpu-torch serve] reloaded {ok}")
@@ -450,11 +659,13 @@ class MaskServer:
                 path = urlparse(self.path).path
                 if path in ("/healthz", "/stats"):
                     dead = server.batcher._dispatch_dead.is_set()
+                    extra = {"world": server.world} if path == "/stats" \
+                        else {}
                     self._json(503 if dead else 200,
                                {"status": "dead" if dead else "ok",
                                 **server.batcher.stats,
                                 "batch": server.batcher.batch,
-                                "reloads": server.reloads})
+                                "reloads": server.reloads, **extra})
                 else:
                     self._json(404, {"error": "not found"})
 
@@ -517,7 +728,7 @@ class MaskServer:
         print(f"[cgs-tpu-torch serve] listening on http://{host}:{port} "
               f"(batch {self.batcher.batch}, "
               f"wait {self.batcher.max_wait * 1000:.0f} ms, "
-              f"{self.pipe.device})")
+              f"{self.pipe.device}, {self.world} rank(s))")
         try:
             httpd.serve_forever()
         except KeyboardInterrupt:
@@ -530,13 +741,15 @@ class MaskServer:
             self.httpd.shutdown()
             self.httpd.server_close()
             self.httpd = None
-        self.batcher.close()
+        self.batcher.close()           # over ranks: the stop header
+        self._end_ranks(check=self.batcher.broken is None)
 
 
 def main(argv=None):
     """`python -m cgs_tpu_torch.serve --model RUN [--port 8700] [--host
-    127.0.0.1] [--device cpu] <cli flags>`. On the card f32 runs with
-    TF32 off, as the CLI's -process does."""
+    127.0.0.1] [--device cpu] [--data-parallel N] <cli flags>`. On the
+    card f32 runs with TF32 off, as the CLI's -process does. Under
+    torchrun rank 0 serves and the other ranks run `serve_worker`."""
     import argparse
 
     from cgs_tpu_torch.core.device import resolve_device, train_switches
@@ -546,15 +759,29 @@ def main(argv=None):
     extra.add_argument("--host", type=str, default="127.0.0.1")
     extra_ns, rest = extra.parse_known_args(argv)
     cfg = parse_args(rest)
+    multihost.ensure_initialized(cfg.device)  # torchrun's ranks join
+    mesh = current_mesh()
     if resolve_device(cfg.device).type == "cuda":
         print("[cgs-tpu-torch serve] switches:",
               train_switches(cfg.bf16, train=False))
+    if mesh is not None and mesh.rank != 0:
+        if cfg.ensemble > 0:
+            check_seed_shards(cfg.ensemble, mesh.world)
+        try:
+            serve_worker(cfg)
+        finally:
+            multihost.shutdown()
+        return
     crf_fn = None
     if cfg.crf:
         from cgs_tpu_torch.eval.crf import DenseCRF
         crf_fn = DenseCRF(rescale=cfg.crf_rescale)
-    MaskServer(cfg, crf_fn=crf_fn).serve_forever(
-        host=extra_ns.host, port=extra_ns.port)
+    try:
+        MaskServer(cfg, crf_fn=crf_fn).serve_forever(
+            host=extra_ns.host, port=extra_ns.port)
+    finally:
+        if mesh is not None:
+            multihost.shutdown()
 
 
 if __name__ == "__main__":

@@ -29,7 +29,10 @@ from `cgs_tpu_torch/csrc/`, then:
            outputs, at the masker step's shapes (with their device
            time) and at batch 8192; `threshold_iou` at the eval set
            (exact counts, one device operation per call, device time
-           with the L2 flushed before each call);
+           with the L2 flushed before each call); the up-first join of
+           the zoo U-Nets (cat([up(x), skip])) at zoo.Unet's four
+           chfak-5 joins, f32 and bf16, batch 64 and 8192, forward and
+           backward, bit-equal and timed against its byte bound;
   serve    runs `MaskPipeline` at chfak 5 (the published width), batch
            8192, on device-resident frames, in f32 (TF32 off) and
            bf16: kernel path against plain path, 1 `normalize_u8` and 5
@@ -81,7 +84,13 @@ from `cgs_tpu_torch/csrc/`, then:
            mix; the new set's after the reload returns); 1 ingest and 5
            joins per dispatch (counters and profiler); requests/s,
            p50 / p99 latency, masks/s, device busy share and ms per
-           dispatch;
+           dispatch; then `--data-parallel 2`, two ranks on cuda:0 over
+           gloo (rank 1 a spawned `serve_worker`): the same traffic
+           (raw PNGs against the offline pipeline, rank 0's launches
+           1 + 5 a dispatch) and the same `/reload` check, requests/s
+           and p50 / p99 beside one rank's; with `--only-dp` on two or
+           more cards, the same over NCCL on cards 0 and 1, between two
+           runs of the default server, which must take one rank;
   int8     (int8 main path) `MaskPipeline(quantize="int8")` at chfak 5:
            every quantized conv's s32 sums equal the float64 plain
            version at batch 8; at batch 8192, dynamic and static (512
@@ -138,6 +147,16 @@ from `cgs_tpu_torch/csrc/`, then:
            exactly, the full rows more; `sandbox.ablation.run_ablation`
            of R = 2 over the four variants and its paired summary, at
            chfak 5 and a small depth;
+  zoo      (zoo main path) `models/zoo.py:Unet` at chfak 5: one
+           `sandbox/merge_variants.py:make_pair_merge_step` over 32 + 32
+           synthetic frames through the kernels and through their plain
+           versions (f32, TF32 off, deterministic cuDNN): terms and
+           every gradient bit-equal, every decoder gradient non-zero,
+           launches 5 / 5 / 1 / 1 (up-first joins forward and backward,
+           merge_pair, merge_pair_bwd); then 5 untimed Adam pair
+           steps and three timed windows of 50 (steps/s each), a
+           `sum_segm` chunk and the `unet_embeddings` projection on the
+           card;
   dp       (data-parallel main path, `cgs_tpu_torch/parallel/`) (a) NCCL
            at world size 1: a chfak-5 critic step and masker step
            through the DP code bit-equal to the unmeshed chunks, the
@@ -170,7 +189,7 @@ from `cgs_tpu_torch/csrc/`, then:
 
 Launch counts are set to 0 just before each main path (eval + process;
 ensemble; profile; video; serve-http; int8; train; seed-parallel;
-resume; drift; ablation; dp) and read just after it; every kernel of a
+resume; drift; ablation; zoo; dp) and read just after it; every kernel of a
 path must have
 launched there. Weights are random, from a seed. Any
 failed check exits non-zero. Without CUDA, or without the rest of the
@@ -208,6 +227,11 @@ CHFAK1_JOINS = [("in3", 16, 32, 1, 4), ("in2", 8, 16, 4, 2),
                 ("head", 3, 8, 32, 2)]
 RAGGED_JOINS = [(5, 7, 3, 9, 2), (3, 5, 2, 3, 4), (0, 7, 3, 5, 2),
                 (0, 3, 5, 7, 2)]
+# zoo.Unet's joins at chfak 5, upsampled channels first: (name, skip
+# channels Cs, upsampled channels Cu, input H = W, factor); dec0 is the
+# quirk join cat(up(u0), up(u0))
+UNET5_JOINS = [("dec3", 80, 80, 4, 2), ("dec2", 40, 40, 8, 2),
+               ("dec1", 40, 40, 16, 2), ("dec0", 40, 40, 32, 2)]
 BATCH = 8192
 # the HTTP server: its micro-batch and the distinct frames 32 clients post
 SERVE_BATCH, SERVE_FRAMES = 256, 1024
@@ -285,6 +309,18 @@ DP_TOL = 1e-5
 DP_FLOOR = 4.0
 DP_REPEAT = 20
 DP_EVAL_THRESH = 0.05
+# the HTTP server over ranks
+SERVE_DP_WORLD = 2
+# the zoo path: zoo.Unet at chfak 5, a pair step over A (ZOO_N frames)
+# and its ZOO_N negatives, its launches, the Adam steps (ZOO_WARM
+# untimed, which allocate Adam's state, then ZOO_WINDOWS timed windows
+# of ZOO_STEPS), and the sum_segm chunk (steps x batch)
+ZOO_N, ZOO_SUM_SEGM = 32, (5, 32)
+ZOO_WARM, ZOO_STEPS, ZOO_WINDOWS = 5, 50, 3
+ZOO_KERNELS = ("normalize_u8", "upsample2x", "upsample2x_bwd",
+               "merge_pair", "merge_pair_bwd")
+ZOO_STEP_LAUNCHES = {"upsample2x": 5, "upsample2x_bwd": 5, "merge_pair": 1,
+                     "merge_pair_bwd": 1}
 
 
 class SmokeFailure(Exception):
@@ -352,6 +388,11 @@ def main(argv=None) -> int:
 
     if args.only_dp:
         log("[main path: dp] launches:", phase_dp(_build))
+        if torch.cuda.device_count() >= SERVE_DP_WORLD:
+            phase_serve_dp_nccl(card)
+        else:
+            log("[serve-http dp] NCCL across cards did not run: this "
+                "machine has one card")
         log(card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -361,6 +402,7 @@ def main(argv=None) -> int:
     phase_kernels(_build, summary)
     phase_seeded_ingest(summary)
     phase_train_kernels(summary)
+    phase_up_first(summary)
     phase_serve(_build)
     phase_train_step(_build)
     phase_train_speed()
@@ -415,6 +457,7 @@ def main(argv=None) -> int:
     drift_launches, ablation_launches = phase_drift_ablation(_build)
     later["drift"] = (drift_launches, TRAIN_KERNELS)
     later["ablation"] = (ablation_launches, TRAIN_KERNELS)
+    later["zoo"] = (phase_zoo(_build), ZOO_KERNELS)
     later["dp"] = (phase_dp(_build), TRAIN_KERNELS)
     for path, (counts, kernels) in later.items():
         log(f"[main path: {path}] launches:", counts)
@@ -1058,6 +1101,207 @@ def _dispatch_kernels(dispatch, names) -> dict:
             for n in names}
 
 
+def _reload_under_traffic(base, bodies, publish, new_w, png_old,
+                          png_new) -> dict:
+    """8 client threads post while `new_w` is published and `/reload`
+    called: every response is the old or the new set's mask, never a
+    mix, and every request sent after the reload returned the new
+    set's. Returns the counts of each."""
+    import threading
+
+    seg = f"{base}/segment"
+    seen, errors = [], []
+    stop = threading.Event()
+
+    def client(k):
+        j = k
+        try:
+            while not stop.is_set():
+                i = j % 64
+                t = time.perf_counter()
+                seen.append((i, t, _levels(_post(seg, bodies[i]))))
+                j += 8
+        except Exception as e:          # reported below
+            errors.append(repr(e))
+
+    workers = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+    for w in workers:
+        w.start()
+    time.sleep(0.5)
+    publish(new_w)
+    rel = json.loads(_post(f"{base}/reload", b""))
+    reloaded_at = time.perf_counter()
+    time.sleep(0.5)
+    stop.set()
+    for w in workers:
+        w.join()
+    check(not errors, f"clients failed during the reload: {errors}")
+    check(rel["reloaded"] == {"critic": True, "masker": True},
+          f"/reload answered {rel}")
+    n_old = n_new = 0
+    for i, t, got in seen:
+        d_old = int(np.abs(got - png_old[i]).max())
+        d_new = int(np.abs(got - png_new[i]).max())
+        check(min(d_old, d_new) <= 1,
+              f"frame {i}: a response of neither weight set "
+              f"({d_old} / {d_new} levels off)")
+        if t > reloaded_at:
+            check(d_new <= 1, f"frame {i}: old weights served after the "
+                  "reload returned")
+        n_old += d_old <= 1
+        n_new += d_new <= 1
+    return {"responses": len(seen), "old": n_old, "new": n_new}
+
+
+def _serve_fixture() -> dict:
+    """The HTTP phases' frames, their PNG bodies, two seeded chfak-5
+    weight sets and the offline pipeline's masks of each (soft, and as
+    PNG levels)."""
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.pipeline import MaskPipeline
+
+    frames, _ = synthetic_eval_set(n_frames=SERVE_FRAMES, seed=5)
+    critic, masker = Critic(chfak=5, dropout=0.5), UnetDecoder(chfak=5)
+    fx = {"frames": frames, "bodies": [_png(f) for f in frames],
+          "old_w": _random_params(critic, masker, seed=30),
+          "new_w": _random_params(critic, masker, seed=31)}
+    for key in ("old", "new"):
+        pipe = MaskPipeline(critic, masker, fx[f"{key}_w"],
+                            batch_size=SERVE_BATCH, device="cuda")
+        m = pipe.run(frames).masks[..., 0]
+        fx[f"soft_{key}"] = m
+        fx[f"png_{key}"] = (np.clip(m, 0, 1) * 255).astype(np.int16)
+    check(np.abs(fx["png_old"] - fx["png_new"]).max() > 10,
+          "the two weight sets give the same masks")
+    return fx
+
+
+def _serve_argv(d: str) -> list:
+    return ["--chfak", "5", "--infer-batch", str(SERVE_BATCH), "--model",
+            os.path.join(d, "run")]
+
+
+def _publisher(cfg):
+    """publish(params): write a weight set as the run dir's .pt files."""
+    from cgs_tpu_torch.train.checkpoints import (
+        checkpoint_paths, save_model_pt,
+    )
+    paths = checkpoint_paths(cfg)
+
+    def publish(params):
+        for name, state in params.items():
+            save_model_pt(state, name, paths[name])
+
+    return publish
+
+
+def _serve_dp(fx: dict, d: str, backend=None, device_indices=None) -> dict:
+    """`serve.py --data-parallel 2` (`MaskServer` rank 0, rank 1 a spawned
+    `serve_worker`): 32 clients in a process of their own POST every
+    frame (raw PNGs within one level of the offline pipeline's,
+    identical on >= 99.9% of pixels), then `/reload` under 8 clients
+    (never a mix of the two sets). Returns the rates, the reload counts
+    and rank 0's launches under the traffic."""
+    import urllib.request
+
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.ops import _build
+    from cgs_tpu_torch.serve import MaskServer
+
+    cfg = parse_args(_serve_argv(d) + ["--data-parallel",
+                                       str(SERVE_DP_WORLD)])
+    publish = _publisher(cfg)
+    publish(fx["old_w"])
+    srv = MaskServer(cfg, backend=backend, device_indices=device_indices)
+    try:
+        base, _ = _http(srv)
+        stats = json.loads(urllib.request.urlopen(f"{base}/stats",
+                                                  timeout=30).read())
+        check(stats["world"] == SERVE_DP_WORLD,
+              f"/stats world {stats['world']}")
+        d0 = stats["dispatches"]
+        _build.launches.clear()
+        raw, lat, wall = _traffic_proc(f"{base}/segment", fx["bodies"], 32,
+                                       d)
+        launches = dict(_build.launches)
+        n_disp = srv.batcher.stats["dispatches"] - d0
+        same = np.mean([_same_png(_levels(r), fx["png_old"][i])
+                        for i, r in enumerate(raw)])
+        check(same >= 0.999, f"two ranks: raw PNGs identical on {same:.5f}")
+        check(launches == {"normalize_u8": n_disp, "upsample2x": 5 * n_disp},
+              f"two ranks: rank 0 launched {launches} for {n_disp} "
+              "dispatches")
+        reload = _reload_under_traffic(base, fx["bodies"], publish,
+                                       fx["new_w"], fx["png_old"],
+                                       fx["png_new"])
+    finally:
+        srv.shutdown()
+    return {"requests_per_s": SERVE_FRAMES / wall,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "dispatches": n_disp, "identical": same, "reload": reload,
+            "launches": launches}
+
+
+def _log_serve_dp(tag: str, dp: dict, rate1, card: str) -> None:
+    one = ("" if rate1 is None else
+           f"; one rank: {rate1['requests_per_s']:.1f} requests/s, p50 "
+           f"{rate1['p50_ms']:.2f} ms, p99 {rate1['p99_ms']:.2f} ms")
+    log(f"[serve-http dp] two ranks ({tag}), chfak 5 f32, batch "
+        f"{SERVE_BATCH}, 32 clients, {SERVE_FRAMES} frames: "
+        f"{dp['requests_per_s']:.1f} requests/s, p50 {dp['p50_ms']:.2f} ms, "
+        f"p99 {dp['p99_ms']:.2f} ms, {dp['dispatches']} dispatches{one}; "
+        f"raw identical on {dp['identical']:.5f}; reload under 8 clients "
+        f"{json.dumps(dp['reload'])}; rank 0 launches {dp['launches']}; "
+        f"{card}")
+
+
+def _serve_default(fx: dict, d: str) -> dict:
+    """`serve.py` with no --data-parallel on this machine: it must serve
+    on one rank whatever the count of cards. The 32 clients of
+    `_serve_dp`; returns the rates."""
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.serve import MaskServer
+
+    cfg = parse_args(_serve_argv(d))
+    _publisher(cfg)(fx["old_w"])
+    srv = MaskServer(cfg)
+    try:
+        check(srv.world == 1 and srv.mesh is None,
+              f"the default server runs {srv.world} ranks on "
+              f"{torch.cuda.device_count()} cards")
+        base, _ = _http(srv)
+        raw, lat, wall = _traffic_proc(f"{base}/segment", fx["bodies"], 32,
+                                       d)
+        same = np.mean([_same_png(_levels(r), fx["png_old"][i])
+                        for i, r in enumerate(raw)])
+        check(same >= 0.999, f"one rank: raw PNGs identical on {same:.5f}")
+    finally:
+        srv.shutdown()
+    return {"requests_per_s": SERVE_FRAMES / wall,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def phase_serve_dp_nccl(card: str) -> None:
+    """`serve.py --data-parallel 2` over NCCL on cards 0 and 1, with the
+    checks of `_serve_dp` (a machine with two or more cards), between
+    two runs of the default server, which must take one rank."""
+    t0 = time.time()
+    fx = _serve_fixture()
+    with tempfile.TemporaryDirectory() as d:
+        one_a = _serve_default(fx, d)
+        dp = _serve_dp(fx, d)
+        one_b = _serve_default(fx, d)
+    _log_serve_dp("NCCL, cards 0 and 1", dp, one_a, card)
+    log(f"[serve-http dp] the default server (one rank of "
+        f"{torch.cuda.device_count()} cards) before and after: "
+        f"{json.dumps([one_a, one_b])}")
+    log(f"[serve-http dp] phase {time.time() - t0:.1f} s")
+
+
 def phase_serve_http(_build, card: str) -> dict:
     """The HTTP mask server's main path (`cgs_tpu_torch.serve`): chfak 5
     f32, `--infer-batch` SERVE_BATCH, seeded random weights in .pt files
@@ -1074,48 +1318,22 @@ def phase_serve_http(_build, card: str) -> dict:
     the reload returned is the new set's. One dispatch launches 1
     ingest and 5 joins (counters and a profiler count). Returns the
     launches of the 32-thread traffic."""
-    import threading
     import urllib.request
 
     from cgs_tpu_torch.core.config import parse_args
-    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
     from cgs_tpu_torch.eval.crf import DenseCRF
-    from cgs_tpu_torch.models.critic import Critic
-    from cgs_tpu_torch.models.decoder import UnetDecoder
-    from cgs_tpu_torch.pipeline import MaskPipeline
     from cgs_tpu_torch.serve import MaskServer
-    from cgs_tpu_torch.train.checkpoints import (
-        checkpoint_paths, save_model_pt,
-    )
 
     t0 = time.time()
-    frames, _ = synthetic_eval_set(n_frames=SERVE_FRAMES, seed=5)
-    bodies = [_png(f) for f in frames]
-    critic, masker = Critic(chfak=5, dropout=0.5), UnetDecoder(chfak=5)
-    old_w = _random_params(critic, masker, seed=30)
-    new_w = _random_params(critic, masker, seed=31)
-
-    def offline(params):
-        pipe = MaskPipeline(critic, masker, params, batch_size=SERVE_BATCH,
-                            device="cuda")
-        m = pipe.run(frames).masks[..., 0]
-        return m, (np.clip(m, 0, 1) * 255).astype(np.int16)
-
-    soft_old, png_old = offline(old_w)
-    soft_new, png_new = offline(new_w)
-    check(np.abs(png_old - png_new).max() > 10,
-          "the two weight sets give the same masks")
+    fx = _serve_fixture()
+    frames, bodies, soft_old = fx["frames"], fx["bodies"], fx["soft_old"]
+    old_w, new_w = fx["old_w"], fx["new_w"]
+    png_old, png_new = fx["png_old"], fx["png_new"]
     servers = []
     with tempfile.TemporaryDirectory() as d:
-        argv = ["--chfak", "5", "--infer-batch", str(SERVE_BATCH),
-                "--model", os.path.join(d, "run")]
+        argv = _serve_argv(d) + ["--data-parallel", "1"]
         cfg = parse_args(argv)
-        paths = checkpoint_paths(cfg)
-
-        def publish(params):
-            for name, state in params.items():
-                save_model_pt(state, name, paths[name])
-
+        publish = _publisher(cfg)
         publish(old_w)
         try:
             crf = DenseCRF()
@@ -1219,51 +1437,13 @@ def phase_serve_http(_build, card: str) -> dict:
                   f"differs on {flips8} pixels")
 
             # /reload of a second weight set under traffic
-            seen, errors = [], []
-            stop = threading.Event()
-
-            def client(k):
-                j = k
-                try:
-                    while not stop.is_set():
-                        i = j % 64
-                        t = time.perf_counter()
-                        seen.append((i, t, _levels(_post(seg, bodies[i]))))
-                        j += 8
-                except Exception as e:          # reported below
-                    errors.append(repr(e))
-
-            workers = [threading.Thread(target=client, args=(k,))
-                       for k in range(8)]
-            for w in workers:
-                w.start()
-            time.sleep(0.5)
-            publish(new_w)
-            rel = json.loads(_post(f"{base}/reload", b""))
-            reloaded_at = time.perf_counter()
-            time.sleep(0.5)
-            stop.set()
-            for w in workers:
-                w.join()
-            check(not errors, f"clients failed during the reload: {errors}")
-            check(rel["reloaded"] == {"critic": True, "masker": True},
-                  f"/reload answered {rel}")
-            n_old = n_new = 0
-            for i, t, got in seen:
-                d_old = int(np.abs(got - png_old[i]).max())
-                d_new = int(np.abs(got - png_new[i]).max())
-                check(min(d_old, d_new) <= 1,
-                      f"frame {i}: a response of neither weight set "
-                      f"({d_old} / {d_new} levels off)")
-                if t > reloaded_at:
-                    check(d_new <= 1, f"frame {i}: old weights served "
-                          "after the reload returned")
-                n_old += d_old <= 1
-                n_new += d_new <= 1
-            reload = {"responses": len(seen), "old": n_old, "new": n_new}
+            reload = _reload_under_traffic(base, bodies, publish, new_w,
+                                           png_old, png_new)
         finally:
             for s in servers:
                 s.shutdown()
+        # the same traffic over two ranks on the one card (gloo)
+        dp = _serve_dp(fx, d, backend="gloo", device_indices=[0, 0])
     log(f"[serve-http] chfak 5 f32, batch {SERVE_BATCH}, 32 clients, "
         f"{SERVE_FRAMES} distinct frames: {json.dumps(rate)}; raw PNGs "
         f"identical on {same:.5f} of pixels (the rest 1 level off); "
@@ -1276,6 +1456,7 @@ def phase_serve_http(_build, card: str) -> dict:
         f"traced: device busy {rate['traced']['device_busy_share']:.4f} of "
         f"the window, {rate['traced']['device_ms_per_dispatch']:.3f} ms a "
         f"dispatch ({card}); phase {time.time() - t0:.1f} s")
+    _log_serve_dp("gloo, both ranks on cuda:0", dp, rate, card)
     return launches
 
 
@@ -1957,6 +2138,210 @@ def phase_train_kernels(summary) -> None:
     log(f"[kernels] training kernels ok in {time.time() - t0:.1f} s")
 
 
+def phase_up_first(summary) -> None:
+    """The up-first join of the zoo U-Nets, cat([up(x), skip]), at
+    zoo.Unet's four chfak-5 joins (NHWC), f32 and bf16, batch 64 and
+    8192: forward and backward (the gradient channels_last- and
+    NCHW-dense, with and without the skip's gradient) bit-equal to
+    their plain versions; the joins timed (sums) beside the plain
+    versions and the byte bound. Adds 'up_first' to the upsample rows."""
+    from cgs_tpu_torch.ops.upsample import (
+        upcat_bwd, upcat_bwd_plain, upcat_fwd, upcat_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t0 = time.time()
+    fwd, bwd = {}, {}
+    for n in (MASKER_N, BATCH):
+        iters = 20 if n == MASKER_N else 10
+        for dt in (torch.float32, torch.bfloat16):
+            rows_f, rows_b = [], []
+            for name, cs, cu, h, f in UNET5_JOINS:
+                skip, x = _join_inputs(n, cs, cu, h, h, f, dt, gen)
+                check(torch.equal(_bits(upcat_fwd(skip, x, f, True)),
+                                  _bits(upcat_plain(skip, x, f, True))),
+                      f"up-first upsample2x differs from plain at {name} "
+                      f"batch {n} {dt}")
+                nbytes = (2 * skip.numel() + (1 + f * f) * x.numel()) \
+                    * skip.element_size()
+                rows_f.append({
+                    "join": name,
+                    "ms": time_ms(lambda: upcat_fwd(skip, x, f, True),
+                                  iters=iters),
+                    "plain_ms": time_ms(lambda: upcat_plain(skip, x, f, True),
+                                        iters=iters),
+                    "bound_ms": bound_ms(nbytes)[0]})
+                del skip, x
+                g = torch.rand((n, f * h, f * h, cs + cu), device="cuda",
+                               generator=gen).to(dt)
+                g_nchw = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+                for gg in (g, g_nchw):
+                    for need in (True, False):
+                        got = upcat_bwd(gg, cs, f, need, True)
+                        want = upcat_bwd_plain(gg, cs, f, need, True)
+                        check((got[0] is None) == (not need) and all(
+                            torch.equal(_bits(a), _bits(b))
+                            for a, b in zip(got, want) if a is not None),
+                            f"up-first upsample2x_bwd differs from plain at "
+                            f"{name} batch {n} {dt} strides {gg.stride()} "
+                            f"d_skip {need}")
+                del g_nchw, got, want
+                n_skip = g.numel() // g.shape[3] * cs
+                n_dx = (g.numel() - n_skip) // (f * f)
+                nbytes = (g.numel() + n_skip + n_dx) * g.element_size()
+                rows_b.append({
+                    "join": name,
+                    "ms": time_ms(lambda: upcat_bwd(g, cs, f, True, True),
+                                  iters=iters),
+                    "plain_ms": time_ms(
+                        lambda: upcat_bwd_plain(g, cs, f, True, True),
+                        iters=iters),
+                    "bound_ms": bound_ms(nbytes, n_dx * (f * f - 1))[0]})
+                del g
+                torch.cuda.empty_cache()
+            for out, rows in ((fwd, rows_f), (bwd, rows_b)):
+                res = {k: sum(r[k] for r in rows)
+                       for k in ("ms", "plain_ms", "bound_ms")}
+                res["joins"] = rows
+                out[f"batch {n} {_name(dt)}"] = res
+    log("[kernels] up-first join (zoo.Unet's 4 chfak-5 joins, ms, sums), "
+        "forward:", json.dumps(fwd))
+    log("[kernels] up-first join, backward (with the skip's gradient):",
+        json.dumps(bwd))
+    for name, res in (("upsample2x", fwd), ("upsample2x_bwd", bwd)):
+        r, r64 = res[f"batch {BATCH} f32"], res[f"batch {MASKER_N} f32"]
+        summary[name]["up_first"] = {
+            "shape": "zoo.Unet's 4 chfak-5 joins, upsampled channels first, "
+                     f"f32, batch {BATCH} (sum)",
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bf16_ms": res[f"batch {BATCH} bf16"]["ms"],
+            "bf16_bound_ms": res[f"batch {BATCH} bf16"]["bound_ms"],
+            f"batch_{MASKER_N}_ms": r64["ms"],
+            f"batch_{MASKER_N}_plain_ms": r64["plain_ms"],
+            f"batch_{MASKER_N}_bound_ms": r64["bound_ms"]}
+    log(f"[kernels] up-first join ok in {time.time() - t0:.1f} s")
+
+
+def phase_zoo(_build) -> dict:
+    """The zoo's main path: `models/zoo.py:Unet` at chfak 5 (40/40/40/80
+    encoder, bottleneck 32), seeded torch-default weights, f32, TF32 off,
+    deterministic cuDNN. One `make_pair_merge_step` (live, l1 0.1,
+    inject) over A = ZOO_N synthetic frames and ZOO_N negatives through
+    the kernels and through their plain versions: the loss terms and
+    every gradient bit-equal, every decoder gradient non-zero, the
+    launches ZOO_STEP_LAUNCHES. Then the main path itself, with the
+    launch counts cleared before and read after: ZOO_WARM Adam pair
+    steps, then ZOO_WINDOWS windows of ZOO_STEPS (steps/s each), a
+    `sum_segm` chunk over the frames as a uint8 bank,
+    and `unet_embeddings.project_embeddings` (the U-Net's embeds, the
+    PCA on the card). Returns the launches."""
+    import cgs_tpu_torch.sandbox.merge_variants as mv
+    import cgs_tpu_torch.sandbox.sum_segm as ss
+    import cgs_tpu_torch.sandbox.unet_embeddings as ue
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.models.zoo import Unet
+    from cgs_tpu_torch.ops.kernels import normalize_u8
+
+    t0 = time.time()
+    frames, _ = synthetic_eval_set(n_frames=2 * ZOO_N, seed=7)
+    bank = torch.from_numpy(frames).cuda()
+    x = normalize_u8(bank).permute(0, 3, 1, 2)      # NCHW channels_last
+    a, b = x[:ZOO_N], x[ZOO_N:]
+    y = torch.rand(ZOO_N, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(8))
+    torch.manual_seed(40)
+    unet = Unet(chfak=5).to("cuda", memory_format=torch.channels_last)
+    state0 = {k: v.clone() for k, v in unet.state_dict().items()}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def one_step(kernels: bool):
+            unet.load_state_dict(state0)
+            opt = torch.optim.SGD(unet.parameters(), lr=0.0)
+            step = mv.make_pair_merge_step(unet, opt, l1=0.1, live=True)
+            _build.launches.clear()
+            if kernels:
+                terms = step(a, y, b)
+            else:
+                with _plain_kernels():
+                    terms = step(a, y, b)
+            torch.cuda.synchronize()
+            return ({k: float(v) for k, v in terms.items()},
+                    {k: p.grad.detach().clone()
+                     for k, p in unet.named_parameters()},
+                    dict(_build.launches))
+
+        k_terms, k_grads, k_launches = one_step(True)
+        p_terms, p_grads, p_launches = one_step(False)
+        timed = mv.make_pair_merge_step(
+            unet, torch.optim.SGD(unet.parameters(), lr=0.0), l1=0.1,
+            live=True)
+        breakdown = device_breakdown(lambda: timed(a, y, b), reps=2)
+        check(k_launches == ZOO_STEP_LAUNCHES,
+              f"zoo pair step launched {k_launches}, want "
+              f"{ZOO_STEP_LAUNCHES}")
+        check(p_launches == {}, f"zoo plain path launched {p_launches}")
+        check(k_terms == p_terms, f"zoo pair step terms: kernel path "
+              f"{k_terms} != plain path {p_terms}")
+        for k, g in k_grads.items():
+            check(torch.equal(_bits(g), _bits(p_grads[k])),
+                  f"zoo pair step gradient {k} differs between the kernel "
+                  "and plain paths")
+            if k.startswith("dec"):
+                check(float(g.abs().max()) > 0, f"zoo decoder gradient {k} "
+                      "is zero")
+
+        # the zoo main path
+        unet.load_state_dict(state0)
+        opt = torch.optim.Adam(unet.parameters(), lr=2e-4)
+        step = mv.make_pair_merge_step(unet, opt, l1=0.1, live=True)
+        _build.launches.clear()
+        losses = [step(a, y, b)["loss"] for _ in range(ZOO_WARM)]
+        rates = []
+        for _ in range(ZOO_WINDOWS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses += [step(a, y, b)["loss"] for _ in range(ZOO_STEPS)]
+            torch.cuda.synchronize()
+            rates.append(ZOO_STEPS / (time.perf_counter() - t1))
+        losses = torch.stack(losses).cpu().numpy()
+        check(np.isfinite(losses).all(), f"zoo pair losses {losses}")
+        chunk = ss.make_sum_segm_chunk(unet, torch.optim.Adam(
+            unet.parameters(), lr=1e-3))
+        s_steps, s_batch = ZOO_SUM_SEGM
+        idx = torch.randint(0, bank.shape[0], (s_steps, s_batch),
+                            device="cuda", generator=torch.Generator(
+                                device="cuda").manual_seed(9))
+        ss_losses = chunk(bank, idx).cpu().numpy()
+        check(np.isfinite(ss_losses).all(), f"sum_segm losses {ss_losses}")
+        proj = ue.project_embeddings(
+            unet, frames[:10].astype(np.float32),
+            frames[10:12].astype(np.float32),
+            np.random.default_rng(10).integers(0, 3, (2, 64, 64)))
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    std = proj["standard"]
+    check(std.shape == (10 * 32 * 32, 2) and np.isfinite(std).all(),
+          f"unet_embeddings projection {std.shape}")
+    log(f"[zoo] one chfak-5 zoo.Unet pair step (A {ZOO_N} + B {ZOO_N}, "
+        f"live, inject, l1 0.1): terms and all {len(k_grads)} gradients "
+        f"bit-equal between the kernel and plain paths, every decoder "
+        f"gradient non-zero, launches {k_launches}; device "
+        f"{json.dumps(breakdown)}")
+    log(f"[zoo] pair steps/s {[round(r, 2) for r in rates]} (Adam, "
+        f"{ZOO_WARM} untimed steps, then {ZOO_WINDOWS} windows of "
+        f"{ZOO_STEPS} steps; median {sorted(rates)[ZOO_WINDOWS // 2]:.2f}; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}); sum_segm chunk "
+        f"{s_steps} x {s_batch} losses {np.round(ss_losses, 1).tolist()}; "
+        f"unet_embeddings projection {std.shape} of {proj['mask'].shape[0]} "
+        f"frames; main-path launches {launches}; phase "
+        f"{time.time() - t0:.1f} s")
+    return launches
+
+
 def _train_models(dtype, seed: int):
     """Train-mode chfak-5 critic and masker on the card, random
     weights."""
@@ -2042,11 +2427,11 @@ def phase_train_step(_build) -> None:
         needs.append(tuple(need))
         return real_mbwd(a, b, z, g, need)
 
-    def spy_ubwd(gg, cs, factor, need_skip):
+    def spy_ubwd(gg, cs, factor, need_skip, up_first=False):
         layouts.setdefault("upsample2x_bwd (shape, strides, Cs, d_skip)",
                            []).append([list(gg.shape), list(gg.stride()),
                                        cs, need_skip])
-        return real_ubwd(gg, cs, factor, need_skip)
+        return real_ubwd(gg, cs, factor, need_skip, up_first)
 
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True

@@ -8,6 +8,8 @@ with the JAX package's published spreads (`RESULTS.md`).
         --base-seed 19 --runs 1 --masker-steps 108 --out runs/sp19
     python3 ten_seeds.py --protocol B --runner seed-parallel \
         --base-seed 19 --masker-steps 108 --tf32 --out runs/sp19tf32
+    python3 ten_seeds.py --protocol B --runner seed-parallel \
+        --base-seed 19 --masker-steps 108 --log-logits 30 --out runs/sp19l
 
 runs, on the CUDA card, each protocol over seeds base..base+runs-1
 through `cgs_tpu_torch.sandbox.multirun.run_seeds(..., primary=False)`,
@@ -52,8 +54,13 @@ data cache is written in the working directory; the results go to
 (one line per seed, written as each seed ends), `summary.jsonl`
 (one line per protocol) and, from the seed-parallel runner,
 `masker_losses_<protocol>.npy`, every seed's (replace, inject, norm,
-critic) terms per masker step, (R, steps, 4). Every line carries the card's name and power
-limit from nvidia-smi.
+critic) terms per masker step, (R, steps, 4), and, with `--log-logits N`,
+`masker_logits_<protocol>.npy`: for each seed and each of the first N
+masker steps, the largest and the mean of the decoder's pre-sigmoid
+logits over the step's frames and pixels (a forward hook on the final
+mask convolution, `models/seeded.py:SeededDecoder.masker[2]`), then the
+step's L1 norm term and replace term, (R, N, 4). Every line carries the
+card's name and power limit from nvidia-smi.
 """
 
 from __future__ import annotations
@@ -169,15 +176,58 @@ def seed_parallel_argv(name: str):
     return argv
 
 
+class LogitLog:
+    """The first `steps` training forwards of every `SeededDecoder`
+    built while it is open: per seed, the largest and the mean of the
+    final mask convolution's output (the pre-sigmoid logits), kept on
+    the device until `read`. A global forward pre-hook finds each
+    decoder before its first forward and hooks its last convolution, so
+    no module changes."""
+
+    def __init__(self, steps: int):
+        import torch
+        from cgs_tpu_torch.models.seeded import SeededDecoder
+
+        self.steps, self.rows = steps, []
+        hooked = set()
+
+        def on_conv(module, args, out):
+            if module.training and len(self.rows) < self.steps:
+                h = out.detach().float()            # (n, R, H, W) grouped
+                self.rows.append(torch.stack([h.amax((0, 2, 3)),
+                                              h.mean((0, 2, 3))], 1))
+
+        def on_decoder(module, args):
+            if isinstance(module, SeededDecoder) and id(module) not in hooked:
+                hooked.add(id(module))
+                module.masker[2].register_forward_hook(on_conv)
+
+        self._global = torch.nn.modules.module.register_module_forward_pre_hook(
+            on_decoder)
+
+    def close(self) -> None:
+        self._global.remove()
+
+    def read(self, masker_losses: np.ndarray) -> np.ndarray:
+        """(R, N, 4): logit max, logit mean, then the norm and replace
+        terms of the same steps from the runner's (R, steps, 4) terms."""
+        import torch
+        n = len(self.rows)
+        logits = torch.stack(self.rows, 1).cpu().numpy()       # (R, N, 2)
+        return np.concatenate([logits, masker_losses[:, :n, 2:3],
+                               masker_losses[:, :n, 0:1]], 2)
+
+
 def run_protocol_parallel(name: str, base_seed: int, runs: int, out: Path,
                           gpu: str, masker_steps=None,
-                          tf32: bool = False) -> dict:
+                          tf32: bool = False, log_logits: int = 0) -> dict:
     """The protocol's seeds in one `run_parallel` on the data of
     DATA_SEED, scored on seed 99's eval set, with the switches the CLI's
     -train sets (tf32: then cuDNN's TF32 back on); B also saves each
     seed's checkpoints for the `--ensemble` evals. masker_steps:
     run_parallel's masker steps per epoch (None: the common count).
-    Writes every seed's masker terms per step to --out."""
+    Writes every seed's masker terms per step to --out, and with
+    log_logits = N > 0 the first N steps' logits (`LogitLog`)."""
     import torch
     from cgs_tpu_torch.core.config import parse_args
     from cgs_tpu_torch.core.device import train_switches
@@ -198,11 +248,24 @@ def run_protocol_parallel(name: str, base_seed: int, runs: int, out: Path,
                                    variant=cfg.synthetic_variant)
     x99, gt99 = x99[100:5000:2], gt99[100:5000:2]
     data_s = time.time() - t
-    res = run_parallel(cfg, x, y, runs, base_seed=base_seed, x_eval=x99,
-                       gt_eval=gt99, results_path=str(out / "results.txt"),
-                       save_checkpoints=name == "B",
-                       masker_steps=masker_steps)
+    logit_log = LogitLog(log_logits) if log_logits else None
+    try:
+        res = run_parallel(cfg, x, y, runs, base_seed=base_seed,
+                           x_eval=x99, gt_eval=gt99,
+                           results_path=str(out / "results.txt"),
+                           save_checkpoints=name == "B",
+                           masker_steps=masker_steps)
+    finally:
+        if logit_log is not None:
+            logit_log.close()
     np.save(out / f"masker_losses_{name}.npy", res["masker_losses"])
+    if logit_log is not None:
+        logits = logit_log.read(res["masker_losses"])
+        np.save(out / f"masker_logits_{name}.npy", logits)
+        for r, seed in enumerate(res["seeds"]):
+            print(f"[ten_seeds] seed {seed} first {logits.shape[1]} masker "
+                  "steps (logit max, logit mean, norm, replace): "
+                  f"{np.round(logits[r], 5).tolist()}", flush=True)
     for r, seed in enumerate(res["seeds"]):
         rec = {"protocol": name, "runner": "seed-parallel", "seed": seed,
                "iou_eval99": res["ious"][r],
@@ -266,11 +329,17 @@ def main(argv=None) -> int:
     ap.add_argument("--tf32", action="store_true",
                     help="seed-parallel only: cuDNN runs the f32 "
                     "convolutions in TF32")
+    ap.add_argument("--log-logits", type=int, default=0, metavar="N",
+                    help="seed-parallel only: log each seed's decoder "
+                    "logits (max, mean) with the norm and replace terms "
+                    "over the first N masker steps")
     args = ap.parse_args(argv)
     if args.masker_steps is not None and args.runner != "seed-parallel":
         ap.error("--masker-steps needs --runner seed-parallel")
     if args.tf32 and args.runner != "seed-parallel":
         ap.error("--tf32 needs --runner seed-parallel")
+    if args.log_logits and args.runner != "seed-parallel":
+        ap.error("--log-logits needs --runner seed-parallel")
     import torch
     if not torch.cuda.is_available():
         print("ten_seeds: no CUDA device", file=sys.stderr)
@@ -286,7 +355,7 @@ def main(argv=None) -> int:
         if parallel:
             summary = run_protocol_parallel(name, args.base_seed, args.runs,
                                             out, gpu, args.masker_steps,
-                                            args.tf32)
+                                            args.tf32, args.log_logits)
         else:
             summary = run_protocol(name, args.base_seed, args.runs, out, gpu)
         summary["seconds"] = round(time.time() - t, 1)

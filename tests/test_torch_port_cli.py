@@ -276,6 +276,12 @@ def test_port_imports_no_jax_and_nothing_of_cgs_tpu():
     assert len(files) > 20
     assert {"mesh.py", "multihost.py", "probes.py"} <= {
         p.name for p in files if p.parent.name == "parallel"}
+    assert {"zoo.py", "interop.py"} <= {
+        p.name for p in files if p.parent.name == "models"}
+    assert {"merge_variants.py", "sum_segm.py", "unet_embeddings.py",
+            "trans_embeds.py", "td_critic.py", "discriminator.py",
+            "dream.py"} <= {p.name for p in files
+                            if p.parent.name == "sandbox"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -39,6 +39,9 @@ JOINS = [(80, 160, 1, 1, 4), (40, 80, 4, 4, 2), (40, 40, 8, 8, 2),
          (8, 16, 4, 4, 2), (8, 8, 8, 8, 2), (8, 8, 16, 16, 2),
          (3, 8, 32, 32, 2), (5, 7, 3, 9, 2), (3, 5, 2, 3, 4),
          (0, 7, 3, 5, 2)]
+# zoo.Unet's joins at chfak 5 (upsampled channels first)
+UNET_JOINS = [(80, 80, 4, 4, 2), (40, 40, 8, 8, 2), (40, 40, 16, 16, 2),
+              (40, 40, 32, 32, 2)]
 
 
 @pytest.fixture
@@ -380,6 +383,33 @@ def test_upcat_and_bwd_bit_equal(dev, dtype):
                         cs, cu, h, w, f, n, gg.stride(), need)
             assert dict(_build.launches) == (
                 {"upsample2x": 1, "upsample2x_bwd": 4} if n else {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_up_first_upcat_and_bwd_bit_equal(dev, dtype):
+    """The up-first join of the zoo U-Nets, cat([up_f(x), skip]), at
+    zoo.Unet's chfak-5 joins and the ragged shapes, forward and backward
+    (both memory formats of the gradient, with and without the skip's
+    gradient), bit-equal to its plain version."""
+    for cs, cu, h, w, f in UNET_JOINS + JOINS[-3:]:
+        skip = torch.rand((3, f * h, f * w, cs), device=dev).to(dtype)
+        x = torch.rand((3, h, w, cu), device=dev).to(dtype)
+        _build.launches.clear()
+        assert _same([upcat_fwd(skip, x, f, up_first=True)],
+                     [upcat_plain(skip, x, f, up_first=True)])
+        g = torch.rand((3, f * h, f * w, cs + cu), device=dev).to(dtype)
+        nchw = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        for gg in (g, nchw, _unaligned(g)):
+            for need in (True, False):
+                got = upcat_bwd(gg, cs, f, need, up_first=True)
+                want = upcat_bwd_plain(gg, cs, f, need, up_first=True)
+                assert (got[0] is None) == (want[0] is None)
+                assert _same([t for t in got if t is not None],
+                             [t for t in want if t is not None]), (
+                    cs, cu, h, w, f, gg.stride(), need)
+        assert dict(_build.launches) == {"upsample2x": 1,
+                                         "upsample2x_bwd": 6}
 
 
 @pytest.mark.cuda

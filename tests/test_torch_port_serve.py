@@ -1,10 +1,12 @@
 """PyTorch port: the HTTP mask server (`cgs_tpu_torch/serve.py`), each
 case of tests/test_serve.py on the port, plus what the port adds: the
-`--data-parallel 2` and no-card raises, reloads under traffic that
-never serve a torn batch (every response is the old or the new
-weights' mask), and a JAX `MaskServer` and a port `MaskServer` answering
+`--data-parallel 2` server, the ensemble refusal and the no-card raise,
+reloads under traffic that never serve a torn batch (every response is
+the old or the new weights' mask), and a JAX `MaskServer` and a port
+`MaskServer` answering
 the same PNGs from one `.pt` run dir written by the port's
-`save_model_pt` from JAX params.
+`save_model_pt` from JAX params. Serving over two ranks has its own
+file, tests/test_torch_port_serve_dp.py.
 
 On the CPU at chfak 1, batch 8. Parity tolerances: raw PNGs within one
 level and identical on >= 99.9% of pixels (the two packages' f32 convs
@@ -289,14 +291,25 @@ def test_serve_uses_handler_checkpoint_paths(tmp_path, capsys):
             assert torch.equal(srv.pipe.params[name][k], v)
 
 
-def test_data_parallel_and_no_card_raise(tmp_path):
-    """--data-parallel 2 names the multi-GPU item (MaskServer and main);
-    without a card the default device raises."""
+def test_data_parallel_and_no_card_raise(tmp_path, rng):
+    """--data-parallel 2 serves over two ranks (MaskServer starts the
+    second; /stats names the world), an --ensemble that does not divide
+    over the ranks is refused (MaskServer and main) with the
+    seed-sharding ValueError, and without a card the default device
+    raises."""
     run = ["--model", str(tmp_path / "norun")]
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        MaskServer(parse_args(ARGS + run + ["--data-parallel", "2"]))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        serve.main(ARGS + run + ["--data-parallel", "2", "--port", "0"])
+    srv = MaskServer(parse_args(ARGS + run + ["--data-parallel", "2"]))
+    try:
+        assert srv.world == 2 and srv.mesh is not None
+        frame = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+        assert srv.batcher.submit(frame).mask.shape == (64, 64)
+    finally:
+        srv.shutdown()
+    for dp in (["--data-parallel", "2", "--ensemble", "3"],):
+        with pytest.raises(ValueError, match="do not divide"):
+            MaskServer(parse_args(ARGS + run + dp))
+        with pytest.raises(ValueError, match="do not divide"):
+            serve.main(ARGS + run + dp + ["--port", "0"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MaskServer(parse_args(["--infer-batch", "8"] + run))

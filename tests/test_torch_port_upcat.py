@@ -1,7 +1,9 @@
 """PyTorch port: the decoder's fused upsample-into-concat
 (`ops/upsample.py`: `upcat_plain`, `upcat_bwd_plain`, `UpCat`,
 `up_cat`) against the JAX decoder's join
-`jnp.concatenate([skip, upsample2x(x)], -1)` and its `jax.vjp`.
+`jnp.concatenate([skip, upsample2x(x)], -1)` and its `jax.vjp`, and the
+up-first join of the zoo U-Nets (`cgs_tpu/models/zoo.py:316-322`),
+`jnp.concatenate([upsample2x(u), skip], -1)`, and its `jax.vjp`.
 `upsample2x` is `cgs_tpu/models/decoder.py:upsample2x`, applied twice
 for the x4 join, or `upsample2x_pallas` in interpret mode where
 `supports_pallas_upsample` takes the shape.
@@ -48,6 +50,11 @@ JOINS = {
                "head": (3, 8, 32, 2)},
 }
 CASES = [(w, j) for w in JOINS for j in JOINS[w]]
+# zoo.Unet's joins at chfak 5, upsampled channels first: (skip channels
+# Cs, upsampled channels Cu, input H = W, factor); the last is the
+# quirk join cat([up(u0), up(u0)]), its skip the upsampled u0
+UNET_JOINS = {"dec3": (80, 80, 4, 2), "dec2": (40, 40, 8, 2),
+              "dec1": (40, 40, 16, 2), "dec0": (40, 40, 32, 2)}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -61,7 +68,7 @@ def _jax_join(skip, x, factor):
 def _inputs(width, join, dtype, seed):
     """skip, x and the output's gradient g, NHWC numpy f32 holding
     values of `dtype`."""
-    cs, cu, h, f = JOINS[width][join]
+    cs, cu, h, f = (UNET_JOINS if width == "unet5" else JOINS[width])[join]
     rng = np.random.default_rng(seed)
     out = []
     for shape in [(2, f * h, f * h, cs), (2, h, h, cu),
@@ -153,8 +160,8 @@ def test_up_cat_asks_for_the_skip_gradient_only_when_needed(monkeypatch):
     asked = []
     real = upsample_mod.upcat_bwd
     monkeypatch.setattr(upsample_mod, "upcat_bwd",
-                        lambda g, cs, f, need_skip: asked.append(need_skip)
-                        or real(g, cs, f, need_skip))
+                        lambda g, cs, f, need_skip, **k: asked.append(
+                            need_skip) or real(g, cs, f, need_skip, **k))
     s = torch.rand(2, 3, 8, 8).contiguous(memory_format=torch.channels_last)
     x = torch.rand(2, 4, 4, 4).contiguous(memory_format=torch.channels_last)
     up_cat(s, x.requires_grad_()).sum().backward()
@@ -184,3 +191,67 @@ def test_upcat_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="skip channels"):
         upcat_bwd(torch.zeros(2, 8, 8, 7), 8)
     assert sum(_build.launches.values()) == 0          # CPU: plain only
+
+
+def _jax_up_first(skip, x, f):
+    for _ in range(LEVELS[f]):
+        x = (upsample2x_pallas(x) if supports_pallas_upsample(x)
+             else jnp_upsample2x(x))
+    return jnp.concatenate([x, skip], -1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("join", sorted(UNET_JOINS))
+def test_up_first_join_forward_equals_jax(join, dtype):
+    (skip, x, _), f = _inputs("unet5", join, dtype, seed=5)
+    ref = np.asarray(_jax_up_first(jnp.asarray(skip, dtype),
+                                   jnp.asarray(x, dtype), f)
+                     .astype(jnp.float32))
+    ts, tx = (torch.from_numpy(v).to(TORCH[dtype]) for v in (skip, x))
+    out = upcat_plain(ts, tx, f, up_first=True)
+    assert out.dtype == TORCH[dtype] and out.is_contiguous()
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+    assert torch.equal(upcat_fwd(ts, tx, f, up_first=True), out)
+    nc = up_cat(_nchw(skip, dtype), _nchw(x, dtype), f, up_first=True)
+    assert nc.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(nc.permute(0, 2, 3, 1), out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("join", sorted(UNET_JOINS))
+def test_up_first_join_backward_equals_jax_vjp(join, dtype):
+    (skip, x, g), f = _inputs("unet5", join, dtype, seed=6)
+    _, vjp = jax.vjp(lambda s, v: _jax_up_first(s, v, f),
+                     jnp.asarray(skip), jnp.asarray(x))
+    jds, jdx = (np.asarray(v) for v in vjp(jnp.asarray(g)))
+    ts, tx = (_nchw(v, dtype).requires_grad_() for v in (skip, x))
+    tg = _nchw(g, dtype)
+    up_cat(ts, tx, f, up_first=True).backward(tg)
+    ds, dx = (t.grad.permute(0, 2, 3, 1) for t in (ts, tx))
+    np.testing.assert_array_equal(ds.float().numpy(), jds)
+    if dtype == "float32":
+        np.testing.assert_allclose(dx.numpy(), jdx, atol=1e-6, rtol=0)
+    else:
+        np.testing.assert_allclose(dx.float().numpy(), jdx, rtol=2 ** -7,
+                                   atol=0)
+    g_nhwc = tg.permute(0, 2, 3, 1)
+    want = upcat_bwd_plain(g_nhwc, skip.shape[3], f, up_first=True)
+    assert torch.equal(ds, want[0]) and torch.equal(dx, want[1])
+    got = upcat_bwd(g_nhwc, skip.shape[3], f, need_skip=False,
+                    up_first=True)
+    assert got[0] is None and torch.equal(got[1], dx)
+
+
+def test_up_first_swaps_the_channel_offsets():
+    """Both orders hold the same channels, rotated: the up-first join
+    is the skip-first one with its two blocks swapped, and so is its
+    gradient's read."""
+    rng = np.random.default_rng(7)
+    skip = torch.from_numpy(rng.random((2, 8, 8, 3), dtype=np.float32))
+    x = torch.from_numpy(rng.random((2, 2, 2, 5), dtype=np.float32))
+    a, b = upcat_plain(skip, x, 4), upcat_plain(skip, x, 4, up_first=True)
+    assert torch.equal(b, torch.cat([a[..., 3:], a[..., :3]], -1))
+    g = torch.from_numpy(rng.random((2, 8, 8, 8), dtype=np.float32))
+    ds, dx = upcat_bwd_plain(g, 3, 4, up_first=True)
+    ds2, dx2 = upcat_bwd_plain(torch.cat([g[..., 5:], g[..., :5]], -1), 3, 4)
+    assert torch.equal(ds, ds2) and torch.equal(dx, dx2)
