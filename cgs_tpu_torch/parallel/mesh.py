@@ -192,19 +192,24 @@ def seed_shard_tree(mesh: Optional[Mesh], members: List) -> List:
 _ensemble_warned = set()     # (r, world) already printed
 
 
+def ensemble_divides(r: int, world: int) -> bool:
+    """Whether R ensemble members divide over `world` ranks; when they
+    do not, a warning printed once per shape."""
+    if r % world == 0:
+        return True
+    if (r, world) not in _ensemble_warned:
+        _ensemble_warned.add((r, world))
+        print(f"[cgs-tpu-torch] --ensemble {r} does not divide over "
+              f"{world} ranks; running unmeshed (seed-sharding needs "
+              "R % ranks == 0)")
+    return False
+
+
 def ensemble_mesh_or_none(mesh: Optional[Mesh], r: int) -> Optional[Mesh]:
     """The rule for the seed-sharded ensemble: `mesh` when the R members
     divide over the ranks, else a warning printed once per shape and
     None (every rank then runs the whole ensemble)."""
-    if mesh is None:
-        return None
-    if r % mesh.world:
-        key = (r, mesh.world)
-        if key not in _ensemble_warned:
-            _ensemble_warned.add(key)
-            print(f"[cgs-tpu-torch] --ensemble {r} does not divide over "
-                  f"{mesh.world} ranks; running unmeshed (seed-sharding "
-                  "needs R % ranks == 0)")
+    if mesh is None or not ensemble_divides(r, mesh.world):
         return None
     return mesh
 

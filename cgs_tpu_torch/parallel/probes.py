@@ -330,3 +330,25 @@ def fail_on_rank(rank: int, after_s: float = 0.0) -> None:
     if mesh.rank == rank:
         raise RuntimeError(f"rank {rank} fails on purpose")
     mesh.barrier()
+
+
+def serve_joined(argv: Sequence[str], frames: np.ndarray) -> dict:
+    """The server in a world already joined (as under torchrun): rank 0
+    builds `MaskServer` from `argv` and segments `frames` one request at
+    a time; every other rank runs `serve.main(argv)`, as torchrun's
+    ranks do. Rank 0's result: its world, whether it is meshed, the
+    soft masks."""
+    from cgs_tpu_torch import serve
+    from cgs_tpu_torch.core.config import parse_args
+
+    mesh = _mesh(True)
+    if mesh.rank != 0:
+        serve.main(list(argv))
+        return {}
+    srv = serve.MaskServer(parse_args(list(argv)))
+    try:
+        masks = np.stack([srv.batcher.submit(f).mask for f in frames])
+    finally:
+        srv.shutdown()
+    return {"world": srv.world, "meshed": srv.mesh is not None,
+            "masks": masks}

@@ -45,8 +45,11 @@ batch with `Mesh.broadcast_`; every rank runs its rows through
 that waits for the next header. `MaskServer` starts them itself
 (`parallel/multihost.py:start`) unless this process already is rank 0
 of a world (torchrun; `main` sends the other ranks to `serve_worker`).
-`--ensemble R` shards the members over the ranks and refuses R % N != 0
-(the JAX server runs such an ensemble unmeshed instead). A `/reload`
+`--ensemble R` shards the members over the ranks; where R % N != 0 it
+warns once and rank 0 serves the whole ensemble unmeshed, as the JAX
+server does (`parallel/mesh.py:ensemble_divides`): `MaskServer` then
+starts no other rank, and in a world already joined the other ranks
+leave `serve_worker` at once. A `/reload`
 loads on rank 0 and is itself a dispatch: the new weight set is
 broadcast and every rank swaps it in with one assignment between the
 same two batches, so no response mixes two sets. A collective that
@@ -78,9 +81,7 @@ import torch
 
 from cgs_tpu_torch.core.config import Config, parse_args
 from cgs_tpu_torch.parallel import multihost
-from cgs_tpu_torch.parallel.mesh import (
-    check_seed_shards, current_mesh,
-)
+from cgs_tpu_torch.parallel.mesh import current_mesh, ensemble_divides
 
 VARIANTS = ("raw", "thresholded", "crf")
 MAX_INFLIGHT = 2    # dispatched batches whose outputs wait on the device
@@ -387,8 +388,10 @@ def serve_worker(cfg: Config) -> None:
     to rank 0, whose shutdown sends the stop header."""
     import signal
 
-    signal.signal(signal.SIGINT, signal.SIG_IGN)
     mesh = current_mesh()
+    if cfg.ensemble > 0 and not ensemble_divides(cfg.ensemble, mesh.world):
+        return                  # rank 0 serves the ensemble unmeshed
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
     pipe = _make_pipeline(cfg, mesh.broadcast_object(None), mesh)
     frames = torch.empty((pipe.batch, 64, 64, 3), dtype=torch.uint8,
                          device=mesh.device)
@@ -408,7 +411,8 @@ def _serve_world(cfg: Config, backend=None, device_indices=None,
     the world this process already is rank 0 of, else --data-parallel
     ranks, where 0 (the default) and 1 serve on one rank. (Unlike the
     CLI's, the server's default is not every card: a second card does
-    not lift a host-bound server.)"""
+    not lift a host-bound server.) An --ensemble that does not divide
+    over the ranks is served unmeshed: None, and no rank started."""
     n = max(1, int(cfg.data_parallel))
     mesh = current_mesh()
     if mesh is not None:
@@ -419,8 +423,8 @@ def _serve_world(cfg: Config, backend=None, device_indices=None,
             raise ValueError("MaskServer runs on rank 0; the other ranks "
                              "run serve_worker")
         n = mesh.world
-    if cfg.ensemble > 0 and n > 1:
-        check_seed_shards(cfg.ensemble, n)
+    if cfg.ensemble > 0 and n > 1 and not ensemble_divides(cfg.ensemble, n):
+        return None, None
     if mesh is not None or n <= 1:
         return (mesh if mesh is not None and mesh.world > 1 else None), None
     if (torch.device(cfg.device).type == "cuda" and device_indices is None
@@ -765,8 +769,6 @@ def main(argv=None):
         print("[cgs-tpu-torch serve] switches:",
               train_switches(cfg.bf16, train=False))
     if mesh is not None and mesh.rank != 0:
-        if cfg.ensemble > 0:
-            check_seed_shards(cfg.ensemble, mesh.world)
         try:
             serve_worker(cfg)
         finally:

@@ -121,11 +121,11 @@ def masker_rows(mesh, hidx: np.ndarray, lidx: np.ndarray,
 def masker_chunk(cfg, models: Dict[str, torch.nn.Module], optimizer,
                  xpos, ypos, xneg, yneg, hidx: np.ndarray,
                  lidx: np.ndarray, cidx: np.ndarray, rng: StepRng,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, fuse: str = "both") -> torch.Tensor:
     """S masker steps with index stacks hidx (S, K), lidx (S, K), cidx
     (S, 2K); returns the (S, 4) loss terms (replace, inject, norm,
     critic) on the device. Over a mesh each rank runs its rows
-    (`masker_rows`)."""
+    (`masker_rows`). fuse: as `masker_step`'s."""
     whole = False
     if mesh is not None:
         hidx, lidx, cidx, whole = masker_rows(mesh, hidx, lidx, cidx)
@@ -134,7 +134,7 @@ def masker_chunk(cfg, models: Dict[str, torch.nn.Module], optimizer,
     for s in range(h.shape[0]):
         a, b = _masker_segments(xpos, ypos, xneg, yneg, h[s], l[s], c[s])
         terms.extend(masker_step(cfg, models, optimizer, a, b, rng, mesh,
-                                 whole))
+                                 whole, fuse))
     return _chunk_losses(torch.stack(terms).view(-1, 4), mesh, whole)
 
 

@@ -169,16 +169,18 @@ def masker_batch(cfg, a: Sequence[Segment], b: Segment, rng: StepRng):
 def masker_step(cfg, models: Dict[str, torch.nn.Module],
                 optimizer: torch.optim.Optimizer, a: Sequence[Segment],
                 b: Segment, rng: StepRng, mesh=None,
-                whole: bool = False) -> Tuple[torch.Tensor, ...]:
+                whole: bool = False, fuse: str = "both"
+                ) -> Tuple[torch.Tensor, ...]:
     """One masker step (main.py:340-463): `a` names the frames of A,
     [K high || K low] (main.py:350), with their labels, `b` the 2K
     contrast-negatives (`masker_batch`). The fused critic pass reads
     the joined batch as it is. Returns the detached (replace, inject,
     norm, critic) loss terms, four 0-dim tensors (stacked once per
     chunk by the caller). Over a mesh, as `critic_step`: row i of A
-    and row i of B stay a pair on one rank."""
+    and row i of B stay a pair on one rank. fuse: which critic passes
+    are batched together (`train/losses.py:build_masker_loss`)."""
     ab, y, n = masker_batch(cfg, a, b, rng)
-    loss, aux = build_masker_loss(cfg)(
+    loss, aux = build_masker_loss(cfg, fuse)(
         models, ab[:n], y, ab[n:], rng.dropout, ab=ab)
     _apply(optimizer, loss, mesh, whole)
     return tuple(aux[t].detach() for t in

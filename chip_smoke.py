@@ -90,7 +90,13 @@ from `cgs_tpu_torch/csrc/`, then:
            1 + 5 a dispatch) and the same `/reload` check, requests/s
            and p50 / p99 beside one rank's; with `--only-dp` on two or
            more cards, the same over NCCL on cards 0 and 1, between two
-           runs of the default server, which must take one rank;
+           runs of the default server, which must take one rank; then
+           `--ensemble 3 --data-parallel 2`, which does not divide: one
+           warning and rank 0 serving the whole ensemble unmeshed, its
+           masks bit-equal to the one-rank `--ensemble 3` server's, once
+           as `MaskServer` starts it (no second rank) and once in a
+           world already joined (two ranks on cuda:0 over gloo, rank 1
+           in `serve.main` as under torchrun, returning at once);
   int8     (int8 main path) `MaskPipeline(quantize="int8")` at chfak 5:
            every quantized conv's s32 sums equal the float64 plain
            version at batch 8; at batch 8192, dynamic and static (512
@@ -114,6 +120,14 @@ from `cgs_tpu_torch/csrc/`, then:
            critic 10 / masker 12 epochs) with `-frozen` (the CLI's
            `-train` makes cuDNN deterministic), writing no files but
            the runner's line; the eval IoU must reach 0.70;
+  train-primary  (training main path as a user runs it) `cli.main(
+           ["-train", "-eval", "-synthetic_data", ...], primary=True)`
+           at chfak 1, 1100 frames, critic 6 / masker 1 epochs, in a
+           temporary directory: both checkpoints, both phases'
+           `_loss.png` and the two contrastive histograms as valid PNGs
+           (matplotlib's where it is installed, else PIL's; the log
+           says which); then one chfak-1 critic step (batch 32) and
+           masker step (K = 32), kernel path bit-equal to plain path;
   seeded   the ingest for R = 3 seeds in one launch (each seed its own
            shift) bit-equal to its plain version, and R = 1 to the
            single-seed call; a seeded chfak-5 masker step launches 1
@@ -157,6 +171,24 @@ from `cgs_tpu_torch/csrc/`, then:
            steps and three timed windows of 50 (steps/s each), a
            `sum_segm` chunk and the `unet_embeddings` projection on the
            card;
+  cluster  `sandbox/cluster.py:cluster_frames` over 1024 synthetic
+           frames (4.19M pixels, K = 20, 25 iterations) on the card and
+           on the CPU from the same initial indices: labels equal on >=
+           99.9% of pixels, centroids within 1e-4, the same target;
+           `sandbox/patch_embed.py:create_patch_embedding_clusters` at
+           the reference config (700 + 700 frames, embed_dim 100, 100
+           clusters, pw 10, stride 2) on the card: histograms summing to
+           100, tree-prob column 2 peaking at 1, the 7-tuple
+           round-tripping; wall times;
+  bench-width  (width-sweep main path) `sandbox/bench_width.main` at
+           chfak 5 (inference, 8 dispatches a group), then its
+           `bench_training` in chunks of 20 steps x 3 (critic and masker
+           f32 / bf16, the masker at fuse none / merges): its eight JSON
+           lines, logged, and the ingest, join, merge and
+           merge-gradient kernels launched; then `MaskPipeline` at its
+           auto batch (6553) in f32 and bf16, and one critic step
+           (batch 64) and one masker step at fuse none and merges, each
+           kernel path bit-equal to its plain path;
   dp       (data-parallel main path, `cgs_tpu_torch/parallel/`) (a) NCCL
            at world size 1: a chfak-5 critic step and masker step
            through the DP code bit-equal to the unmeshed chunks, the
@@ -188,10 +220,9 @@ from `cgs_tpu_torch/csrc/`, then:
            one line saying it did not run.
 
 Launch counts are set to 0 just before each main path (eval + process;
-ensemble; profile; video; serve-http; int8; train; seed-parallel;
-resume; drift; ablation; zoo; dp) and read just after it; every kernel of a
-path must have
-launched there. Weights are random, from a seed. Any
+ensemble; profile; video; serve-http; int8; train; train-primary;
+seed-parallel; resume; drift; ablation; zoo; bench-width; dp) and read
+just after it; every kernel of a path must have launched there. Weights are random, from a seed. Any
 failed check exits non-zero. Without CUDA, or without the rest of the
 checkout, it fails and prints no result. The next-to-last lines are a JSON `kernels`
 summary and the card's name and power limit from nvidia-smi; the last
@@ -323,6 +354,35 @@ ZOO_STEP_LAUNCHES = {"upsample2x": 5, "upsample2x_bwd": 5, "merge_pair": 1,
                      "merge_pair_bwd": 1}
 
 
+# the -train -eval a user runs (primary=True: its checkpoints, loss plots
+# and histograms), at chfak 1 and a small size
+PRIMARY_ARGV = ["-train", "-eval", "-synthetic_data", "--datasize", "1100",
+                "--testsize", "100", "--cepochs", "6", "--batch-size", "32",
+                "--dropout", "0", "--high-rew-thresh", "0.55",
+                "--low-rew-thresh", "0.45", "--contrastive-min", "5",
+                "--mepochs", "1", "--eval-video-max-frames", "2", "--model",
+                "chip-smoke-primary"]
+PRIMARY_PNGS = ("critic/_loss.png", "segment/_loss.png",
+                "pred_idx1_hist.png", "GT_idx1_hist.png")
+# an ensemble that does not divide over the server's ranks
+UNEVEN_R = 3
+# per-pixel HSV KMeans: frames (4096 pixels each), clusters, iterations;
+# card against CPU: labels equal on this share, centroids within this
+KMEANS_FRAMES, KMEANS_K, KMEANS_ITERS = 1024, 20, 25
+KMEANS_AGREE, KMEANS_TOL = 0.999, 1e-4
+# the patch-embedding family at the reference config
+# (TrainHandler.py:4004-4009, :2166): 700 + 700 frames
+EMBED_CFG = {"embed_dim": 100, "n_clusters": 100, "n_samples": 700,
+             "patch_width": 10, "stride": 2}
+# the width sweep at the published width, cut to fit the run: the CLI's
+# inference lines at 8 dispatches a group, then its training chunks
+# (`bench_training`) at 20 steps x 3 rounds
+BENCH_WIDTH_ARGV = ["--chfak", "5", "--iters", "8", "--skip-training"]
+BENCH_WIDTH_STEPS, BENCH_WIDTH_ROUNDS = 20, 3
+BENCH_WIDTH_KERNELS = ("normalize_u8", "upsample2x", "upsample2x_bwd",
+                       "merge_pair", "merge_pair_bwd")
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -450,14 +510,19 @@ def main(argv=None) -> int:
     for name in TRAIN_KERNELS:
         check(train_launches.get(name, 0) > 0,
               f"{name} never launched on the training main path")
-    # the seed-parallel, resume, drift and ablation paths clear and read
-    # the counts around their own main-path calls
-    later = {"seed-parallel": (phase_seed_parallel(_build), TRAIN_KERNELS)}
+    # the train-primary, seed-parallel, resume, drift, ablation, zoo,
+    # bench-width and dp paths clear and read the counts around their
+    # own main-path calls
+    later = {"train-primary": (phase_train_primary(_build), TRAIN_KERNELS)}
+    later["seed-parallel"] = (phase_seed_parallel(_build), TRAIN_KERNELS)
     later["resume"] = (phase_resume(_build), RESUME_KERNELS)
     drift_launches, ablation_launches = phase_drift_ablation(_build)
     later["drift"] = (drift_launches, TRAIN_KERNELS)
     later["ablation"] = (ablation_launches, TRAIN_KERNELS)
     later["zoo"] = (phase_zoo(_build), ZOO_KERNELS)
+    phase_cluster(card)
+    later["bench-width"] = (phase_bench_width(_build, card),
+                            BENCH_WIDTH_KERNELS)
     later["dp"] = (phase_dp(_build), TRAIN_KERNELS)
     for path, (counts, kernels) in later.items():
         log(f"[main path: {path}] launches:", counts)
@@ -1245,6 +1310,66 @@ def _serve_dp(fx: dict, d: str, backend=None, device_indices=None) -> dict:
             "launches": launches}
 
 
+def _serve_uneven_ensemble(fx: dict, d: str) -> dict:
+    """`--ensemble 3 --data-parallel 2`, which does not divide: served as
+    the JAX server serves it, one warning and rank 0 serving the whole
+    ensemble unmeshed, its masks bit-equal to the one-rank `--ensemble
+    3` server's. Once as `MaskServer` starts it (no second rank starts),
+    once in a world already joined, two ranks on cuda:0 over gloo, rank
+    1 running `serve.main` as under torchrun (it returns at once, and
+    both ranks exit cleanly)."""
+    import contextlib
+    import io
+
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.parallel import mesh as mesh_mod
+    from cgs_tpu_torch.parallel import multihost, probes
+    from cgs_tpu_torch.serve import MaskServer
+
+    t0 = time.time()
+    base = os.path.join(d, "ens")
+    critic, masker = Critic(chfak=5, dropout=0.5), UnetDecoder(chfak=5)
+    for s in range(UNEVEN_R):
+        argv = _serve_argv(d)[:-1] + [f"{base}-seed{s}"]
+        _publisher(parse_args(argv))(_random_params(critic, masker, 40 + s))
+    argv = _serve_argv(d)[:-1] + [base, "--ensemble", str(UNEVEN_R)]
+    uneven_argv = argv + ["--data-parallel", str(SERVE_DP_WORLD)]
+    frames = fx["frames"][:8]
+    mesh_mod._ensemble_warned.clear()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        one = MaskServer(parse_args(argv))
+        try:
+            want = np.stack([one.batcher.submit(f).mask for f in frames])
+        finally:
+            one.shutdown()
+        srv = MaskServer(parse_args(uneven_argv))
+        try:
+            check(srv.world == 1 and srv.mesh is None and srv._ranks is None,
+                  f"the uneven ensemble runs {srv.world} ranks")
+            got = np.stack([srv.batcher.submit(f).mask for f in frames])
+        finally:
+            srv.shutdown()
+        joined = multihost.launch(
+            probes.serve_joined, SERVE_DP_WORLD, (uneven_argv, frames),
+            device="cuda", backend="gloo", device_indices=[0, 0])
+    printed = out.getvalue()
+    log(printed.rstrip())
+    warned = printed.count(f"--ensemble {UNEVEN_R} does not divide over "
+                           f"{SERVE_DP_WORLD} ranks")
+    check(warned == 1, f"the uneven ensemble warned {warned} times")
+    check(np.array_equal(got, want),
+          "the uneven ensemble's masks differ from the one-rank server's")
+    check(joined["world"] == 1 and not joined["meshed"]
+          and np.array_equal(joined["masks"], want),
+          "in a joined world rank 0 did not serve the ensemble unmeshed "
+          "as one rank does")
+    return {"warned": warned, "frames": len(frames), "bit_equal": True,
+            "joined_world_rank0": "unmeshed", "s": time.time() - t0}
+
+
 def _log_serve_dp(tag: str, dp: dict, rate1, card: str) -> None:
     one = ("" if rate1 is None else
            f"; one rank: {rate1['requests_per_s']:.1f} requests/s, p50 "
@@ -1444,6 +1569,7 @@ def phase_serve_http(_build, card: str) -> dict:
                 s.shutdown()
         # the same traffic over two ranks on the one card (gloo)
         dp = _serve_dp(fx, d, backend="gloo", device_indices=[0, 0])
+        uneven = _serve_uneven_ensemble(fx, d)
     log(f"[serve-http] chfak 5 f32, batch {SERVE_BATCH}, 32 clients, "
         f"{SERVE_FRAMES} distinct frames: {json.dumps(rate)}; raw PNGs "
         f"identical on {same:.5f} of pixels (the rest 1 level off); "
@@ -1457,6 +1583,8 @@ def phase_serve_http(_build, card: str) -> dict:
         f"the window, {rate['traced']['device_ms_per_dispatch']:.3f} ms a "
         f"dispatch ({card}); phase {time.time() - t0:.1f} s")
     _log_serve_dp("gloo, both ranks on cuda:0", dp, rate, card)
+    log(f"[serve-http dp] --ensemble {UNEVEN_R} --data-parallel "
+        f"{SERVE_DP_WORLD}: {json.dumps(uneven)}")
     return launches
 
 
@@ -2342,13 +2470,13 @@ def phase_zoo(_build) -> dict:
     return launches
 
 
-def _train_models(dtype, seed: int):
-    """Train-mode chfak-5 critic and masker on the card, random
-    weights."""
+def _train_models(dtype, seed: int, chfak: int = 5, dropout: float = 0.5):
+    """Train-mode critic and masker (chfak 5 unless asked) on the card,
+    random weights."""
     from cgs_tpu_torch.models.critic import Critic
     from cgs_tpu_torch.models.decoder import UnetDecoder
-    critic = Critic(chfak=5, dropout=0.5, compute_dtype=dtype)
-    masker = UnetDecoder(chfak=5, compute_dtype=dtype)
+    critic = Critic(chfak=chfak, dropout=dropout, compute_dtype=dtype)
+    masker = UnetDecoder(chfak=chfak, compute_dtype=dtype)
     params = _random_params(critic, masker, seed)
     out = {}
     for name, template in (("critic", critic), ("masker", masker)):
@@ -2360,27 +2488,123 @@ def _train_models(dtype, seed: int):
 
 
 def _plain_kernels():
-    """A context in which a train step runs every port kernel's plain
-    version (the ingest, the merges and their gradient, the fused
-    upsample-into-concat pair) on the card."""
+    """A context in which a train step, or `MaskPipeline`, runs every
+    port kernel's plain version (the ingest, the merges and their
+    gradient, the fused upsample-into-concat pair) on the card."""
     import contextlib
     from unittest import mock
 
     import cgs_tpu_torch.ops.merge as merge_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
+    import cgs_tpu_torch.pipeline as pipeline_mod
     import cgs_tpu_torch.train.losses as losses_mod
     from cgs_tpu_torch.ops.kernels import (
         gather_normalize_u8_plain, merge_pair_bwd_plain, merge_pair_plain,
+        normalize_u8_plain,
     )
     stack = contextlib.ExitStack()
     for mod, name, plain in (
             (losses_mod, "gather_normalize_u8", gather_normalize_u8_plain),
+            (pipeline_mod, "normalize_u8", normalize_u8_plain),
             (merge_mod, "merge_pair", merge_pair_plain),
             (merge_mod, "merge_pair_bwd", merge_pair_bwd_plain),
             (upsample_mod, "upcat_fwd", upsample_mod.upcat_plain),
             (upsample_mod, "upcat_bwd", upsample_mod.upcat_bwd_plain)):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
+
+
+def _deterministic(fn):
+    """fn() with cuDNN deterministic, the flag restored after."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _pipeline_vs_plain(_build, pipe, frames) -> dict:
+    """`pipe.run_device(frames)` on the kernel path and on the plain
+    path (deterministic cuDNN): predictions and masks bit-equal, the
+    plain path launching nothing. Returns the kernel path's launches."""
+    def run(kernels: bool):
+        _build.launches.clear()
+        if kernels:
+            pred, mask, _ = pipe.run_device(frames)
+        else:
+            with _plain_kernels():
+                pred, mask, _ = pipe.run_device(frames)
+        torch.cuda.synchronize()
+        return pred, mask, dict(_build.launches)
+
+    pred, mask, launches = _deterministic(lambda: run(True))
+    ppred, pmask, plain = _deterministic(lambda: run(False))
+    check(not plain, f"plain path launched {plain}")
+    check(torch.equal(_bits(pred), _bits(ppred))
+          and torch.equal(_bits(mask), _bits(pmask)),
+          f"MaskPipeline batch {len(frames)}: kernel path vs plain path "
+          f"masks {float((mask - pmask).abs().max()):.3g} apart")
+    return launches
+
+
+def _steps_vs_plain(_build, cfg, models, critic_rows: int, fuses) -> dict:
+    """One critic step (`critic_rows` labelled frames) and one masker
+    step (K = MASKER_N / 2 high and low frames, 2K negatives) for each
+    fuse mode in `fuses`, of `models` on the card, kernel path against
+    plain path: loss terms and every gradient bit-equal (deterministic
+    cuDNN; SGD at lr 0 keeps the weights; every run draws from the
+    same seeded StepRng), the plain path launching nothing, the kernel
+    path every kernel of its step. Returns each step's launches."""
+    from cgs_tpu_torch.ops.kernels import Segment
+    from cgs_tpu_torch.train.steps import StepRng, critic_step, masker_step
+
+    dev = torch.device("cuda")
+    banks = _step_banks(torch.Generator(device=dev).manual_seed(8), n=256)
+    segs = _step_segments(banks, 0)
+    crit = Segment(banks[0], banks[6][:critic_rows], 0, banks[1])
+    opt = torch.optim.SGD([p for m in models.values()
+                           for p in m.parameters()], lr=0.0)
+    steps = {"critic": (("normalize_u8",), lambda rng: (critic_step(
+        cfg, models["critic"], opt, crit, rng),))}
+    for fuse in fuses:
+        steps[f"masker fuse {fuse}"] = (
+            tuple(STEP_LAUNCHES), lambda rng, fuse=fuse: masker_step(
+                cfg, models, opt, segs[:2], segs[2], rng, fuse=fuse))
+
+    def run(step, kernels: bool):
+        _build.launches.clear()
+        if kernels:
+            out = step(StepRng.seeded(0, dev))
+        else:
+            with _plain_kernels():
+                out = step(StepRng.seeded(0, dev))
+        torch.cuda.synchronize()
+        return ([float(v) for v in out],
+                {f"{n}.{k}": p.grad.detach().clone()
+                 for n, m in models.items()
+                 for k, p in m.named_parameters() if p.grad is not None},
+                dict(_build.launches))
+
+    launched = {}
+    for name, (kernels, step) in steps.items():
+        k_terms, k_grads, launched[name] = _deterministic(
+            lambda: run(step, True))
+        p_terms, p_grads, plain = _deterministic(lambda: run(step, False))
+        check(not plain, f"{name} step: the plain path launched {plain}")
+        check(all(launched[name].get(k, 0) > 0 for k in kernels),
+              f"{name} step launched {launched[name]}, want each of "
+              f"{kernels}")
+        check(all(np.isfinite(k_terms)) and k_grads
+              and k_grads.keys() == p_grads.keys(),
+              f"{name} step: terms {k_terms}, {len(k_grads)} gradients")
+        check(k_terms == p_terms and all(
+            torch.equal(_bits(k_grads[k]), _bits(p_grads[k]))
+            for k in k_grads),
+            f"{name} step: kernel path vs plain path terms {k_terms} / "
+            f"{p_terms}, grads " + str(max(float(
+                (k_grads[k] - p_grads[k]).abs().max()) for k in k_grads)))
+    return launched
 
 
 def phase_train_step(_build) -> None:
@@ -2593,6 +2817,201 @@ def phase_train(seed: int) -> None:
         f"{closs[-100:].mean():.5f}; eval IoU {handler.last_ious}; "
         f"results.txt: {line.strip()!r}; phase {time.time() - t0:.1f} s")
     check(iou >= MIN_IOU, f"seed {seed}: eval IoU {iou} < {MIN_IOU}")
+
+
+def phase_train_primary(_build) -> dict:
+    """`-train -eval` as a user runs it: `cli.main(PRIMARY_ARGV)` with
+    primary=True, in a temporary directory, at chfak 1 and a small size.
+    Both phases' `_loss.png` and the two contrastive histograms must be
+    valid PNGs (drawn by matplotlib where it is installed, else by PIL),
+    beside the two checkpoints. Then, outside the counted run, one critic
+    step at its batch and one masker step (K = 32) at chfak 1, kernel
+    path against plain path. Returns the launches of the run."""
+    from PIL import Image
+
+    from cgs_tpu_torch import cli
+    from cgs_tpu_torch.core.config import parse_args
+
+    t0 = time.time()
+    try:
+        import matplotlib                                # noqa: F401
+        drawer = "matplotlib"
+    except ImportError:
+        drawer = "PIL (matplotlib absent)"
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            _build.launches.clear()         # the main path starts
+            handler = cli.main(PRIMARY_ARGV, primary=True)
+            launches = dict(_build.launches)    # ... and ends
+            run = Path(d) / "chip-smoke-primary"
+            sizes = {}
+            for art in PRIMARY_PNGS:
+                with Image.open(run / art) as img:
+                    img.load()              # decodes: a broken PNG raises
+                    sizes[art] = img.size
+            saves = sorted(p.name.split("-")[0]
+                           for p in (run / "saves").glob("*.pt"))
+        finally:
+            os.chdir(old)
+    check(saves == ["critic", "masker"], f"checkpoints written: {saves}")
+    iou = handler.last_ious
+    check(len(iou) == 1 and 0.0 <= iou[0] <= 1.0, f"eval IoU {iou}")
+    log(f"[train-primary] -train -eval primary=True at chfak 1 (1100 "
+        f"frames, critic 6 / masker 1 epochs): figures by {drawer}, "
+        f"{json.dumps(sizes)}; eval IoU {iou}; launches {launches}")
+    cfg = parse_args(PRIMARY_ARGV)
+    steps = _steps_vs_plain(
+        _build, cfg, _train_models(torch.float32, seed=9, chfak=cfg.chfak,
+                                   dropout=cfg.dropout),
+        cfg.batch_size, ("both",))
+    log(f"[train-primary] chfak {cfg.chfak} critic step (batch "
+        f"{cfg.batch_size}) and masker step (K = {MASKER_N // 2}): kernel "
+        f"path bit-equal to plain path; launches {json.dumps(steps)}; "
+        f"phase {time.time() - t0:.1f} s")
+    return launches
+
+
+def phase_cluster(card: str) -> None:
+    """The sandbox clustering at realistic size: `cluster_frames` (per-
+    pixel HSV KMeans) over KMEANS_FRAMES synthetic frames (4096 pixels
+    each, K = 20, 25 iterations) on the card and on the CPU from the
+    same initial indices: labels equal on >= 99.9% of pixels, centroids
+    within 1e-4, the same target cluster. Then
+    `create_patch_embedding_clusters` at the reference config (700 + 700
+    frames, embed_dim 100, 100 clusters, pw 10, stride 2) on the card:
+    every raw patch histogram sums to pw^2 = 100, tree-prob column 2
+    peaks at 1, and the 7-tuple round-trips. Wall times beside the
+    card."""
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.sandbox import cluster
+    from cgs_tpu_torch.sandbox.patch_embed import (
+        PatchEmbedder, create_patch_embedding_clusters,
+    )
+
+    x, gt = synthetic_eval_set(n_frames=KMEANS_FRAMES, seed=7)
+    y = gt.any(axis=(1, 2)).astype(np.float64)
+    init = torch.randperm(x[..., 0].size,
+                          generator=torch.Generator().manual_seed(0))
+    init = init[:KMEANS_K].numpy()
+    res, wall = {}, {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res[dev] = cluster.cluster_frames(x, y, KMEANS_K, iters=KMEANS_ITERS,
+                                          init_idx=init, device=dev)
+        wall[dev] = time.time() - t0
+    agree = float((res["cuda"]["labels"] == res["cpu"]["labels"]).mean())
+    gap = float(np.abs(res["cuda"]["centroids"]
+                       - res["cpu"]["centroids"]).max())
+    check(agree >= KMEANS_AGREE, f"kmeans card vs CPU: labels equal on "
+          f"{agree:.6f} of pixels")
+    check(gap <= KMEANS_TOL, f"kmeans card vs CPU: centroids {gap:.3g} apart")
+    check(res["cuda"]["target"] == res["cpu"]["target"],
+          f"target cluster {res['cuda']['target']} on the card, "
+          f"{res['cpu']['target']} on the CPU")
+    log(f"[cluster] cluster_frames {KMEANS_FRAMES} frames "
+        f"({x[..., 0].size} pixels), K = {KMEANS_K}, {KMEANS_ITERS} "
+        f"iterations: card {wall['cuda']:.2f} s, CPU {wall['cpu']:.2f} s "
+        f"(wall, set-up and layers included); labels equal on {agree:.6f}, "
+        f"centroids {gap:.3g} apart, target {res['cuda']['target']}; {card}")
+
+    hsv = cluster.rgb_to_hsv(torch.from_numpy(x).float() / 255.0).numpy()
+    has = y > 0
+    check(has.sum() > 0 and (~has).sum() > 0,
+          f"{int(has.sum())} frames with the object, {int((~has).sum())} "
+          "without")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "embed.pickle")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        emb = create_patch_embedding_clusters(
+            hsv[has], y[has], hsv[~has], np.zeros(int((~has).sum())), path,
+            device="cuda", **EMBED_CFG)
+        fit_s = time.time() - t0
+        sub = hsv[:256]
+        flat, pshape = emb.embed_batch(sub)
+        check(pshape == (len(sub), 28, 28, 100) and bool(
+            (flat.sum(-1) == EMBED_CFG["patch_width"] ** 2).all()),
+            f"patch histograms {pshape}: sums {np.unique(flat.sum(-1))}")
+        probs = emb.patch_embed_cluster_tree_probs
+        check(probs.shape == (100, 4) and np.isclose(probs[:, 2].max(), 1.0)
+              and bool(np.isfinite(probs).all()),
+              f"tree-prob table {probs.shape}, column 2 max "
+              f"{probs[:, 2].max()}")
+        t0 = time.time()
+        p1, l1 = emb.predict_batch(sub)
+        pred_s = time.time() - t0
+        back = PatchEmbedder(device="cuda").load_embed_tuple(path)
+        p2, l2 = back.predict_batch(sub)
+        check(back.n_cluster == 100 and np.array_equal(l1, l2)
+              and np.array_equal(p1, p2), "the 7-tuple does not round-trip")
+    log(f"[cluster] create_patch_embedding_clusters 700 + 700 frames, "
+        f"embed_dim 100, 100 clusters, pw 10, stride 2: {fit_s:.2f} s on "
+        f"the card (wall); predict_batch of 256 frames {pred_s:.3f} s; "
+        f"histograms sum to 100; tree-prob column 2 max 1; the 7-tuple "
+        f"round-trips; {card}")
+
+
+def phase_bench_width(_build, card: str) -> dict:
+    """`sandbox/bench_width.py` at chfak 5: `main(BENCH_WIDTH_ARGV)`
+    (inference f32 / bf16 at its auto batch), then its `bench_training`
+    at BENCH_WIDTH_STEPS x BENCH_WIDTH_ROUNDS (critic and masker chunks
+    f32 / bf16, the masker chunk at fuse none / merges); every line
+    finite and positive. Then, outside the counted run, the kernels at
+    this path's shapes, kernel path against plain path, bit-equal:
+    `MaskPipeline.run_device` at the auto batch in f32 and bf16, and one
+    critic step (batch 64) and one masker step (K = 32) at fuse none and
+    merges, on the sweep's models. Returns the launches of the sweep."""
+    import importlib
+
+    from cgs_tpu_torch.pipeline import MaskPipeline
+
+    bench_width = importlib.import_module(
+        "cgs_tpu_torch.sandbox.bench_width")
+    t0 = time.time()
+    chunks = dict(steps=BENCH_WIDTH_STEPS, rounds=BENCH_WIDTH_ROUNDS)
+    _build.launches.clear()             # the main path starts
+    results = bench_width.main(BENCH_WIDTH_ARGV)
+    for bf16 in (False, True):
+        results += bench_width.bench_training(5, 0.5, bf16, **chunks)
+    for fuse in ("none", "merges"):
+        results += bench_width.bench_training(5, 0.5, False, fuse=fuse,
+                                              phases=("masker",), **chunks)
+    launches = dict(_build.launches)    # ... and ends
+    check(len(results) == 8 and all(
+        np.isfinite(r["value"]) and r["value"] > 0 for r in results),
+        f"bench_width results {results}")
+    for r in results:
+        log(f"[bench-width] {json.dumps(r)}; {card}")
+    log(f"[bench-width] launches {launches}; sweep {time.time() - t0:.1f} s")
+
+    dev = torch.device("cuda")
+    batch = results[0]["batch"]
+    frames = torch.randint(0, 256, (batch, 64, 64, 3), dtype=torch.uint8,
+                           device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(0))
+    checked = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        critic, masker = bench_width._models(5, 0.5, dtype, dev, train=False)
+        pipe = MaskPipeline(critic, masker,
+                            {"critic": critic.state_dict(),
+                             "masker": masker.state_dict()},
+                            batch_size=batch, device=dev)
+        checked[f"MaskPipeline {_name(dtype)} batch {batch}"] = (
+            _pipeline_vs_plain(_build, pipe, frames))
+        del pipe
+    critic, masker = bench_width._models(5, 0.5, torch.float32, dev,
+                                         train=True)
+    checked.update(_steps_vs_plain(
+        _build, bench_width._train_config(5, 0.5),
+        {"critic": critic, "masker": masker}, 64, ("none", "merges")))
+    torch.cuda.empty_cache()
+    log(f"[bench-width] chfak 5, kernel path bit-equal to plain path: "
+        f"{json.dumps(checked)}; phase {time.time() - t0:.1f} s")
+    return launches
 
 
 def _seeded_models(seeds, dropout: float, dtype=torch.float32):

@@ -280,8 +280,11 @@ def test_port_imports_no_jax_and_nothing_of_cgs_tpu():
         p.name for p in files if p.parent.name == "models"}
     assert {"merge_variants.py", "sum_segm.py", "unet_embeddings.py",
             "trans_embeds.py", "td_critic.py", "discriminator.py",
-            "dream.py"} <= {p.name for p in files
-                            if p.parent.name == "sandbox"}
+            "dream.py", "cluster.py", "patch_embed.py", "embed_viz.py",
+            "dev.py", "bench_width.py"} <= {p.name for p in files
+                                             if p.parent.name == "sandbox"}
+    assert (REPO / "cgs_tpu_torch" / "data" / "collect_variants.py") in files
+    assert (REPO / "cgs_tpu_torch" / "utils" / "tb_export.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

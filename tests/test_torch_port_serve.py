@@ -1,6 +1,7 @@
 """PyTorch port: the HTTP mask server (`cgs_tpu_torch/serve.py`), each
 case of tests/test_serve.py on the port, plus what the port adds: the
-`--data-parallel 2` server, the ensemble refusal and the no-card raise,
+`--data-parallel 2` server, the uneven ensemble served unmeshed and the
+no-card raise,
 reloads under traffic that never serve a torn batch (every response is
 the old or the new weights' mask), and a JAX `MaskServer` and a port
 `MaskServer` answering
@@ -291,12 +292,18 @@ def test_serve_uses_handler_checkpoint_paths(tmp_path, capsys):
             assert torch.equal(srv.pipe.params[name][k], v)
 
 
-def test_data_parallel_and_no_card_raise(tmp_path, rng):
+def test_data_parallel_and_no_card_raise(tmp_path, rng, capsys,
+                                        monkeypatch):
     """--data-parallel 2 serves over two ranks (MaskServer starts the
-    second; /stats names the world), an --ensemble that does not divide
-    over the ranks is refused (MaskServer and main) with the
-    seed-sharding ValueError, and without a card the default device
-    raises."""
+    second; /stats names the world). An --ensemble that does not divide
+    over the ranks is served as the JAX server serves it
+    (cgs_tpu/serve.py:264-275): one warning, then rank 0 serves the
+    whole ensemble unmeshed, its masks equal to the one-rank --ensemble
+    3 server's; MaskServer starts no second rank, and in a world already
+    joined (as under torchrun) the other rank's `serve.main` returns at
+    once. Without a card the default device raises."""
+    from cgs_tpu_torch.parallel import mesh as mesh_mod, multihost, probes
+
     run = ["--model", str(tmp_path / "norun")]
     srv = MaskServer(parse_args(ARGS + run + ["--data-parallel", "2"]))
     try:
@@ -305,11 +312,38 @@ def test_data_parallel_and_no_card_raise(tmp_path, rng):
         assert srv.batcher.submit(frame).mask.shape == (64, 64)
     finally:
         srv.shutdown()
-    for dp in (["--data-parallel", "2", "--ensemble", "3"],):
-        with pytest.raises(ValueError, match="do not divide"):
-            MaskServer(parse_args(ARGS + run + dp))
-        with pytest.raises(ValueError, match="do not divide"):
-            serve.main(ARGS + run + dp + ["--port", "0"])
+
+    ens = str(tmp_path / "ens")
+    for s in range(3):
+        cfg = parse_args(ARGS + ["--model", f"{ens}-seed{s}"])
+        paths = checkpoint_paths(cfg)
+        os.makedirs(os.path.dirname(paths["critic"]), exist_ok=True)
+        params = port_params(jax_models(seed=20 + s)[2])
+        for name in ("critic", "masker"):
+            save_model_pt(params[name], name, paths[name])
+    argv = ARGS + ["--model", ens, "--ensemble", "3"]
+    frames = rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    monkeypatch.setattr(mesh_mod, "_ensemble_warned", set())
+    capsys.readouterr()
+    one = MaskServer(parse_args(argv))
+    uneven = MaskServer(parse_args(argv + ["--data-parallel", "2"]))
+    try:
+        assert uneven.world == 1 and uneven.mesh is None
+        assert uneven._ranks is None and len(uneven.pipe._members) == 3
+        want = np.stack([one.batcher.submit(f).mask for f in frames])
+        got = np.stack([uneven.batcher.submit(f).mask for f in frames])
+        np.testing.assert_array_equal(got, want)
+    finally:
+        one.batcher.close()
+        uneven.shutdown()
+    assert capsys.readouterr().out.count("--ensemble 3 does not divide "
+                                         "over 2 ranks") == 1
+    joined = multihost.launch(
+        probes.serve_joined, 2, (argv + ["--data-parallel", "2"], frames),
+        device="cpu", timeout_s=60.0, join_s=60.0)
+    assert joined["world"] == 1 and not joined["meshed"]
+    np.testing.assert_array_equal(joined["masks"], want)
+
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MaskServer(parse_args(["--infer-batch", "8"] + run))
