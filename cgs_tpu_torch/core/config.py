@@ -144,7 +144,7 @@ class Config:
                                  # (extension; 1.0 = exact reference
                                  # dynamics, 0.0 = immovable critic;
                                  # train/steps.py:make_optimizer)
-    profile: str = ""            # trace dir (parsed; unused by the port yet)
+    profile: str = ""            # trace dir (utils/profiling.py)
     crf_rescale: bool = False    # per-frame mask rescale before CRF
     eval_video_max_frames: int = 0  # cap frames in eval comparison
                                  # videos (0 = all; the reference

@@ -28,7 +28,8 @@ the mean of the N per-seed runs `{model}-seed{s}`, loaded once per
 Handler; a video file as --source-imgs goes to `segment_video`;
 `-viscritic`/`-vismasker`/`--trainasvis` render the curve videos;
 `--profile DIR` traces the run (`utils/profiling.py:Profiler`, started
-by `cli.main`).
+by `cli.main`); the chunks and steps name themselves in it
+(`cgs.train.*`, `train/loops.py`).
 
 `-orbax` saves each phase's full train state (`train/checkpoints.py:
 TrainStateManager`, under `{name}/saves/orbax-critic/` and
@@ -442,9 +443,8 @@ class Handler:
             # hard-coded 100 batches (main.py:204); --visevery drives
             # only the masker phase (main.py:466)
             for idx in loader.chunks(100):
-                with self.profiler.annotate("critic_chunk"):
-                    losses = critic_chunk(cfg, critic, opt, x_dev, y_dev,
-                                          idx, rng, self.mesh).cpu().numpy()
+                losses = critic_chunk(cfg, critic, opt, x_dev, y_dev, idx,
+                                      rng, self.mesh).cpu().numpy()
                 steps += len(idx)
                 if cfg.debug_nan:
                     nan_guard({"losses": losses,
@@ -572,11 +572,10 @@ class Handler:
                     [cfg.seed, MASK_STREAM, epoch, done]))
                 h, l, c = sample_index_stacks(crng, sets.n_pos,
                                               sets.n_neg, s, k)
-                with self.profiler.annotate("masker_chunk"):
-                    losses = masker_chunk(
-                        cfg, models, opt, sets.xpos, sets.ypos, sets.xneg,
-                        sets.yneg, h, l, c, rng,
-                        self.mesh).cpu().numpy()                # (s, 4)
+                losses = masker_chunk(
+                    cfg, models, opt, sets.xpos, sets.ypos, sets.xneg,
+                    sets.yneg, h, l, c, rng,
+                    self.mesh).cpu().numpy()                    # (s, 4)
                 steps += s
                 if cfg.debug_nan:
                     nan_guard({"losses": losses,

@@ -14,7 +14,15 @@ frames (N, H, W, 3) uint8, masks (N, H, W, 1).
 
 `run` chunks host frames into fixed batches, zero-pads the last one,
 and keeps at most `max_in_flight` chunks of outputs on the device.
-`run_device` is the device-resident path.
+`run_device` is the device-resident path. Under a profiler `run` names
+its host work (`utils/profiling.py:span`): `cgs.pipeline.run` around
+the call, and inside it `pad` (the ragged last batch), `upload`
+(`place_input`), `forward` (`run_device`: the enqueue of ingest, critic,
+decoder and wire encoding), `read_back` (the `.cpu()` calls: the wait
+on the stream and the copies) and `assemble` (the concatenations at the
+end). `run` alone adds to the counters `pipeline.rows` (padding
+included), `pipeline.h2d_bytes` and `pipeline.d2h_bytes`, so a caller of
+`place_input` and `run_device` (the server) moves none of them.
 
 With `ensemble=True` (port of `cgs_tpu/pipeline.py:81-86,213-254`) the
 pipeline holds R members and outputs the mean over them of pred, soft
@@ -68,6 +76,7 @@ from cgs_tpu_torch.ops.saliency import critic_with_saliency
 from cgs_tpu_torch.parallel.mesh import (
     pad_to_multiple, rank_seed, seed_shard_tree,
 )
+from cgs_tpu_torch.utils.profiling import counts, span
 
 
 @dataclasses.dataclass
@@ -309,6 +318,10 @@ class MaskPipeline:
         """Host frames -> host outputs, in fixed batches (the last one
         zero-padded), with at most max_in_flight chunks of outputs alive
         on the device."""
+        with span("cgs.pipeline.run"):
+            return self._run(frames_u8)
+
+    def _run(self, frames_u8: np.ndarray) -> PipelineOutput:
         n = frames_u8.shape[0]
         if n == 0:
             h, w = frames_u8.shape[1:3] or (64, 64)
@@ -329,35 +342,47 @@ class MaskPipeline:
         preds, masks, sals, hards = [], [], [], []
 
         def read_back(fut):
-            pred, mask, sal = fut[0], fut[1], fut[2]
-            preds.append(pred.cpu().numpy())
-            masks.append(mask.cpu().numpy())
-            if sal is not None:
-                sals.append(sal.cpu().numpy())
+            # fut: (pred, mask, sal or None[, hard])
+            with span("cgs.pipeline.read_back"):
+                host = [None if t is None else t.cpu().numpy()
+                        for t in fut]
+            counts["pipeline.d2h_bytes"] += sum(
+                a.nbytes for a in host if a is not None)
+            preds.append(host[0])
+            masks.append(host[1])
+            if host[2] is not None:
+                sals.append(host[2])
             if with_hard:
-                hards.append(fut[3].cpu().numpy())
+                hards.append(host[3])
 
         pending = []
         for lo in range(0, n, bs):
             chunk = frames_u8[lo:lo + bs]
             if chunk.shape[0] < bs:  # pad final ragged batch
-                pad = bs - chunk.shape[0]
-                chunk = np.concatenate(
-                    [chunk, np.zeros((pad,) + chunk.shape[1:],
-                                     chunk.dtype)], axis=0)
+                with span("cgs.pipeline.pad"):
+                    pad = bs - chunk.shape[0]
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((pad,) + chunk.shape[1:],
+                                         chunk.dtype)], axis=0)
             # at most max_in_flight chunks of outputs stay alive on the
             # device (read-back shares the compute stream, so it does
             # not overlap the next chunk's compute yet)
-            pending.append(self.run_device(self.place_input(chunk)))
+            with span("cgs.pipeline.upload"):
+                x = self.place_input(chunk)
+            with span("cgs.pipeline.forward"):
+                pending.append(self.run_device(x))
+            counts["pipeline.rows"] += chunk.shape[0]
+            counts["pipeline.h2d_bytes"] += chunk.nbytes
             if len(pending) >= self.max_in_flight:
                 read_back(pending.pop(0))
         for fut in pending:
             read_back(fut)
 
-        preds = np.concatenate(preds)[:n]
-        mask_all = np.concatenate(masks)[:n]
-        sal = np.concatenate(sals)[:n] if sals else None
-        hard = np.concatenate(hards)[:n] if hards else None
+        with span("cgs.pipeline.assemble"):
+            preds = np.concatenate(preds)[:n]
+            mask_all = np.concatenate(masks)[:n]
+            sal = np.concatenate(sals)[:n] if sals else None
+            hard = np.concatenate(hards)[:n] if hards else None
         if self.wire == "u8":
             return PipelineOutput(preds=preds, masks=None, saliency=sal,
                                   masks_u8=mask_all, hard=hard)

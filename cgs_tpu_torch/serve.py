@@ -20,8 +20,11 @@ API:  POST /segment        body = PNG/JPEG (64x64 RGB; ?resize=1 to
                            checkpoints into the live pipeline (missing
                            files keep the served weights);
                            JSON {reloaded: {name: bool}, reloads}
-      GET  /healthz        -> JSON {status, dispatches, frames, ...}
-      GET  /stats          -> same JSON
+      GET  /healthz        -> JSON {status, dispatches, frames,
+                           errors, queue_wait_s, batch, reloads}
+      GET  /stats          -> same JSON, plus world; queue_wait_s is
+                           the sum over dispatched requests of the
+                           seconds from submit to dispatch
 
 The flags are the training CLI's (core/config.py): --model picks the
 run directory whose fingerprinted .pt checkpoints are served,
@@ -111,6 +114,7 @@ class _Request:
     pred: float = 0.0
     error: Optional[str] = None        # batch-level failure message
     abandoned: bool = False            # submitter gave up (timeout)
+    t_submit: float = field(default_factory=time.perf_counter)
 
 
 class ServerError(RuntimeError):
@@ -146,7 +150,8 @@ class MicroBatcher:
         self.max_wait = max_wait_ms / 1000.0
         self.q: "queue.Queue[_Request]" = queue.Queue()
         self._inflight: "queue.Queue" = queue.Queue(maxsize=MAX_INFLIGHT)
-        self.stats = {"dispatches": 0, "frames": 0, "errors": 0}
+        self.stats = {"dispatches": 0, "frames": 0, "errors": 0,
+                      "queue_wait_s": 0.0}
         self._stop = threading.Event()
         self._dispatch_dead = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -290,6 +295,7 @@ class MicroBatcher:
                     beat = time.monotonic()
                 continue
             beat = time.monotonic()
+            t = time.perf_counter()
             try:
                 # a fresh host batch per dispatch: the upload has read
                 # it when place_input returns
@@ -308,6 +314,7 @@ class MicroBatcher:
                 continue
             self.stats["dispatches"] += 1
             self.stats["frames"] += len(reqs)
+            self.stats["queue_wait_s"] += sum(t - r.t_submit for r in reqs)
             self._inflight.put((reqs, out))   # blocks at MAX_INFLIGHT
 
     def _complete_loop(self) -> None:

@@ -25,6 +25,12 @@ stay on one rank. A batch that does not divide runs whole on every rank
 The viz functions recompute the annotated-strip inputs at a chunk
 boundary from the current weights, with fresh shift and dropout
 draws, as the JAX package does.
+
+Under a profiler a chunk names its host work (`utils/profiling.py:
+span`): `cgs.train.critic_chunk` / `cgs.train.masker_chunk` around the
+chunk, `cgs.train.upload_indices` around the index check and upload,
+each step's own spans (`train/steps.py`), and `cgs.train.stack_losses`
+around the losses' stack.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from cgs_tpu_torch.train.losses import build_masker_loss, ingest
 from cgs_tpu_torch.train.steps import (
     StepRng, critic_step, masker_batch, masker_step,
 )
+from cgs_tpu_torch.utils.profiling import span
 
 
 def _upload(idx, bound: int, device) -> torch.Tensor:
@@ -53,12 +60,14 @@ def _upload(idx, bound: int, device) -> torch.Tensor:
     return torch.from_numpy(idx).to(device)
 
 
-def _chunk_losses(losses: torch.Tensor, mesh, whole: bool) -> torch.Tensor:
-    """A chunk's stacked losses: over a mesh the ranks' mean, or rank
-    0's when every rank ran the whole batch."""
-    if mesh is None:
-        return losses
-    return mesh.broadcast_(losses) if whole else mesh.mean_(losses)
+def _chunk_losses(losses: list, mesh, whole: bool) -> torch.Tensor:
+    """A chunk's 0-dim losses stacked: over a mesh the ranks' mean, or
+    rank 0's when every rank ran the whole batch."""
+    with span("cgs.train.stack_losses"):
+        losses = torch.stack(losses)
+        if mesh is None:
+            return losses
+        return mesh.broadcast_(losses) if whole else mesh.mean_(losses)
 
 
 def critic_chunk(cfg, critic, optimizer, x_bank: torch.Tensor,
@@ -66,15 +75,17 @@ def critic_chunk(cfg, critic, optimizer, x_bank: torch.Tensor,
                  rng: StepRng, mesh=None) -> torch.Tensor:
     """S critic steps over the banks with idx (S, B); returns the (S,)
     losses on the device. Over a mesh each rank runs its rows of idx."""
-    whole = mesh is not None and not mesh.divides(idx.shape[1])
-    if mesh is not None:
-        idx = idx[:, mesh.rows(idx.shape[1])]
-    idx_dev = _upload(idx, x_bank.shape[0], x_bank.device)
-    losses = [critic_step(cfg, critic, optimizer,
-                          Segment(x_bank, bidx, labels=y_bank), rng,
-                          mesh, whole)
-              for bidx in idx_dev]
-    return _chunk_losses(torch.stack(losses), mesh, whole)
+    with span("cgs.train.critic_chunk"):
+        whole = mesh is not None and not mesh.divides(idx.shape[1])
+        if mesh is not None:
+            idx = idx[:, mesh.rows(idx.shape[1])]
+        with span("cgs.train.upload_indices"):
+            idx_dev = _upload(idx, x_bank.shape[0], x_bank.device)
+        losses = [critic_step(cfg, critic, optimizer,
+                              Segment(x_bank, bidx, labels=y_bank), rng,
+                              mesh, whole)
+                  for bidx in idx_dev]
+        return _chunk_losses(losses, mesh, whole)
 
 
 def critic_viz(cfg, critic, x_bank, y_bank, bidx: np.ndarray,
@@ -126,16 +137,19 @@ def masker_chunk(cfg, models: Dict[str, torch.nn.Module], optimizer,
     (S, 2K); returns the (S, 4) loss terms (replace, inject, norm,
     critic) on the device. Over a mesh each rank runs its rows
     (`masker_rows`). fuse: as `masker_step`'s."""
-    whole = False
-    if mesh is not None:
-        hidx, lidx, cidx, whole = masker_rows(mesh, hidx, lidx, cidx)
-    h, l, c = _upload_masker(xpos, xneg, hidx, lidx, cidx)
-    terms = []
-    for s in range(h.shape[0]):
-        a, b = _masker_segments(xpos, ypos, xneg, yneg, h[s], l[s], c[s])
-        terms.extend(masker_step(cfg, models, optimizer, a, b, rng, mesh,
-                                 whole, fuse))
-    return _chunk_losses(torch.stack(terms).view(-1, 4), mesh, whole)
+    with span("cgs.train.masker_chunk"):
+        whole = False
+        if mesh is not None:
+            hidx, lidx, cidx, whole = masker_rows(mesh, hidx, lidx, cidx)
+        with span("cgs.train.upload_indices"):
+            h, l, c = _upload_masker(xpos, xneg, hidx, lidx, cidx)
+        terms = []
+        for s in range(h.shape[0]):
+            a, b = _masker_segments(xpos, ypos, xneg, yneg, h[s], l[s],
+                                    c[s])
+            terms.extend(masker_step(cfg, models, optimizer, a, b, rng,
+                                     mesh, whole, fuse))
+        return _chunk_losses(terms, mesh, whole).view(-1, 4)
 
 
 def masker_viz(cfg, models, xpos, ypos, xneg, yneg, h: np.ndarray,

@@ -25,6 +25,13 @@ the ranks runs whole on every rank, and rank 0's gradient is broadcast.
 The shift draws come from a generator seeded alike on every rank (one
 shift for the whole batch, as JAX's replicated key draws), the dropout
 masks from a generator of each rank's own (`StepRng.seeded`).
+
+Under a profiler each step names its host work (`utils/profiling.py:
+span`): `cgs.train.critic_step` / `cgs.train.masker_step` around the
+step, and inside it `cgs.train.batch` (the shift draw and the ingest),
+`cgs.train.loss` (the loss forward) and `cgs.train.backward`
+(`zero_grad`, `backward` and the gradient sync); Adam's update is
+torch's own `Optimizer.step#Adam.step` region.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from cgs_tpu_torch.parallel.mesh import rank_seed
 from cgs_tpu_torch.train.losses import (
     build_critic_loss, build_masker_loss, ingest_segments,
 )
+from cgs_tpu_torch.utils.profiling import span
 
 LR, BETAS, EPS = 1e-3, (0.9, 0.999), 1e-8
 
@@ -127,10 +135,11 @@ def sync_gradients(optimizer: torch.optim.Optimizer, mesh,
 
 def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor,
            mesh=None, whole: bool = False) -> None:
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    if mesh is not None:
-        sync_gradients(optimizer, mesh, whole)
+    with span("cgs.train.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if mesh is not None:
+            sync_gradients(optimizer, mesh, whole)
     optimizer.step()
 
 
@@ -152,10 +161,13 @@ def critic_step(cfg, critic: torch.nn.Module,
     frames and the labels that `x` names (its labels must be given);
     returns the detached loss. Over a mesh `x` names this rank's rows
     (the whole batch with `whole`) and the gradients are synced."""
-    xf, y = ingest_segments(shifted(cfg, [x], rng))
-    loss = build_critic_loss(cfg)(critic, xf, y, rng.dropout)
-    _apply(optimizer, loss, mesh, whole)
-    return loss.detach()
+    with span("cgs.train.critic_step"):
+        with span("cgs.train.batch"):
+            xf, y = ingest_segments(shifted(cfg, [x], rng))
+        with span("cgs.train.loss"):
+            loss = build_critic_loss(cfg)(critic, xf, y, rng.dropout)
+        _apply(optimizer, loss, mesh, whole)
+        return loss.detach()
 
 
 def masker_batch(cfg, a: Sequence[Segment], b: Segment, rng: StepRng):
@@ -179,9 +191,12 @@ def masker_step(cfg, models: Dict[str, torch.nn.Module],
     chunk by the caller). Over a mesh, as `critic_step`: row i of A
     and row i of B stay a pair on one rank. fuse: which critic passes
     are batched together (`train/losses.py:build_masker_loss`)."""
-    ab, y, n = masker_batch(cfg, a, b, rng)
-    loss, aux = build_masker_loss(cfg, fuse)(
-        models, ab[:n], y, ab[n:], rng.dropout, ab=ab)
-    _apply(optimizer, loss, mesh, whole)
-    return tuple(aux[t].detach() for t in
-                 ("replace", "inject", "norm", "critic"))
+    with span("cgs.train.masker_step"):
+        with span("cgs.train.batch"):
+            ab, y, n = masker_batch(cfg, a, b, rng)
+        with span("cgs.train.loss"):
+            loss, aux = build_masker_loss(cfg, fuse)(
+                models, ab[:n], y, ab[n:], rng.dropout, ab=ab)
+        _apply(optimizer, loss, mesh, whole)
+        return tuple(aux[t].detach() for t in
+                     ("replace", "inject", "norm", "critic"))

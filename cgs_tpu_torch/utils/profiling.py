@@ -3,11 +3,21 @@
 
 `Profiler` is `--profile DIR`: one `torch.profiler` trace over every
 phase the CLI dispatches, written as one Chrome trace JSON into DIR
-(viewable in Perfetto or chrome://tracing), with named regions around
-the train chunks. It records CPU activity, plus the card's kernels
-when the run is on `cuda`. torch.profiler holds every event in host
-memory until the trace stops: a trace of a whole `-train` run (millions
-of kernel launches) takes gigabytes, so trace a short run.
+(viewable in Perfetto or chrome://tracing). It records CPU activity,
+plus the card's kernels when the run is on `cuda`. torch.profiler holds
+every event in host memory until the trace stops: a trace of a whole
+`-train` run (millions of kernel launches) takes gigabytes, so trace a
+short run.
+
+`span(name)` names a region of the port's own host work (`cgs.pipeline.*`
+in `pipeline.py`, `cgs.train.*` in `train/loops.py` and
+`train/steps.py`). While a torch.profiler
+records on the calling thread, it is a `record_function` event, in the
+same trace and on the same clock as the kernels and copies, under
+`--profile` or any other profiler; otherwise it is one shared no-op
+context. `counts` holds the port's counters (`pipeline.rows`,
+`pipeline.h2d_bytes`, `pipeline.d2h_bytes`), bumped where the work is
+issued and never reset.
 """
 
 from __future__ import annotations
@@ -15,15 +25,27 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from collections import Counter
 from typing import Optional
 
 import numpy as np
 import torch
 
+counts: Counter = Counter()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named host region while a profiler records on this thread;
+    otherwise the shared no-op context (one C call)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
 
 class Profiler:
     """start/stop a trace into `trace_dir` (None: every call is a
-    no-op); `annotate` names a region while a trace is active."""
+    no-op)."""
 
     def __init__(self, trace_dir: Optional[str] = None, device=None):
         self.trace_dir = trace_dir
@@ -50,16 +72,6 @@ class Profiler:
         self.path = os.path.join(
             self.trace_dir, f"trace-{os.getpid()}-{time.time_ns()}.json")
         prof.export_chrome_trace(self.path)
-
-    @contextlib.contextmanager
-    def annotate(self, name: str):
-        """A named region on the trace's timeline; a no-op with no
-        trace active."""
-        if self._prof is None:
-            yield
-            return
-        with torch.profiler.record_function(name):
-            yield
 
     @contextlib.contextmanager
     def trace(self):

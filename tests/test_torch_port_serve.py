@@ -407,6 +407,25 @@ def test_reload_http_endpoint(server, http):
         assert "reloads" in json.loads(r.read())
 
 
+def test_stats_queue_wait_grows_with_requests(server, http, rng):
+    """/stats' queue_wait_s: the summed submit-to-dispatch seconds of
+    the dispatched requests, there from the start and growing with each
+    request."""
+    def stats():
+        with urllib.request.urlopen(f"{http}/stats", timeout=30) as r:
+            return json.loads(r.read())
+
+    frame = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    before = stats()
+    assert before["queue_wait_s"] >= 0.0
+    waits = [before["queue_wait_s"]]
+    for _ in range(3):
+        server.segment_bytes(_png(frame))
+        waits.append(stats()["queue_wait_s"])
+    assert all(b > a for a, b in zip(waits, waits[1:])), waits
+    assert stats()["dispatches"] - before["dispatches"] == 3
+
+
 def test_reload_under_concurrent_traffic(tmp_path, rng):
     """Clients post while two weight sets (critic and masker both
     changed) are swapped in turn: every response equals set A's or set
