@@ -13,16 +13,36 @@ wire on the device. Inputs and outputs keep the JAX package's layout:
 frames (N, H, W, 3) uint8, masks (N, H, W, 1).
 
 `run` chunks host frames into fixed batches, zero-pads the last one,
-and keeps at most `max_in_flight` chunks of outputs on the device.
-`run_device` is the device-resident path. Under a profiler `run` names
-its host work (`utils/profiling.py:span`): `cgs.pipeline.run` around
-the call, and inside it `pad` (the ragged last batch), `upload`
-(`place_input`), `forward` (`run_device`: the enqueue of ingest, critic,
-decoder and wire encoding), `read_back` (the `.cpu()` calls: the wait
-on the stream and the copies) and `assemble` (the concatenations at the
-end). `run` alone adds to the counters `pipeline.rows` (padding
-included), `pipeline.h2d_bytes` and `pipeline.d2h_bytes`, so a caller of
-`place_input` and `run_device` (the server) moves none of them.
+and streams them through a staging ring the pipeline owns: one slot per
+batch in flight (`max_in_flight` of them), each a host buffer of frames
+and one of each output (pinned on the card), the frames' device buffer,
+and the events that order their copies. Per batch the host copies the
+chunk into a free slot (torch's `copy_`, on the intra-op threads), the
+upload stream copies it to the device, the compute stream waits for it
+and runs the forward, and the read-back stream waits for the forward and
+copies every row of each output into the slot's host buffers. Before a
+slot is reused, and after the last batch, the host waits for those
+copies and writes the batch's valid rows into the call's output arrays,
+made once per call at N rows: while it does, the card runs the next
+batches. The ring is made at the first call and grows only (a smaller
+batch uses a prefix of each buffer). Off the card the same bookkeeping
+runs with unpinned buffers and no side streams. `run` is not reentrant:
+one call at a time per pipeline. `run_device` is the device-resident
+path.
+
+Under a profiler `run` names its host work (`utils/profiling.py:span`):
+`cgs.pipeline.run` around the call, and inside it `pad` (zeroing the
+ragged last batch's tail in its slot), `upload` (the copy into the slot
+and the enqueue of the upload), `forward` (`run_device`: the enqueue of
+ingest, critic, decoder and wire encoding, then of the read-back's
+copies) and `read_back` (the wait on a slot's copies and the writes of
+its rows into the outputs). `run` alone adds to the counters
+`pipeline.rows` (padding included), `pipeline.h2d_bytes`,
+`pipeline.d2h_bytes` (every row of every output, padding included) and
+`pipeline.staged_batches` (batches whose copies ran on the side streams
+from pinned buffers: every batch on the card, none on the CPU), so a
+caller of `place_input` and `run_device` (the server) moves none of
+them.
 
 With `ensemble=True` (port of `cgs_tpu/pipeline.py:81-86,213-254`) the
 pipeline holds R members and outputs the mean over them of pred, soft
@@ -58,6 +78,7 @@ the stream finishes on the old tensors.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import warnings
@@ -89,6 +110,121 @@ class PipelineOutput:
     #                              floor(255*clip(m,0,1)) (wire='u8')
     hard: Optional[np.ndarray] = None       # (N, H, W, 1) uint8 0/1,
     #                              (mask >= hard_threshold)
+
+
+class _Slot:
+    """One batch's place in the staging ring: its frames in host and
+    device memory (one buffer off the card), a host buffer for each
+    output, and the events that order their copies."""
+
+    def __init__(self, rows: int, frame: tuple, dtype, device):
+        cuda = device.type == "cuda"
+        self.frames = torch.empty((rows, *frame), dtype=dtype,
+                                  pin_memory=cuda)
+        self.frames_dev = (torch.empty_like(self.frames, device=device)
+                           if cuda else self.frames)
+        self.outs: List[Optional[torch.Tensor]] = []
+        self.uploaded, self.computed, self.copied = (
+            (torch.cuda.Event() for _ in range(3)) if cuda
+            else (None, None, None))
+
+
+class _StagingRing:
+    """`run`'s staging ring (module docstring): `slots` slots of `rows`
+    frames each, and on the card the upload and read-back streams."""
+
+    def __init__(self, slots: int, rows: int, frame: tuple,
+                 dtype: np.dtype, device):
+        cuda = device.type == "cuda"
+        self.rows, self.frame, self.dtype = rows, frame, dtype
+        self.device = device
+        self.upload = torch.cuda.Stream(device) if cuda else None
+        self.read_back = torch.cuda.Stream(device) if cuda else None
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        self.slots = [_Slot(rows, frame, tdtype, device)
+                      for _ in range(slots)]
+        self._outs_like: Optional[list] = None
+
+    def holds(self, rows: int, frame: tuple, dtype: np.dtype) -> bool:
+        return rows <= self.rows and (frame, dtype) == (self.frame,
+                                                        self.dtype)
+
+    def take(self, i: int) -> _Slot:
+        """Batch i's slot, once its last upload is done: its host frames
+        may be refilled."""
+        slot = self.slots[i % len(self.slots)]
+        if slot.uploaded is not None:
+            slot.uploaded.synchronize()
+        return slot
+
+    def stage(self, slot: _Slot, chunk: np.ndarray, bs: int) -> None:
+        """Copy the host chunk into the slot's first rows and enqueue the
+        upload of its `bs` rows (a ragged tail was zeroed before)."""
+        slot.frames[:chunk.shape[0]].copy_(
+            torch.from_numpy(np.ascontiguousarray(chunk)))
+        if self.upload is None:
+            return
+        with torch.cuda.stream(self.upload):
+            # the device frames are free once their last forward ran
+            self.upload.wait_event(slot.computed)
+            slot.frames_dev[:bs].copy_(slot.frames[:bs], non_blocking=True)
+            slot.uploaded.record(self.upload)
+
+    def dispatch(self, slot: _Slot, bs: int, forward) -> tuple:
+        """forward(the slot's device frames) on the compute stream, then
+        the read-back of every output row into the slot's host buffers;
+        returns the device outputs, which the caller holds until
+        `unstage` has waited for their copies."""
+        if self.upload is None:
+            outs = forward(slot.frames_dev[:bs])
+            self._copy_out(slot, outs, bs)
+            return outs
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(slot.uploaded)
+        outs = forward(slot.frames_dev[:bs])
+        slot.computed.record(compute)
+        with torch.cuda.stream(self.read_back):
+            self.read_back.wait_event(slot.computed)
+            self._copy_out(slot, outs, bs)
+            slot.copied.record(self.read_back)
+        return outs
+
+    def _copy_out(self, slot: _Slot, outs: tuple, bs: int) -> None:
+        self._host_buffers(outs)
+        for host, t in zip(slot.outs, outs):
+            if t is not None:
+                host[:bs].copy_(t, non_blocking=True)
+
+    def _host_buffers(self, outs: tuple) -> None:
+        """Every slot's host buffers for outputs shaped like `outs`, made
+        at the ring's first batch (so that the warm-up makes them)."""
+        like = [None if t is None else (tuple(t.shape[1:]), t.dtype)
+                for t in outs]
+        if like == self._outs_like:
+            return
+        pin = self.upload is not None
+        for slot in self.slots:
+            slot.outs = [None if k is None else torch.empty(
+                (self.rows, *k[0]), dtype=k[1], pin_memory=pin)
+                for k in like]
+        self._outs_like = like
+
+    @staticmethod
+    def unstage(slot: _Slot, dst: list, lo: int, hi: int) -> None:
+        """Wait for the slot's read-back, then write its first hi - lo
+        rows into rows lo:hi of the call's outputs (host tensors)."""
+        if slot.copied is not None:
+            slot.copied.synchronize()
+        for out, host in zip(dst, slot.outs):
+            if out is not None:
+                out[lo:hi].copy_(host[:hi - lo])
+
+    def synchronize(self) -> None:
+        """Wait for every copy and forward the ring has enqueued."""
+        if self.upload is not None:
+            for stream in (self.upload, self.read_back,
+                           torch.cuda.current_stream(self.device)):
+                stream.synchronize()
 
 
 class MaskPipeline:
@@ -126,7 +262,7 @@ class MaskPipeline:
     ensemble_mesh_or_none` picks the mesh or None).
     """
 
-    MAX_IN_FLIGHT = 3   # run(): chunks of outputs alive on the device
+    MAX_IN_FLIGHT = 3   # run(): batches in flight, the ring's slots
 
     def __init__(self, critic, masker,
                  params: Union[Dict, Sequence[Dict]],
@@ -188,6 +324,7 @@ class MaskPipeline:
         # ensemble); under int8 {name: quantized device state_dict}
         self._members: List[Dict] = []
         self.update_params(params)
+        self._ring: Optional[_StagingRing] = None   # made by run()
 
     def update_params(self, params: Union[Dict, Sequence[Dict]]) -> None:
         """Serve new weights (with ensemble=True, one dict per member):
@@ -316,10 +453,19 @@ class MaskPipeline:
 
     def run(self, frames_u8: np.ndarray) -> PipelineOutput:
         """Host frames -> host outputs, in fixed batches (the last one
-        zero-padded), with at most max_in_flight chunks of outputs alive
-        on the device."""
+        zero-padded) streamed through the staging ring, at most
+        max_in_flight batches in flight."""
         with span("cgs.pipeline.run"):
             return self._run(frames_u8)
+
+    def _staging_ring(self, bs: int, frame: tuple,
+                      dtype: np.dtype) -> _StagingRing:
+        ring = self._ring
+        if ring is None or not ring.holds(bs, frame, dtype):
+            self._ring = None             # free the old buffers first
+            self._ring = _StagingRing(self.max_in_flight, bs, frame, dtype,
+                                      self.device)
+        return self._ring
 
     def _run(self, frames_u8: np.ndarray) -> PipelineOutput:
         n = frames_u8.shape[0]
@@ -338,51 +484,48 @@ class MaskPipeline:
         bs = min(self.batch, n)
         if self.mesh is not None:       # keep the ranks' shares even
             bs = pad_to_multiple(bs, self.mesh.world)
-        with_hard = self.hard_threshold is not None
-        preds, masks, sals, hards = [], [], [], []
+        ring = self._staging_ring(bs, frames_u8.shape[1:], frames_u8.dtype)
+        dst, host = [], []   # the call's outputs, n rows each: tensors
+        #                      and their arrays, made at the first unstage
+        pending = collections.deque()   # (slot, device outputs, lo, hi)
 
-        def read_back(fut):
-            # fut: (pred, mask, sal or None[, hard])
+        def unstage():
+            slot, outs, lo, hi = pending[0]
             with span("cgs.pipeline.read_back"):
-                host = [None if t is None else t.cpu().numpy()
-                        for t in fut]
-            counts["pipeline.d2h_bytes"] += sum(
-                a.nbytes for a in host if a is not None)
-            preds.append(host[0])
-            masks.append(host[1])
-            if host[2] is not None:
-                sals.append(host[2])
-            if with_hard:
-                hards.append(host[3])
+                if not dst:
+                    dst.extend(None if t is None else torch.empty(
+                        (n, *t.shape[1:]), dtype=t.dtype) for t in outs)
+                    host.extend(None if t is None else t.numpy()
+                                for t in dst)
+                ring.unstage(slot, dst, lo, hi)
+            pending.popleft()   # frees the device outputs: copies done
 
-        pending = []
-        for lo in range(0, n, bs):
-            chunk = frames_u8[lo:lo + bs]
-            if chunk.shape[0] < bs:  # pad final ragged batch
-                with span("cgs.pipeline.pad"):
-                    pad = bs - chunk.shape[0]
-                    chunk = np.concatenate(
-                        [chunk, np.zeros((pad,) + chunk.shape[1:],
-                                         chunk.dtype)], axis=0)
-            # at most max_in_flight chunks of outputs stay alive on the
-            # device (read-back shares the compute stream, so it does
-            # not overlap the next chunk's compute yet)
-            with span("cgs.pipeline.upload"):
-                x = self.place_input(chunk)
-            with span("cgs.pipeline.forward"):
-                pending.append(self.run_device(x))
-            counts["pipeline.rows"] += chunk.shape[0]
-            counts["pipeline.h2d_bytes"] += chunk.nbytes
-            if len(pending) >= self.max_in_flight:
-                read_back(pending.pop(0))
-        for fut in pending:
-            read_back(fut)
-
-        with span("cgs.pipeline.assemble"):
-            preds = np.concatenate(preds)[:n]
-            mask_all = np.concatenate(masks)[:n]
-            sal = np.concatenate(sals)[:n] if sals else None
-            hard = np.concatenate(hards)[:n] if hards else None
+        try:
+            for i, lo in enumerate(range(0, n, bs)):
+                if len(pending) == len(ring.slots):
+                    unstage()
+                slot, hi = ring.take(i), min(lo + bs, n)
+                if hi - lo < bs:            # pad the final ragged batch
+                    with span("cgs.pipeline.pad"):
+                        slot.frames[hi - lo:bs].zero_()
+                with span("cgs.pipeline.upload"):
+                    ring.stage(slot, frames_u8[lo:hi], bs)
+                with span("cgs.pipeline.forward"):
+                    outs = ring.dispatch(slot, bs, self.run_device)
+                pending.append((slot, outs, lo, hi))
+                counts["pipeline.rows"] += bs
+                counts["pipeline.h2d_bytes"] += bs * frames_u8[:1].nbytes
+                counts["pipeline.d2h_bytes"] += sum(
+                    t.nbytes for t in outs if t is not None)
+                counts["pipeline.staged_batches"] += int(
+                    ring.upload is not None)
+            while pending:
+                unstage()
+        except BaseException:
+            ring.synchronize()   # no copy may still touch the ring
+            raise
+        preds, mask_all, sal = host[:3]
+        hard = host[3] if self.hard_threshold is not None else None
         if self.wire == "u8":
             return PipelineOutput(preds=preds, masks=None, saliency=sal,
                                   masks_u8=mask_all, hard=hard)

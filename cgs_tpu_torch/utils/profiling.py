@@ -16,8 +16,8 @@ records on the calling thread, it is a `record_function` event, in the
 same trace and on the same clock as the kernels and copies, under
 `--profile` or any other profiler; otherwise it is one shared no-op
 context. `counts` holds the port's counters (`pipeline.rows`,
-`pipeline.h2d_bytes`, `pipeline.d2h_bytes`), bumped where the work is
-issued and never reset.
+`pipeline.h2d_bytes`, `pipeline.d2h_bytes`, `pipeline.staged_batches`),
+bumped where the work is issued and never reset.
 """
 
 from __future__ import annotations

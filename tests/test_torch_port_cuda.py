@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain
 version (the ingest for R seeds too), the pipeline's, the R = 3
 ensemble's and the masker step's kernel path against their plain paths,
+`MaskPipeline.run`'s staging ring against `run_device`,
 a seeded masker step's launches, the dense CRF on kernel-path
 masks, and the gradient of a fused upsample-into-concat join through a
 conv.
@@ -233,6 +234,79 @@ def test_pipeline_kernel_path_equals_plain_path(dev):
         ppred, pmask, _ = pipe.run_device(frames)
     torch.testing.assert_close(mask, pmask, atol=1e-5, rtol=0)
     torch.testing.assert_close(pred, ppred, atol=1e-5, rtol=0)
+
+
+def _staged_and_per_batch(pipe, frames):
+    """(run's outputs, run_device's on each zero-padded batch, the
+    outputs concatenated and cut to N), in one order: preds, masks or
+    masks_u8, saliency, hard."""
+    n, bs = frames.shape[0], pipe.batch
+    out = pipe.run(frames)
+    got = [out.preds, out.masks if pipe.wire == "f32" else out.masks_u8,
+           out.saliency, out.hard]
+    per = []
+    for lo in range(0, n, bs):
+        chunk = torch.zeros((bs,) + frames.shape[1:], dtype=torch.uint8)
+        chunk[:min(bs, n - lo)] = torch.from_numpy(frames[lo:lo + bs])
+        per.append(pipe.run_device(pipe.place_input(chunk.numpy())))
+    want = [None if per[0][k] is None
+            else torch.cat([p[k] for p in per])[:n].cpu().numpy()
+            for k in range(3)]
+    want.append(torch.cat([p[3] for p in per])[:n].cpu().numpy()
+                if len(per[0]) > 3 else None)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"wire": "u8", "hard_threshold": 0.5},
+                                {"salience": True}])
+def test_pipeline_staging_ring_on_the_card(dev, kw):
+    """`run` streams 7 full batches and a ragged eighth through the
+    ring's pinned slots and its copy streams: bit-equal to `run_device`
+    on each padded batch, every batch counted as staged."""
+    import numpy as np
+
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.pipeline import MaskPipeline
+    from cgs_tpu_torch.utils.profiling import counts
+
+    critic, masker = Critic(dropout=0.0), UnetDecoder()
+    params = {"critic": critic.state_dict(), "masker": masker.state_dict()}
+    pipe = MaskPipeline(critic, masker, params, batch_size=1024, **kw)
+    frames = torch.randint(0, 256, (7 * 1024 + 5, 64, 64, 3),
+                           dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(6)
+                           ).numpy()
+    before = counts["pipeline.staged_batches"]
+    got, want = _staged_and_per_batch(pipe, frames)
+    assert counts["pipeline.staged_batches"] - before == 8
+    for slot in pipe._ring.slots:
+        assert slot.frames.is_pinned()
+        assert slot.frames_dev.device == pipe.device
+        assert all(o.is_pinned() for o in slot.outs if o is not None)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.array_equal(a, b)
+
+    # a forward that raises mid-call leaves the pipeline usable
+    forward, calls = pipe.run_device, {"n": 0}
+
+    def failing(u8):
+        calls["n"] += 1
+        if calls["n"] == 4:
+            raise RuntimeError("forward failed")
+        return forward(u8)
+
+    pipe.run_device = failing
+    with pytest.raises(RuntimeError, match="forward failed"):
+        pipe.run(frames)
+    del pipe.run_device
+    again, _ = _staged_and_per_batch(pipe, frames)
+    for a, b in zip(again, got):
+        if a is not None:
+            assert np.array_equal(a, b)
 
 
 def _ensemble_masks(dev, salience=False):

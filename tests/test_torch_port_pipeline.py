@@ -124,34 +124,37 @@ def test_noevalmode_is_seeded_and_live(frames):
     assert not np.array_equal(live0.preds, det.preds)
 
 
-def test_run_bounds_in_flight_chunks(both):
-    """run() holds at most max_in_flight chunks of outputs undelivered;
-    a chunk is live from dispatch until its first readback."""
+def test_run_bounds_in_flight_chunks(both, monkeypatch):
+    """run() holds at most max_in_flight chunks of outputs undelivered,
+    one a slot of its staging ring; a chunk is live from dispatch until
+    its slot is unstaged into the call's outputs."""
+    import cgs_tpu_torch.pipeline as pipeline_mod
+
     (_, _, _), (pc, pm, pp) = both
     pipe = MaskPipeline(pc, pm, pp, batch_size=4, max_in_flight=2,
                         device="cpu")
     state = {"live": 0, "max": 0, "dispatches": 0}
+    unstage = pipeline_mod._StagingRing.unstage
 
-    class _Lazy:
-        def __init__(self, t):
-            self.t = t
-
-        def cpu(self):
-            state["live"] -= 1
-            return self.t
+    def counted_unstage(slot, dst, lo, hi):
+        state["live"] -= 1
+        unstage(slot, dst, lo, hi)
 
     def fake_run_device(u8):
         state["live"] += 1
         state["dispatches"] += 1
         state["max"] = max(state["max"], state["live"])
         n = int(u8.shape[0])
-        return (_Lazy(torch.zeros(n)), torch.zeros(n, 64, 64, 1), None)
+        return (torch.full((n,), float(state["dispatches"])),
+                torch.zeros(n, 64, 64, 1), None)
 
+    monkeypatch.setattr(pipeline_mod._StagingRing, "unstage",
+                        staticmethod(counted_unstage))
     pipe.run_device = fake_run_device
     out = pipe.run(np.zeros((40, 64, 64, 3), np.uint8))   # 10 chunks
     assert state["dispatches"] == 10 and state["live"] == 0
-    assert state["max"] <= 2
-    assert out.preds.shape == (40,)
+    assert state["max"] == 2 == len(pipe._ring.slots)
+    np.testing.assert_array_equal(out.preds, np.repeat(np.arange(1, 11), 4))
 
 
 def test_empty_input_and_unported_modes(both):

@@ -116,15 +116,16 @@ def _children(events, parent):
 
 def test_pipeline_run_spans_nest_under_run(one_torch_thread):
     """A ragged call (20 frames at batch 8: 3 batches, the last padded)
-    names each piece of `run`'s host work under `cgs.pipeline.run`."""
+    names each piece of `run`'s host work under `cgs.pipeline.run`, once
+    a first call has made the pipeline's staging ring."""
     pipe = _tiny_pipeline(8, wire="u8", hard_threshold=0.5)
+    pipe.run(_frames(20, seed=1))
     out, events = _profiled(lambda: pipe.run(_frames(20)))
     assert out.masks_u8.shape == (20, 64, 64, 1)
     assert [e.name for e in events].count("cgs.pipeline.run") == 1
     kids = _children(events, "cgs.pipeline.run")
     assert kids == {"cgs.pipeline.pad": 1, "cgs.pipeline.upload": 3,
-                    "cgs.pipeline.forward": 3, "cgs.pipeline.read_back": 3,
-                    "cgs.pipeline.assemble": 1}
+                    "cgs.pipeline.forward": 3, "cgs.pipeline.read_back": 3}
     # the forward's operations sit inside its span
     assert any(n.startswith("aten::conv")
                for n in _children(events, "cgs.pipeline.forward"))
