@@ -1,5 +1,7 @@
 """Configuration system (PyTorch port; a copy of `cgs_tpu/core/config.py`
-with one extra flag, `--device {cuda,cpu}`, default `cuda`).
+with two extra flags, `--device {cuda,cpu}`, default `cuda`, and
+`--critic {paper,resnet18}`, default `paper`: the critic and masker pair
+of `models/build.py`).
 
 The reference drives everything through a single argparse parser
 (reference `main.py:1461-1545`). We keep a typed dataclass as the source
@@ -33,6 +35,9 @@ DEAD_FLAGS = (
     "lr", "soft", "grabcut", "higheval", "debug", "clippify", "freeze",
     "trunk", "runs", "visdataset", "softmask", "false", "clossfak",
 )
+
+# --critic: the critic and masker pairs of `models/build.py:build_pair`
+CRITICS = ("paper", "resnet18")
 
 
 @dataclass
@@ -167,6 +172,10 @@ class Config:
     device: str = "cuda"         # port-only: where every entry point
                                  # runs; cuda raises when no card is
                                  # present (never a silent cpu run)
+    critic_arch: str = "paper"   # port-only (--critic): the paper's
+                                 # critic, or ResNet-18 with the paper's
+                                 # masker on its pyramid
+                                 # (models/build.py)
 
     def derive(self) -> "Config":
         """Reproduce the reference's post-parse derivations
@@ -200,13 +209,23 @@ class Config:
         keys = ("rewidx", "cepochs", "datamode", "datasize", "threshrew",
                 "shift", "chfak", "dropout")
         d = dataclasses.asdict(self)
-        return "-".join(f"{k}={d[k]}" for k in keys if d[k])
+        return "-".join(f"{k}={d[k]}" for k in keys if d[k]) \
+            + self._arch_suffix()
 
     def masker_fingerprint(self) -> str:
         """Checkpoint-name fingerprint for the masker (main.py:89-91)."""
         keys = ("mepochs", "L1", "L2", "inject")
         d = dataclasses.asdict(self)
-        return "-".join(f"{k}={d[k]}" for k in keys if d[k])
+        return "-".join(f"{k}={d[k]}" for k in keys if d[k]) \
+            + self._arch_suffix()
+
+    def _arch_suffix(self) -> str:
+        """'-critic=<arch>' off the paper critic, so that a ResNet-18
+        run's checkpoints never load into the paper's pair or back; ''
+        for the paper's, whose names stay the reference's."""
+        if self.critic_arch == "paper":
+            return ""
+        return f"-critic={self.critic_arch}"
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -292,6 +311,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     # port-only
     p.add_argument("--device", type=str, default="cuda",
                    choices=("cuda", "cpu"))
+    # not the reference's bool-typed `-critic` (train the critic)
+    p.add_argument("--critic", dest="critic_arch", type=str,
+                   default="paper", choices=CRITICS)
     return p
 
 

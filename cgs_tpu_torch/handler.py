@@ -77,8 +77,7 @@ from cgs_tpu_torch.eval.harness import evaluate, load_eval_set
 from cgs_tpu_torch.eval.segment import (
     VIDEO_EXTS, segment_folder, segment_video,
 )
-from cgs_tpu_torch.models.critic import Critic
-from cgs_tpu_torch.models.decoder import UnetDecoder
+from cgs_tpu_torch.models.build import build_pair
 from cgs_tpu_torch.models.interop import init_torch_default
 from cgs_tpu_torch.parallel.mesh import (
     ensemble_mesh_or_none, local_mesh_or_none, rank0_first, rank0_value,
@@ -97,7 +96,7 @@ from cgs_tpu_torch.train.loops import (
     critic_chunk, critic_viz, masker_chunk, masker_viz,
 )
 from cgs_tpu_torch.train.steps import (
-    StepRng, make_optimizer, trained_param_keys,
+    StepRng, make_optimizer, set_masker_modes, trained_param_keys,
 )
 from cgs_tpu_torch.utils.artifacts import (
     annotate_strip, save_histogram, save_loss_plot,
@@ -124,12 +123,10 @@ class Handler:
         self.last_ious: List[float] = []  # most recent eval() result
         self.bestepoch = 0
 
-        # --bf16: bfloat16 conv stacks, f32 params and sigmoid heads
-        cdt = torch.bfloat16 if cfg.bf16 else torch.float32
-        self.critic = Critic(bottleneck=cfg.neck, chfak=cfg.chfak,
-                             dropout=cfg.dropout, compute_dtype=cdt)
-        self.masker = UnetDecoder(bottleneck=cfg.neck, chfak=cfg.chfak,
-                                  compute_dtype=cdt)
+        # --critic: the pair; --bf16: bfloat16 conv stacks, f32 params
+        # and sigmoid heads
+        self.critic, self.masker = build_pair(
+            cfg, torch.bfloat16 if cfg.bf16 else torch.float32)
         self.reset_models()
 
         # run layout (main.py:93-102)
@@ -182,7 +179,8 @@ class Handler:
 
     def _load_models_local(self, modelnames: List[str]) -> bool:
         for name in modelnames:
-            loaded = load_model_pt(name, self.save_paths[name])
+            loaded = load_model_pt(name, self.save_paths[name],
+                                   self.cfg.critic_arch)
             if loaded is None:
                 if not self.cfg.train:
                     print(f"{self.save_paths[name]} not found")
@@ -197,7 +195,8 @@ class Handler:
         modelnames = modelnames or list(self.params.keys())
         for name in modelnames:
             print("saving:", self.save_paths[name])
-            save_model_pt(self.params[name], name, self.save_paths[name])
+            save_model_pt(self.params[name], name, self.save_paths[name],
+                          self.cfg.critic_arch)
 
     # -- eval / inference ---------------------------------------------
 
@@ -529,8 +528,7 @@ class Handler:
 
         trained = trained_param_keys(cfg)
         models = {name: self._device_model(name) for name in self.params}
-        for name, model in models.items():
-            model.requires_grad_(name in trained)
+        set_masker_modes(cfg, models)
         opt = make_optimizer({n: models[n] for n in trained},
                              cfg.critic_lr_scale)
         rng = StepRng.seeded(cfg.seed, self.device, self.mesh)

@@ -2,7 +2,7 @@
 reference nets.py:452-523 `UnetDecoder`).
 
     out4 = 1x1 conv(bottleneck -> bottleneck) on embeds[4]      # 1x1
-    in3  = cat(embeds[3], up(up(out4)));  out3 = 3x3 conv       # 4x4
+    in3  = cat(embeds[3], up_f(out4));    out3 = 3x3 conv       # 4x4
     in2  = cat(embeds[2], up(out3));      out2 = 3x3 conv       # 8x8
     in1  = cat(embeds[1], up(out2));      out1 = 3x3 conv       # 16x16
     in0  = cat(embeds[0], up(out1));      out0 = 3x3 conv       # 32x32
@@ -11,7 +11,10 @@ reference nets.py:452-523 `UnetDecoder`).
 No activation sits between the decoder convs (the reference binds
 LeakyReLU 0.01 but uses it only in the mask head, nets.py:487-492).
 `dec_model.{0..4}` and `masker.{0,2}` are the reference's state_dict
-keys. Each `cat(skip, up(...))` is one `ops.upsample.up_cat`, the fused
+keys. The neck join's factor f is read from the pyramid, the height of
+embeds[3] over that of embeds[4]: 4 for the paper critic's 1x1 neck, 2
+for ResNet-18's 2x2 one (`models/zoo.py:ResNetCritic`). Each
+`cat(skip, up(...))` is one `ops.upsample.up_cat`, the fused
 upsample-into-concat kernel on the card (the x4 join too): 5 launches
 per forward and 5 per backward, and no `torch.cat`. Activations stay
 `torch.channels_last`, so the NHWC views the kernel takes are
@@ -66,7 +69,8 @@ class UnetDecoder(nn.Module):
         dec = self.dec_model
         with compute_autocast(x.device.type, self.compute_dtype):
             out = dec[4](embeds[4])
-            out = dec[3](up_cat(embeds[3], out, 4))
+            neck_up = embeds[3].shape[2] // embeds[4].shape[2]
+            out = dec[3](up_cat(embeds[3], out, neck_up))
             out = dec[2](up_cat(embeds[2], out))
             out = dec[1](up_cat(embeds[1], out))
             out = dec[0](up_cat(embeds[0], out))

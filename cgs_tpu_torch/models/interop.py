@@ -124,15 +124,17 @@ def init_torch_default(module: nn.Module,
     """Re-draw every conv and linear from PyTorch's default init,
     U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias (the JAX
     package's `core/init.py` draws the same distribution), from an
-    explicit generator instead of the global RNG."""
+    explicit generator instead of the global RNG. A layer without a
+    bias draws its weight alone; BatchNorm keeps its own init."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
                 bound = 1.0 / float(np.sqrt(m.weight[0].numel()))
                 nn.init.uniform_(m.weight, -bound, bound,
                                  generator=generator)
-                nn.init.uniform_(m.bias, -bound, bound,
-                                 generator=generator)
+                if m.bias is not None:
+                    nn.init.uniform_(m.bias, -bound, bound,
+                                     generator=generator)
     return module
 
 

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cgs_tpu_torch.models.critic import compute_autocast
 from cgs_tpu_torch.ops.upsample import up_cat
 
 CL = torch.channels_last
@@ -613,18 +614,52 @@ class ResNet18Features(nn.Sequential):
 
 class ResNetCritic(nn.Module):
     """nets.py:704-730: ImageNet-normalised ResNet18 features + 256-1
-    head. Port of `zoo.ResNetCritic`, the reference's keys (`resnet.*`,
-    `head.{1,3}`); train mode moves the BatchNorm statistics."""
+    head, no sigmoid. Port of `zoo.ResNetCritic`, the reference's keys
+    (`resnet.*`, `head.{1,3}`); train mode moves the BatchNorm
+    statistics.
 
-    def __init__(self):
+    The critic interface of `models/critic.py:Critic`, so that
+    `MaskPipeline` and the masker step run it with the paper's
+    `UnetDecoder` on its pyramid (`models/build.py`): `forward(x,
+    collect=True)` also returns the five post-ReLU taps, stored
+    channels_last: the stem's ReLU (64 @ 32x32) and layer1-4 (64 @
+    16x16, 128 @ 8x8, 256 @ 4x4, 512 @ 2x2, the neck). `generator` is
+    accepted and unused (no dropout). Under `compute_dtype=
+    torch.bfloat16` the convolutions and linears run in bf16 with f32
+    parameters, as in `Critic`. `batch_norms` lists the 20 BatchNorm
+    layers in forward order; the ImageNet mean and std are buffers
+    outside the state_dict, so a forward on the card makes no host
+    copy."""
+
+    def __init__(self, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.resnet = ResNet18Features()
         self.head = nn.Sequential(nn.Flatten(), nn.Linear(512 * 2 * 2, 256),
                                   nn.ReLU(), nn.Linear(256, 1))
+        self.register_buffer("mean", torch.as_tensor(IMAGENET_MEAN).view(
+            1, 3, 1, 1), persistent=False)
+        self.register_buffer("std", torch.as_tensor(IMAGENET_STD).view(
+            1, 3, 1, 1), persistent=False)
+        self.batch_norms = [m for m in self.modules()
+                            if isinstance(m, nn.BatchNorm2d)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, collect: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x: (B, 3, 64, 64). The score (B, 1) and, with collect=True,
+        the five taps."""
         x = torch.where(x.max() > 1.0, x / 255.0, x)    # nets.py:721
-        return self.head(self.resnet(imagenet_normalize(x)))
+        x = (x - self.mean) / self.std                  # nets.py:802-804
+        taps = []
+        with compute_autocast(x.device.type, self.compute_dtype):
+            for i, layer in enumerate(self.resnet):
+                x = layer(x)
+                if i == 2 or i >= 4:        # the stem's ReLU, layer1-4
+                    taps.append(_cl(x))
+            score = self.head(x)
+        if self.compute_dtype == torch.bfloat16:
+            score = score.float()
+        return (score, taps) if collect else score
 
 
 class Printer(nn.Module):

@@ -1,8 +1,10 @@
 """Batched mask inference, the `-process`/`-eval` forward path (PyTorch
 port of `cgs_tpu/pipeline.py`; reference main.py:1130-1151 / 935-956).
 
-One forward per batch: uint8 NHWC frames are ingested by the
-`normalize_u8` kernel (straight into bf16 when critic and decoder
+One forward per batch, of either pair of `models/build.py` (the paper's
+`Critic`, or `ResNetCritic` with its BatchNorm in the module's mode,
+with the `UnetDecoder` on its pyramid): uint8 NHWC frames are ingested
+by the `normalize_u8` kernel (straight into bf16 when critic and decoder
 compute in bf16 and no saliency is asked for, so neither model casts
 its input), viewed as NCHW channels_last with no copy, run
 through the critic (with its feature pyramid and, optionally, the
@@ -42,7 +44,9 @@ its rows into the outputs). `run` alone adds to the counters
 `pipeline.staged_batches` (batches whose copies ran on the side streams
 from pinned buffers: every batch on the card, none on the CPU), so a
 caller of `place_input` and `run_device` (the server) moves none of
-them.
+them. Each member's critic and decoder forward, on every path but int8,
+is `models/build.py:critic_forward` / `masker_forward`: the spans
+`cgs.model.critic` and `cgs.model.masker` and the `model.*` counters.
 
 With `ensemble=True` (port of `cgs_tpu/pipeline.py:81-86,213-254`) the
 pipeline holds R members and outputs the mean over them of pred, soft
@@ -56,7 +60,8 @@ With `quantize="int8"` (port of `cgs_tpu/pipeline.py:161-172,300-315,
 (`ops/quant.py`), the weights quantized once per `update_params`, the
 activation scales dynamic, or static from a calibration batch (`calib`,
 one f32 forward per `update_params`); the ingest and the decoder's
-five joins launch the same kernels as in f32.
+five joins launch the same kernels as in f32. The quantized forwards
+are the paper's `Critic`'s: another critic is refused.
 
 With `mesh` (a `parallel.mesh.Mesh`; port of `cgs_tpu/pipeline.py:63-73,
 145-209,396-435,466-468`) the batch is padded to a multiple of the world
@@ -81,6 +86,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
 import warnings
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -88,6 +94,8 @@ import numpy as np
 import torch
 
 from cgs_tpu_torch.core.device import resolve_device
+from cgs_tpu_torch.models.build import critic_forward, masker_forward
+from cgs_tpu_torch.models.critic import Critic
 from cgs_tpu_torch.ops.kernels import normalize_u8
 from cgs_tpu_torch.ops.quant import (
     calibrate_act_scales, critic_apply_q, masker_apply_q, merge_act_scales,
@@ -230,7 +238,7 @@ class _StagingRing:
 class MaskPipeline:
     """Critic+masker batched inference with optional saliency.
 
-    critic, masker: the `Critic` / `UnetDecoder` modules that fix the
+    critic, masker: the critic / `UnetDecoder` modules that fix the
     architecture and compute dtype; params: {'critic', 'masker'[,
     'sepcrit']} state_dicts, or with ensemble=True a sequence of R such
     dicts, one per member (`train/checkpoints.py:load_seed_ensemble`).
@@ -284,6 +292,11 @@ class MaskPipeline:
         if quantize and not eval_mode:
             raise ValueError("quantize='int8' requires eval_mode=True "
                              "(the quantized forward has no dropout)")
+        if quantize and not isinstance(critic, Critic):
+            raise ValueError(
+                "quantize='int8' runs the paper's Critic only "
+                "(ops/quant.py:critic_apply_q), not "
+                f"{type(critic).__name__}: serve it without int8")
         if quantize and ensemble and calib is not None:
             warnings.warn(
                 "MaskPipeline: calib is ignored with ensemble=True; the "
@@ -382,7 +395,7 @@ class MaskPipeline:
             mask = masker_apply_q(models["masker"], x, embeds,
                                   compute_dtype=self.masker.compute_dtype)
             return pred.squeeze(-1), mask.permute(0, 2, 3, 1), None
-        critic = models["critic"]
+        critic = functools.partial(critic_forward, models["critic"])
         if self.salience:   # fused forward + input-grad (main.py:949-953)
             pred, embeds, sal = critic_with_saliency(critic, x, gen)
             sal = sal.permute(0, 2, 3, 1)
@@ -390,8 +403,10 @@ class MaskPipeline:
             pred, embeds = critic(x, collect=True, generator=gen)
             sal = None
         if self.separate:   # masker reads sepcrit features (main.py:946)
-            _, embeds = models["sepcrit"](x, collect=True, generator=gen)
-        mask = models["masker"](x, embeds).permute(0, 2, 3, 1)
+            _, embeds = critic_forward(models["sepcrit"], x, collect=True,
+                                       generator=gen)
+        mask = masker_forward(models["masker"], x, embeds
+                              ).permute(0, 2, 3, 1)
         return pred.squeeze(-1), mask, sal
 
     def _forward(self, u8: torch.Tensor) -> tuple:

@@ -64,7 +64,9 @@ def probe(critic, masker, theta1: Dict[str, torch.Tensor], x_test, y_test,
     64, 64, 3) on the models' device; y_test float32, gt_eval bool (N,
     64, 64)."""
     mods = (critic, masker)
-    was = [m.training for m in mods]
+    # every submodule's mode: a frozen critic's BatchNorm stays in eval
+    # mode inside a training one (`train/steps.py:set_masker_modes`)
+    was = [(m, m.training) for mod in mods for m in mod.modules()]
     for m in mods:
         m.eval()
     try:
@@ -96,8 +98,8 @@ def probe(critic, masker, theta1: Dict[str, torch.Tensor], x_test, y_test,
                 counts[0] += i
                 counts[1] += u
     finally:
-        for m, w in zip(mods, was):
-            m.train(w)
+        for m, w in was:
+            m.training = w
     inter, union = (int(v) for v in counts.cpu())
     return dict(test_mse=float(test_mse), separation=float(separation),
                 param_drift=float(param_drift), iou=inter / max(union, 1),

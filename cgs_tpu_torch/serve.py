@@ -340,15 +340,11 @@ class MicroBatcher:
 
 
 def _templates(cfg):
-    """The critic and masker modules that fix the served architecture."""
-    from cgs_tpu_torch.models.critic import Critic
-    from cgs_tpu_torch.models.decoder import UnetDecoder
+    """The critic and masker modules that fix the served architecture
+    (`models/build.py:build_pair`)."""
+    from cgs_tpu_torch.models.build import build_pair
 
-    cdt = torch.bfloat16 if cfg.bf16 else torch.float32
-    return (Critic(bottleneck=cfg.neck, chfak=cfg.chfak, dropout=cfg.dropout,
-                   compute_dtype=cdt),
-            UnetDecoder(bottleneck=cfg.neck, chfak=cfg.chfak,
-                        compute_dtype=cdt))
+    return build_pair(cfg, torch.bfloat16 if cfg.bf16 else torch.float32)
 
 
 def _wire(cfg):
@@ -525,7 +521,7 @@ class MaskServer:
         for name, path in checkpoint_paths(cfg).items():
             if name not in params:
                 continue
-            loaded = load_model_pt(name, path)
+            loaded = load_model_pt(name, path, cfg.critic_arch)
             if loaded is None:
                 print(f"[cgs-tpu-torch serve] {path} not found — "
                       f"serving a RANDOM {name}")
@@ -572,7 +568,8 @@ class MaskServer:
                 if name not in params:
                     continue
                 try:
-                    new = load_model_pt(name, path)
+                    new = load_model_pt(name, path,
+                                        self.cfg.critic_arch)
                 except Exception as e:
                     # per-model isolation: one corrupt file keeps its
                     # model's served weights and spoils no other

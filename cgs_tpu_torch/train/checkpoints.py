@@ -4,7 +4,10 @@
 Filenames are the arg fingerprints `critic-<args>.pt` /
 `masker-<args>.pt` under `{name}/saves/` (main.py:86-102) and contents
 are state_dicts in the reference layout, so files move freely between
-the reference, `cgs_tpu` and this port. A missing file loads as None
+the reference, `cgs_tpu` and this port. A `--critic resnet18` critic is
+the reference's `ResNetCritic` state_dict (`resnet.*`, `head.*`, the
+BatchNorm buffers with it), under names that end in `-critic=resnet18`
+(`core/config.py`). A missing file loads as None
 (the caller keeps its weights, main.py:141-147). `load_seed_ensemble`
 (port of `cgs_tpu/train/checkpoints.py:108-148`) reads the per-seed
 runs that `sandbox/multirun.py` and `sandbox/seed_parallel.py` write.
@@ -19,6 +22,7 @@ point), one `torch.save` file per step, the newest `max_to_keep` kept.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import re
 import time
@@ -39,35 +43,47 @@ def checkpoint_paths(cfg) -> Dict[str, str]:
     }
 
 
-def _expected_keys(kind: str):
+@functools.lru_cache(maxsize=None)
+def _resnet_critic_keys() -> frozenset:
+    from cgs_tpu_torch.models.zoo import ResNetCritic
+    with torch.device("meta"):
+        return frozenset(ResNetCritic().state_dict())
+
+
+def _expected_keys(kind: str, arch: str = "paper"):
+    if kind != "masker" and arch == "resnet18":
+        return _resnet_critic_keys()
     return {f"{m}.{p}" for m in KEYMAPS[kind].values()
             for p in ("weight", "bias")}
 
 
 def save_model_pt(state: Dict[str, torch.Tensor], kind: str,
-                  path: str) -> None:
+                  path: str, arch: str = "paper") -> None:
     """Write a reference-layout state_dict (main.py:149-156), published
     atomically (temp file + os.replace) so a reader never sees a
-    half-written file."""
-    missing = _expected_keys(kind) - set(state)
+    half-written file. Floating tensors are written float32; integer
+    buffers (BatchNorm's `num_batches_tracked`) keep their type."""
+    missing = _expected_keys(kind, arch) - set(state)
     if missing:
         raise KeyError(f"{kind} state_dict lacks {sorted(missing)}")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    state = {k: v.detach().to("cpu", torch.float32).contiguous()
+    state = {k: v.detach().to("cpu", torch.float32
+                              if v.is_floating_point() else v.dtype
+                              ).contiguous()
              for k, v in state.items()}
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save(state, tmp)
     os.replace(tmp, path)
 
 
-def load_model_pt(kind: str, path: str
+def load_model_pt(kind: str, path: str, arch: str = "paper"
                   ) -> Optional[Dict[str, torch.Tensor]]:
     """Load a reference-layout .pt onto the CPU; None if the file is
     missing."""
     if not os.path.exists(path):
         return None
     state = torch.load(path, map_location="cpu", weights_only=True)
-    missing = _expected_keys(kind) - set(state)
+    missing = _expected_keys(kind, arch) - set(state)
     if missing:
         raise KeyError(f"{path} is not a {kind} checkpoint: lacks "
                        f"{sorted(missing)}")
@@ -94,7 +110,7 @@ def load_seed_ensemble(cfg, n: int, base_seed: int = 0
         paths = checkpoint_paths(cfg_s)
         member = {}
         for name in ("critic", "masker"):
-            state = load_model_pt(name, paths[name])
+            state = load_model_pt(name, paths[name], cfg.critic_arch)
             if state is None:
                 raise FileNotFoundError(
                     f"ensemble member missing: {paths[name]}")

@@ -21,7 +21,16 @@ fuse batches the data-independent critic passes into one call each:
 "none" is the reference's 4 calls, "merges" fuses (replaced, injected),
 "both" (default) also fuses (A, B). The gradient topology is the same
 in all three (no cross-batch op in the critic); a fused pair draws its
-dropout once over the merged batch.
+dropout once over the merged batch. A critic whose BatchNorm runs on
+batch statistics (a live `--critic resnet18`) couples the frames of a
+pass, so fusing would mix A's statistics with B's: its passes run
+unfused, as the reference's separate calls (main.py:394-413), and its
+running statistics move once a pass. A frozen one runs BatchNorm on its
+running statistics (`train/steps.py:set_masker_modes`), fused and exact.
+
+Every critic and masker pass goes through `models/build.py:
+critic_forward` / `masker_forward`: the spans `cgs.model.critic` and
+`cgs.model.masker`, and the frame and BatchNorm counters.
 
 The fused passes read joined batches without a `torch.cat` on the
 step's path: the (A, B) pass reads the ingest's joined batch `ab` when
@@ -39,6 +48,9 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from cgs_tpu_torch.models.build import (
+    batch_norms, critic_forward, masker_forward,
+)
 from cgs_tpu_torch.ops.kernels import (
     Segment, gather_normalize_u8, normalize_u8,
 )
@@ -100,7 +112,7 @@ def build_critic_loss(cfg):
     use_bce = bool(cfg.threshrew)
 
     def loss_fn(critic, x, y, generator: Optional[torch.Generator] = None):
-        pred = critic(x, generator=generator).squeeze(-1)
+        pred = critic_forward(critic, x, generator=generator).squeeze(-1)
         return bce(pred, y) if use_bce else mse(pred, y)
 
     return loss_fn
@@ -172,24 +184,29 @@ def build_masker_loss(cfg, fuse: str = "both"):
         (A, B) critic pass reads it instead of `torch.cat([a, b])`."""
         critic = models["critic"]
         n = a.shape[0]
-        if fuse_ab:
-            out, embeds = critic(torch.cat([a, b]) if ab is None else ab,
-                                 collect=True, generator=generator)
+        # batch statistics couple a pass's frames: no fused pass then
+        fusable = not any(m.training for m in batch_norms(critic))
+        if fuse_ab and fusable:
+            out, embeds = critic_forward(
+                critic, torch.cat([a, b]) if ab is None else ab,
+                collect=True, generator=generator)
             out = out.squeeze(-1)
             pred = out[:n]
             negpred = out[n:].detach()
             embeds = [e[:n] for e in embeds]
         else:
-            pred, embeds = critic(a, collect=True, generator=generator)
+            pred, embeds = critic_forward(critic, a, collect=True,
+                                          generator=generator)
             pred = pred.squeeze(-1)
-            negpred = critic(b, generator=generator).squeeze(-1).detach()
+            negpred = critic_forward(critic, b, generator=generator
+                                     ).squeeze(-1).detach()
 
         aux = {"pred": pred, "negpred": negpred}
         if separate:  # main.py:389-390
-            _, embeds = models["sepcrit"](a, collect=True,
-                                          generator=generator)
+            _, embeds = critic_forward(models["sepcrit"], a, collect=True,
+                                       generator=generator)
 
-        z = models["masker"](a, embeds)
+        z = masker_forward(models["masker"], a, embeds)
         aux["z"] = z
 
         if inject:  # main.py:395,406: replaced || injected, one batch
@@ -199,16 +216,17 @@ def build_masker_loss(cfg, fuse: str = "both"):
             replaced, injected = replace_merge(a, b, z), None
         aux["replaced"], aux["injected"] = replaced, injected
         injectvalue = None
-        if fuse_merge and inject:
-            vals = critic(merged, generator=generator).squeeze(-1)
+        if fuse_merge and inject and fusable:
+            vals = critic_forward(critic, merged,
+                                  generator=generator).squeeze(-1)
             replacevalue = vals[:n]
             injectvalue = vals[n:]
         else:
-            replacevalue = critic(replaced,
-                                  generator=generator).squeeze(-1)
+            replacevalue = critic_forward(critic, replaced,
+                                          generator=generator).squeeze(-1)
             if inject:
-                injectvalue = critic(injected,
-                                     generator=generator).squeeze(-1)
+                injectvalue = critic_forward(
+                    critic, injected, generator=generator).squeeze(-1)
         aux["replacevalue"] = replacevalue
         aux["injectvalue"] = (injectvalue if inject
                               else torch.zeros_like(negpred))

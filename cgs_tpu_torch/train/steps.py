@@ -42,6 +42,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from cgs_tpu_torch.models.build import batch_norms
 from cgs_tpu_torch.ops.augment import draw_shift
 from cgs_tpu_torch.ops.kernels import Segment
 from cgs_tpu_torch.parallel.mesh import rank_seed
@@ -112,6 +113,20 @@ def trained_param_keys(cfg) -> list:
     (main.py:330-334)."""
     return ["masker"] + (["critic"] if cfg.live else []) + (
         ["sepcrit"] if cfg.separate else [])
+
+
+def set_masker_modes(cfg, models: Dict[str, torch.nn.Module]) -> None:
+    """The masker phase's modes: every model in train mode (dropout
+    live), gradients for the trained ones (`trained_param_keys`). A
+    model that does not train (the -frozen critic) runs its BatchNorm on
+    its running statistics, as a frozen backbone does: they do not move,
+    and the fused critic passes stay exact (`train/losses.py`)."""
+    trained = trained_param_keys(cfg)
+    for name, model in models.items():
+        model.requires_grad_(name in trained).train()
+        if name not in trained:
+            for m in batch_norms(model):
+                m.eval()
 
 
 def sync_gradients(optimizer: torch.optim.Optimizer, mesh,

@@ -11,13 +11,17 @@ short run.
 
 `span(name)` names a region of the port's own host work (`cgs.pipeline.*`
 in `pipeline.py`, `cgs.train.*` in `train/loops.py` and
-`train/steps.py`). While a torch.profiler
+`train/steps.py`, `cgs.model.critic` and `cgs.model.masker` around each
+critic and decoder forward of the pipeline and the training passes,
+`models/build.py`). While a torch.profiler
 records on the calling thread, it is a `record_function` event, in the
 same trace and on the same clock as the kernels and copies, under
 `--profile` or any other profiler; otherwise it is one shared no-op
 context. `counts` holds the port's counters (`pipeline.rows`,
-`pipeline.h2d_bytes`, `pipeline.d2h_bytes`, `pipeline.staged_batches`),
-bumped where the work is issued and never reset.
+`pipeline.h2d_bytes`, `pipeline.d2h_bytes`, `pipeline.staged_batches`;
+`model.critic_frames`, `model.masker_frames`, and `model.bn_running` /
+`model.bn_batch`, the BatchNorm layers applied on running and on batch
+statistics), bumped where the work is issued and never reset.
 """
 
 from __future__ import annotations

@@ -57,6 +57,7 @@ REPO = Path(__file__).resolve().parent.parent
 def test_config_matches_jax_grammar(argv):
     ours = dataclasses.asdict(parse_args(argv + ["--device", "cpu"]))
     assert ours.pop("device") == "cpu"
+    assert ours.pop("critic_arch") == "paper"     # port-only: --critic
     assert ours == dataclasses.asdict(jax_parse_args(argv))
     assert parse_args(argv).device == "cuda"      # the default
     cfg = parse_args(argv)

@@ -126,9 +126,12 @@ def test_pipeline_run_spans_nest_under_run(one_torch_thread):
     kids = _children(events, "cgs.pipeline.run")
     assert kids == {"cgs.pipeline.pad": 1, "cgs.pipeline.upload": 3,
                     "cgs.pipeline.forward": 3, "cgs.pipeline.read_back": 3}
-    # the forward's operations sit inside its span
+    # the forward's operations sit inside its span, the models' in
+    # theirs (`models/build.py`)
+    assert _children(events, "cgs.pipeline.forward").keys() >= {
+        "cgs.model.critic", "cgs.model.masker"}
     assert any(n.startswith("aten::conv")
-               for n in _children(events, "cgs.pipeline.forward"))
+               for n in _children(events, "cgs.model.critic"))
 
 
 @pytest.mark.parametrize("n,batch,kw", [
@@ -157,13 +160,18 @@ def test_pipeline_counters_are_exact(n, batch, kw, one_torch_thread):
 
 def test_pipeline_counters_count_run_alone(one_torch_thread):
     """The server's path (`place_input` then `run_device`, its own
-    read-back) moves no counter: the three count the same calls of
-    `run`, so their ratios hold whatever else drives the pipeline."""
+    read-back) moves no `pipeline.*` counter: they count the same calls
+    of `run`, so their ratios hold whatever else drives the pipeline.
+    The `model.*` counters count every forward, the server's too."""
     pipe = _tiny_pipeline(8, wire="u8", hard_threshold=0.5)
     before = dict(profiling.counts)
     out = pipe.run_device(pipe.place_input(_frames(8)))
     assert out[1].cpu().numpy().shape == (8, 64, 64, 1)
-    assert dict(profiling.counts) == before
+    after = dict(profiling.counts)
+    assert {k: v for k, v in after.items() if k.startswith("pipeline.")} \
+        == {k: v for k, v in before.items() if k.startswith("pipeline.")}
+    for k in ("model.critic_frames", "model.masker_frames"):
+        assert after[k] - before.get(k, 0) == 8
 
 
 def test_masker_chunk_spans(one_torch_thread):
