@@ -81,10 +81,11 @@ def normalize_u8_plain(x_u8: torch.Tensor,
 
 
 def gather_normalize_u8_plain(segments: Sequence[Segment],
-                              dtype: torch.dtype = torch.float32):
+                              dtype: torch.dtype = torch.float32, out=None):
     """The kernel's function in plain PyTorch: per segment and seed,
     index_select and roll; then cat and normalise. For R seeds this is
-    the R single-seed calls' pieces, segment by segment."""
+    the R single-seed calls' pieces, segment by segment. out: as
+    `gather_normalize_u8`'s, copied into."""
     frames, labels = [], []
     for seg in (one for s in segments for one in s.per_seed()):
         x = seg.bank if seg.idx is None else seg.bank.index_select(0,
@@ -93,8 +94,14 @@ def gather_normalize_u8_plain(segments: Sequence[Segment],
         if seg.labels is not None:
             labels.append(seg.labels if seg.idx is None
                           else seg.labels.index_select(0, seg.idx))
-    return (normalize_u8_plain(torch.cat(frames), dtype),
-            torch.cat(labels) if labels else None)
+    x = normalize_u8_plain(torch.cat(frames), dtype)
+    y = torch.cat(labels) if labels else None
+    if out is None:
+        return x, y
+    out[0].copy_(x)
+    if y is not None:
+        out[1].copy_(y)
+    return out
 
 
 def _check_segments(segments: Sequence[Segment], dtype) -> None:
@@ -139,8 +146,35 @@ def _check_segments(segments: Sequence[Segment], dtype) -> None:
                              f"({b.shape[0]},) on the banks' device")
 
 
+def _check_out(segments: Sequence[Segment], dtype, out):
+    """The (frames, labels) buffers an `out=` call writes: frames a
+    contiguous (sum rows, H, W, C) tensor of `dtype` on the banks'
+    device, labels a contiguous float32 (labelled rows,) tensor there,
+    or None exactly when no segment has labels."""
+    name = "gather_normalize_u8"
+    frames, labels = out
+    dev = segments[0].bank.device
+    n = sum(seg.rows for seg in segments)
+    n_lab = sum(seg.rows for seg in segments if seg.labels is not None)
+    shape = (n, *segments[0].bank.shape[1:])
+    if (tuple(frames.shape) != shape or frames.dtype != dtype
+            or frames.device != dev or not frames.is_contiguous()):
+        raise ValueError(f"{name}: out frames must be a contiguous {dtype} "
+                         f"{shape} tensor on {dev}, got {frames.dtype} "
+                         f"{tuple(frames.shape)} on {frames.device}")
+    if (labels is None) != (segments[0].labels is None):
+        raise ValueError(f"{name}: out labels must be given with labelled "
+                         "segments, and only with them")
+    if labels is not None and (
+            tuple(labels.shape) != (n_lab,) or labels.dtype != torch.float32
+            or labels.device != dev or not labels.is_contiguous()):
+        raise ValueError(f"{name}: out labels must be a contiguous float32 "
+                         f"({n_lab},) tensor on {dev}, got {labels.dtype} "
+                         f"{tuple(labels.shape)} on {labels.device}")
+
+
 def gather_normalize_u8(segments: Sequence[Segment],
-                        dtype: torch.dtype = torch.float32):
+                        dtype: torch.dtype = torch.float32, out=None):
     """(frames, labels): the segments' frames gathered, rolled and
     normalised (`x * float32(1/255)`, then rounded to `dtype`), laid end
     to end in one (sum rows, H, W, C) buffer, and the labels of the
@@ -150,11 +184,17 @@ def gather_normalize_u8(segments: Sequence[Segment],
     launch on the card, whatever R is. Bit-equal to
     `gather_normalize_u8_plain`.
 
+    out: (frames, labels) buffers to write instead of fresh ones
+    (`_check_out`), returned as they are: the captured masker step's
+    static inputs (`train/graph.py`).
+
     The kernel does not check the indices: a caller that builds them
     validates them first (`train/loops.py:_upload`)."""
     _check_segments(segments, dtype)
+    if out is not None:
+        _check_out(segments, dtype, out)
     if segments[0].bank.device.type == "cpu":
-        return gather_normalize_u8_plain(segments, dtype)
+        return gather_normalize_u8_plain(segments, dtype, out)
     for seg in segments:
         _build.require_cuda_tensor(seg.bank, "gather_normalize_u8")
         for t in (seg.idx, seg.labels):
@@ -164,14 +204,17 @@ def gather_normalize_u8(segments: Sequence[Segment],
     seeds = segments[0].seeds
     n = sum(seg.rows for seg in segments)
     h, w, c = segments[0].bank.shape[1:]
-    out = torch.empty((n, h, w, c), dtype=dtype, device=dev)
     n_lab = sum(seg.rows for seg in segments if seg.labels is not None)
-    labels = (torch.empty(n, dtype=torch.float32, device=dev)
-              if segments[0].labels is not None else None)
-    if out.numel() == 0:   # a grid of 0 blocks is an invalid launch
+    if out is not None:
+        frames, labels = out
+    else:
+        frames = torch.empty((n, h, w, c), dtype=dtype, device=dev)
+        labels = (torch.empty(n_lab, dtype=torch.float32, device=dev)
+                  if segments[0].labels is not None else None)
+    if frames.numel() == 0:   # a grid of 0 blocks is an invalid launch
         if n_lab:
             raise ValueError("gather_normalize_u8: labels of empty frames")
-        return out, labels
+        return frames, labels
     desc = np.array([[seg.bank.data_ptr(),
                       0 if seg.idx is None else seg.idx.data_ptr(),
                       seg.rows // seeds,
@@ -183,11 +226,11 @@ def gather_normalize_u8(segments: Sequence[Segment],
     with torch.cuda.device(dev):   # launch on the tensor's card
         err = lib.cgs_normalize_u8(
             desc.ctypes.data, len(segments), seeds, shifts.ctypes.data, h, w,
-            c, out.data_ptr(), 0 if labels is None else labels.data_ptr(),
+            c, frames.data_ptr(), 0 if labels is None else labels.data_ptr(),
             int(dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(err, "normalize_u8")
     _build.launches["normalize_u8"] += 1
-    return out, (None if labels is None else labels[:n_lab])
+    return frames, labels
 
 
 def normalize_u8(x_u8: torch.Tensor,

@@ -26,11 +26,17 @@ The viz functions recompute the annotated-strip inputs at a chunk
 boundary from the current weights, with fresh shift and dropout
 draws, as the JAX package does.
 
+On one card `masker_chunk` replays one captured CUDA graph a step
+(`train/graph.py`); over a mesh or on the CPU it runs its steps
+eagerly. The counters `train.graph_steps`
+and `train.eager_steps` (`utils/profiling.counts`) count its steps by
+path.
+
 Under a profiler a chunk names its host work (`utils/profiling.py:
 span`): `cgs.train.critic_chunk` / `cgs.train.masker_chunk` around the
 chunk, `cgs.train.upload_indices` around the index check and upload,
-each step's own spans (`train/steps.py`), and `cgs.train.stack_losses`
-around the losses' stack.
+each step's own spans (`train/steps.py`, `train/graph.py`), and
+`cgs.train.stack_losses` around the losses' stack.
 """
 
 from __future__ import annotations
@@ -43,11 +49,12 @@ import torch
 from cgs_tpu_torch.ops.augment import shift_batch
 from cgs_tpu_torch.ops.kernels import Segment
 from cgs_tpu_torch.ops.merge import inject_merge
+from cgs_tpu_torch.train import graph
 from cgs_tpu_torch.train.losses import build_masker_loss, ingest
 from cgs_tpu_torch.train.steps import (
     StepRng, critic_step, masker_batch, masker_step,
 )
-from cgs_tpu_torch.utils.profiling import span
+from cgs_tpu_torch.utils.profiling import counts, span
 
 
 def _upload(idx, bound: int, device) -> torch.Tensor:
@@ -136,19 +143,24 @@ def masker_chunk(cfg, models: Dict[str, torch.nn.Module], optimizer,
     """S masker steps with index stacks hidx (S, K), lidx (S, K), cidx
     (S, 2K); returns the (S, 4) loss terms (replace, inject, norm,
     critic) on the device. Over a mesh each rank runs its rows
-    (`masker_rows`). fuse: as `masker_step`'s."""
+    (`masker_rows`). fuse: as `masker_step`'s. Where `graph.engages`,
+    each step replays the captured step (`graph.masker_steps`)."""
     with span("cgs.train.masker_chunk"):
         whole = False
         if mesh is not None:
             hidx, lidx, cidx, whole = masker_rows(mesh, hidx, lidx, cidx)
         with span("cgs.train.upload_indices"):
             h, l, c = _upload_masker(xpos, xneg, hidx, lidx, cidx)
+        steps = [_masker_segments(xpos, ypos, xneg, yneg, h[s], l[s], c[s])
+                 for s in range(h.shape[0])]
+        if steps and graph.engages(mesh, xpos.device):
+            return graph.masker_steps(cfg, models, optimizer, steps, rng,
+                                      fuse, (xpos, ypos, xneg, yneg))
         terms = []
-        for s in range(h.shape[0]):
-            a, b = _masker_segments(xpos, ypos, xneg, yneg, h[s], l[s],
-                                    c[s])
+        for a, b in steps:
             terms.extend(masker_step(cfg, models, optimizer, a, b, rng,
                                      mesh, whole, fuse))
+        counts["train.eager_steps"] += len(steps)
         return _chunk_losses(terms, mesh, whole).view(-1, 4)
 
 

@@ -97,12 +97,13 @@ def ingest(x_u8: torch.Tensor) -> torch.Tensor:
     return normalize_u8(x_u8).permute(0, 3, 1, 2)
 
 
-def ingest_segments(segments: Sequence[Segment]):
+def ingest_segments(segments: Sequence[Segment], out=None):
     """(frames, labels): the segments gathered, rolled and ingested into
     one (N, 3, H, W) float32 batch stored channels_last, and the
     labelled segments' labels (`ops.kernels.gather_normalize_u8`, one
-    kernel launch on the card)."""
-    x, y = gather_normalize_u8(segments)
+    kernel launch on the card), written into `out` (the NHWC frames and
+    the labels buffers) when given."""
+    x, y = gather_normalize_u8(segments, out=out)
     return x.permute(0, 3, 1, 2), y
 
 

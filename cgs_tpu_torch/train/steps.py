@@ -52,6 +52,8 @@ from cgs_tpu_torch.train.losses import (
 from cgs_tpu_torch.utils.profiling import span
 
 LR, BETAS, EPS = 1e-3, (0.9, 0.999), 1e-8
+# the masker step's loss terms, in the order a chunk returns them
+TERMS = ("replace", "inject", "norm", "critic")
 
 
 @dataclasses.dataclass
@@ -185,12 +187,24 @@ def critic_step(cfg, critic: torch.nn.Module,
         return loss.detach()
 
 
-def masker_batch(cfg, a: Sequence[Segment], b: Segment, rng: StepRng):
+def masker_batch(cfg, a: Sequence[Segment], b: Segment, rng: StepRng,
+                 out=None):
     """(ab, y, n): A (shifted by one draw; only A is shifted,
     main.py:355-357) and B ingested into one joined batch, A's labels,
-    and A's frame count n, so a = ab[:n] and b = ab[n:]."""
-    ab, y = ingest_segments([*shifted(cfg, a, rng), b])
+    and A's frame count n, so a = ab[:n] and b = ab[n:]; into `out`'s
+    buffers when given (`ingest_segments`)."""
+    ab, y = ingest_segments([*shifted(cfg, a, rng), b], out)
     return ab, y, ab.shape[0] - b.rows
+
+
+def masker_loss(cfg, models: Dict[str, torch.nn.Module], ab, y, n: int,
+                rng: StepRng, fuse: str = "both"):
+    """(loss, aux) of the masker step on `masker_batch`'s joined batch
+    (`train/losses.py:build_masker_loss`); aux[t] for t in `TERMS` are
+    the logged loss terms."""
+    with span("cgs.train.loss"):
+        return build_masker_loss(cfg, fuse)(models, ab[:n], y, ab[n:],
+                                            rng.dropout, ab=ab)
 
 
 def masker_step(cfg, models: Dict[str, torch.nn.Module],
@@ -209,9 +223,6 @@ def masker_step(cfg, models: Dict[str, torch.nn.Module],
     with span("cgs.train.masker_step"):
         with span("cgs.train.batch"):
             ab, y, n = masker_batch(cfg, a, b, rng)
-        with span("cgs.train.loss"):
-            loss, aux = build_masker_loss(cfg, fuse)(
-                models, ab[:n], y, ab[n:], rng.dropout, ab=ab)
+        loss, aux = masker_loss(cfg, models, ab, y, n, rng, fuse)
         _apply(optimizer, loss, mesh, whole)
-        return tuple(aux[t].detach() for t in
-                     ("replace", "inject", "norm", "critic"))
+        return tuple(aux[t].detach() for t in TERMS)

@@ -308,12 +308,12 @@ def test_masker_step_ingests_once_with_one_shift_for_a():
     calls, inputs = [], []
     real = losses_mod.gather_normalize_u8
 
-    def spy(segments):
-        out = real(segments)
+    def spy(segments, out=None):
+        got = real(segments, out=out)
         calls.append(([s.shift for s in segments],
                       [s.labels is not None for s in segments],
-                      out[0].data_ptr()))
-        return out
+                      got[0].data_ptr()))
+        return got
 
     critic.register_forward_pre_hook(
         lambda _m, args: inputs.append(args[0].data_ptr()))
