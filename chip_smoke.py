@@ -1,63 +1,42 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (`cgs_tpu_torch`) on one CUDA card.
+"""The PyTorch port's (`cgs_tpu_torch`) main paths, run whole on one CUDA
+card.
 
     python3 chip_smoke.py
-
     python3 chip_smoke.py --train-seeds 0,1,2   # the protocol per seed
     python3 chip_smoke.py --only-dp             # the dp phase alone
 
+Where the card's checks live: checks of single kernels and single steps
+on the card are the `cuda`-marked tests (`pytest -m cuda
+tests/test_torch_port_cuda.py tests/test_torch_port_masker_graph.py`);
+speed is measured only by `portbench/` (`portbench/run.py`, the cells
+of `BENCHMARK.json`); this script runs the port's main paths on the
+card and checks what only a whole path shows. It times nothing.
+
 Run from the root of a checkout on a machine with an NVIDIA card
 (written for an H100, `sm_90a`) and `nvcc`. It builds the CUDA kernels
-from `cgs_tpu_torch/csrc/`, then:
+from `cgs_tpu_torch/csrc/` and the dense-CRF library, then:
 
-  kernels  holds each kernel against its plain PyTorch version on the
-           card at the shapes the serving and training paths give it
-           (bit-equal / exactly equal), and times kernel, plain
-           version, a PyTorch yardstick where one exists, and the
-           least time the card could take (bytes / 3.35 TB/s, or
-           operations / peak); the gather-shift-normalise ingest
-           (`normalize_u8`) at the serve batch in f32 and bf16 and at
-           the masker and critic steps' segments (every shift -63..63),
-           with the device time of a step's one launch; the fused
-           upsample-into-concat pair
-           (`upsample2x`, `upsample2x_bwd`) at the decoder's five skip
-           joins, at batch 8192 (serve) and 64 (masker step), beside
-           the unfused pair it replaced, with the device time from
-           torch.profiler at batch 64; the merges, writing the joined
-           (replaced || injected) batch, and their gradient, for dz
-           alone (what the masker step asks for) and for all three
-           outputs, at the masker step's shapes (with their device
-           time) and at batch 8192; `threshold_iou` at the eval set
-           (exact counts, one device operation per call, device time
-           with the L2 flushed before each call); the up-first join of
-           the zoo U-Nets (cat([up(x), skip])) at zoo.Unet's four
-           chfak-5 joins, f32 and bf16, batch 64 and 8192, forward and
-           backward, bit-equal and timed against its byte bound;
-  serve    runs `MaskPipeline` at chfak 5 (the published width), batch
-           8192, on device-resident frames, in f32 (TF32 off) and
-           bf16: kernel path against plain path, 1 `normalize_u8` and 5
-           `upsample2x` launches per batch and no concat kernel,
-           frames/s;
-  step     one chfak-5 masker step through `masker_step` (default
-           flags, f32, TF32 off, deterministic cuDNN, frames gathered
-           from uint8 banks by index): loss terms and every gradient
-           of the kernel path bit-equal to the plain path, every
-           decoder gradient non-zero, the launches per step (1 ingest,
-           1 + 1 merge, 5 + 5 upsample), merge_pair_bwd asked for dz
-           alone, and the gradient layouts the kernels were handed;
-  speed    critic and masker train steps/s at chfak 5, f32 and bf16,
-           and the device time of one critic and one masker step by
-           category, with no concat kernel in either;
+  seeded   at R = 2 and 3 a seeded chfak-5 masker step's kernel path
+           bit-equal to its plain path ((R, 4) terms and every
+           gradient, dropout 0.5, shifts drawn); three seeded steps of
+           R = 2 at dropout 0 with given shifts agree with three serial
+           `masker_step`s per seed within SP_TOL (f32, TF32 off): the
+           first step's gradients, the terms, and the parameters under
+           SGD (under Adam, which steps by ~lr on a gradient at 0,
+           their |diff| is logged); at dropout 0.5 with shifts drawn,
+           R = 3 and R = 10 seeded masker and critic steps against each
+           seed's serial steps (terms and first-step gradients) and the
+           last seed alone against its slot at R (terms and
+           parameters), within SP_TOL: each seed draws its own dropout
+           masks;
   eval     (serving main path) a `Handler` built from `-eval -salience
            -synthetic_data --chfak 5`: `evaluate(..., write=False)` on
            the 2450-frame synthetic set; the kernel IoU must equal a
-           host numpy IoU of the same masks; then `evaluate` again
-           with its parts timed (pipeline, the masks' upload, the
-           `threshold_iou` call, the saliency normalisation, the rest);
-           then `evaluate` under `-crf` (f32 wire): the dense-CRF
-           library must build and load, and its `crf` variant must
-           equal `DenseCRF` on the plain path's masks; the CRF's host
-           seconds for the 2450 frames;
+           host numpy IoU of the same masks, and a second `evaluate`
+           the first; then `evaluate` under `-crf` (f32 wire): the
+           dense-CRF library must build and load, and its `crf` variant
+           must equal `DenseCRF` on the plain path's masks;
   process  (serving main path) `_mask_variants` with the u8 wire and
            the device-side binarisation against the f32 wire
            thresholded on the host;
@@ -67,14 +46,22 @@ from `cgs_tpu_torch/csrc/`, then:
            `evaluate(..., write=False)`: 1 `normalize_u8`, 15
            `upsample2x` and 1 `threshold_iou` launch, masks bit-equal
            to the plain path's ensemble and within 1e-6 of the mean of
-           three single-member pipelines; frames/s at batch 8192 (f32)
-           beside one model's;
+           three single-member pipelines;
+  profile  (profile main path) `cli.main([... "-eval", "--profile",
+           DIR], primary=False)`: the trace file exists and names the
+           port's device kernels (`ingest_*`, `upsample_cat_fwd`,
+           `threshold_iou_kernel`);
+  video    (video main path; cv2 and PIL) a 48-frame 128x128 mp4
+           through `cli.main(["-process", "--source-imgs", clip])`:
+           the two mask videos of 48 frames; then `-vismasker` on a
+           64-frame synthetic test split: the three curve videos;
+           `normalize_u8` and `upsample2x` launch (no IoU is computed);
   serve-http  (HTTP serving main path) `cgs_tpu_torch.serve.MaskServer`
            at chfak 5 f32, --infer-batch 256, seeded random weights in
            .pt files of a temporary run dir: 32 client threads in a
            process of their own POST 1024 distinct frames, once plain
-           and once under the profiler's CUDA tracing (the card's busy
-           share of the window) (raw PNGs within one level of the offline
+           and once under the profiler's CUDA tracing, which must see
+           device kernels (raw PNGs within one level of the offline
            `MaskPipeline.run` at batch 256 and identical on >= 99.9% of
            pixels; thresholded equal away from the threshold; crf equal
            to `DenseCRF` of the mask the server handed it; /stats
@@ -82,15 +69,13 @@ from `cgs_tpu_torch/csrc/`, then:
            answering the same; `/reload` of a second weight set under 8
            clients (each response the old or the new set's mask, never a
            mix; the new set's after the reload returns); 1 ingest and 5
-           joins per dispatch (counters and profiler); requests/s,
-           p50 / p99 latency, masks/s, device busy share and ms per
-           dispatch; then `--data-parallel 2`, two ranks on cuda:0 over
-           gloo (rank 1 a spawned `serve_worker`): the same traffic
-           (raw PNGs against the offline pipeline, rank 0's launches
-           1 + 5 a dispatch) and the same `/reload` check, requests/s
-           and p50 / p99 beside one rank's; with `--only-dp` on two or
-           more cards, the same over NCCL on cards 0 and 1, between two
-           runs of the default server, which must take one rank; then
+           joins per dispatch (counters and profiler); then
+           `--data-parallel 2`, two ranks on cuda:0 over gloo (rank 1 a
+           spawned `serve_worker`): the same traffic (raw PNGs against
+           the offline pipeline, rank 0's launches 1 + 5 a dispatch) and
+           the same `/reload` check; with `--only-dp` on two or more
+           cards, the same over NCCL on cards 0 and 1, between two runs
+           of the default server, which must take one rank; then
            `--ensemble 3 --data-parallel 2`, which does not divide: one
            warning and rank 0 serving the whole ensemble unmeshed, its
            masks bit-equal to the one-rank `--ensemble 3` server's, once
@@ -101,17 +86,7 @@ from `cgs_tpu_torch/csrc/`, then:
            every quantized conv's s32 sums equal the float64 plain
            version at batch 8; at batch 8192, dynamic and static (512
            calibration frames) scales within JAX's bounds of the f32
-           path; 1 ingest and 5 joins per batch; frames/s of int8
-           dynamic, int8 static, f32 and bf16;
-  profile  (profile main path) `cli.main([... "-eval", "--profile",
-           DIR], primary=False)`: the trace file exists and names the
-           port's device kernels (`ingest_*`, `upsample_cat_fwd`,
-           `threshold_iou_kernel`);
-  video    (video main path; cv2 and PIL) a 48-frame 128x128 mp4
-           through `cli.main(["-process", "--source-imgs", clip])`:
-           the two mask videos of 48 frames; then `-vismasker` on a
-           64-frame synthetic test split: the three curve videos;
-           `normalize_u8` and `upsample2x` launch (no IoU is computed);
+           path; 1 ingest and 5 joins per batch;
   train    (training main path) the N-seed runner
            `sandbox.multirun.run_seeds(["-train", "-eval",
            "-synthetic_data", "--chfak", "5", "--dropout", "0.5", ...],
@@ -128,25 +103,6 @@ from `cgs_tpu_torch/csrc/`, then:
            (matplotlib's where it is installed, else PIL's; the log
            says which); then one chfak-1 critic step (batch 32) and
            masker step (K = 32), kernel path bit-equal to plain path;
-  seeded   the ingest for R = 3 seeds in one launch (each seed its own
-           shift) bit-equal to its plain version, and R = 1 to the
-           single-seed call; a seeded chfak-5 masker step launches 1
-           ingest, 1 + 1 merge and 5 + 5 joins at R = 1 and R = 3 (with
-           its device operations, layout moves and their copies' device
-           time); at R = 2 and 3 the step's kernel path bit-equal to
-           its plain path ((R, 4) terms and every gradient, dropout 0.5,
-           shifts drawn); three seeded steps of R = 2 at dropout 0 with
-           given shifts agree with three serial `masker_step`s per seed
-           within SP_TOL (f32, TF32 off): the first step's gradients,
-           the terms, and the parameters under SGD (under Adam, which
-           steps by ~lr on a gradient at 0, their |diff| is logged); at
-           dropout 0.5 with shifts drawn, R = 3 and R = 10 seeded
-           masker and critic steps against each seed's serial steps
-           (terms and first-step gradients) and the last seed alone
-           against its slot at R (terms and parameters), within SP_TOL:
-           each seed draws
-           its own dropout masks; seeded masker and critic steps/s at
-           R = 1, 3 and 10 beside the serial steps' (a record);
   seed-parallel  (seed-parallel main path) `run_parallel` of R = 3
            seeds of the easy protocol (-frozen, chfak 5, 20k frames,
            critic 10 / masker 12 epochs) in a temporary directory: every
@@ -155,7 +111,6 @@ from `cgs_tpu_torch/csrc/`, then:
   resume   (resume main path) a small chfak-5 `-train -orbax` (dropout
            0.5, shift on) broken after its second masker chunk and
            resumed: critic and masker bit-equal to an uninterrupted run;
-           the save ms per chunk;
   drift, ablation  (their main paths) `sandbox.drift.main` over full and
            frozen (2 masker epochs): the frozen rows read 0 drift
            exactly, the full rows more; `sandbox.ablation.run_ablation`
@@ -167,10 +122,9 @@ from `cgs_tpu_torch/csrc/`, then:
            versions (f32, TF32 off, deterministic cuDNN): terms and
            every gradient bit-equal, every decoder gradient non-zero,
            launches 5 / 5 / 1 / 1 (up-first joins forward and backward,
-           merge_pair, merge_pair_bwd); then 5 untimed Adam pair
-           steps and three timed windows of 50 (steps/s each), a
-           `sum_segm` chunk and the `unet_embeddings` projection on the
-           card;
+           merge_pair, merge_pair_bwd); then 155 Adam pair steps with
+           finite losses, a `sum_segm` chunk and the `unet_embeddings`
+           projection on the card;
   cluster  `sandbox/cluster.py:cluster_frames` over 1024 synthetic
            frames (4.19M pixels, K = 20, 25 iterations) on the card and
            on the CPU from the same initial indices: labels equal on >=
@@ -179,15 +133,17 @@ from `cgs_tpu_torch/csrc/`, then:
            the reference config (700 + 700 frames, embed_dim 100, 100
            clusters, pw 10, stride 2) on the card: histograms summing to
            100, tree-prob column 2 peaking at 1, the 7-tuple
-           round-tripping; wall times;
+           round-tripping;
   bench-width  (width-sweep main path) `sandbox/bench_width.main` at
            chfak 5 (inference, 8 dispatches a group), then its
            `bench_training` in chunks of 20 steps x 3 (critic and masker
-           f32 / bf16, the masker at fuse none / merges): its eight JSON
-           lines, logged, and the ingest, join, merge and
-           merge-gradient kernels launched; then `MaskPipeline` at its
-           auto batch (6553) in f32 and bf16, and one critic step
-           (batch 64) and one masker step at fuse none and merges, each
+           f32 / bf16, the masker at fuse none / merges): eight lines,
+           each finite and positive (their figures are not logged), and
+           the ingest, join, merge and merge-gradient kernels launched;
+           then `MaskPipeline` at its auto batch (6553) and at the serve
+           batch (8192, the process cells' batch) in f32 and bf16, and
+           one critic step (batch 64) and one masker step (K = 32) at
+           fuse both (the masker cell's step), none and merges, each
            kernel path bit-equal to its plain path;
   dp       (data-parallel main path, `cgs_tpu_torch/parallel/`) (a) NCCL
            at world size 1: a chfak-5 critic step and masker step
@@ -205,28 +161,28 @@ from `cgs_tpu_torch/csrc/`, then:
            (primary=False): both ranks' parameters bit-identical, only
            rank 0 wrote files (its train states), the eval IoU from the
            reduced kernel counts equal to the host numpy IoU of the
-           assembled masks, beside the world-1 run's; the two-rank
-           pipeline's f32 masks bit-equal to the unmeshed pipeline at the
-           per-rank batch, within 1e-5 of the unmeshed whole batch (hard
-           masks equal away from the threshold); a seed-sharded
-           `--ensemble 2` bit-equal to unmeshed; `run_parallel` of R = 2
-           over the 2 ranks bit-equal to each seed's unmeshed R = 1 run,
-           its first step within SP_TOL of the unmeshed R = 2 run and
-           the gap of each later step logged (a seed's grouped
-           convolutions round apart at R = 1 and 2, and Adam grows it);
-           steps/s at world 1 and 2 (two ranks share one card: no
-           scaling figure) and the all_reduce ms per step; (c) the checks
-           of (b) over NCCL across cards when there are two or more, else
-           one line saying it did not run.
+           assembled masks; the two-rank pipeline's f32 masks bit-equal
+           to the unmeshed pipeline at the per-rank batch, within 1e-5
+           of the unmeshed whole batch (hard masks equal away from the
+           threshold); a seed-sharded `--ensemble 2` bit-equal to
+           unmeshed; `run_parallel` of R = 2 over the 2 ranks bit-equal
+           to each seed's unmeshed R = 1 run, its first step within
+           SP_TOL of the unmeshed R = 2 run and the gap of each later
+           step logged (a seed's grouped convolutions round apart at
+           R = 1 and 2, and Adam grows it); (c) the checks of (b) over
+           NCCL across cards when there are two or more, else one line
+           saying it did not run.
 
 Launch counts are set to 0 just before each main path (eval + process;
 ensemble; profile; video; serve-http; int8; train; train-primary;
 seed-parallel; resume; drift; ablation; zoo; bench-width; dp) and read
-just after it; every kernel of a path must have launched there. Weights are random, from a seed. Any
-failed check exits non-zero. Without CUDA, or without the rest of the
-checkout, it fails and prints no result. The next-to-last lines are a JSON `kernels`
-summary and the card's name and power limit from nvidia-smi; the last
-line is {"ok": true, "device": {...}}.
+just after it; every kernel of a path must have launched there, and
+every kernel on some path. Weights are random, from a seed. Any failed
+check exits non-zero. Without CUDA, or without the rest of the
+checkout, it fails and prints no result. The last lines are the whole
+run's seconds (to hold against a run's time limit) and peak device
+memory, the launches per kernel over the main paths, the card's name
+and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -245,30 +201,11 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12           # f32 outside the tensor cores
-# the decoder's skip joins: (name, skip channels Cs, upsampled channels
-# Cu, input H = W, factor); ragged ones: (Cs, Cu, H, W, factor), odd
-# Cs, Cu and W, no skip (the plain upsample)
-CHFAK5_JOINS = [("in3", 80, 160, 1, 4), ("in2", 40, 80, 4, 2),
-                ("in1", 40, 40, 8, 2), ("in0", 40, 40, 16, 2),
-                ("head", 3, 40, 32, 2)]
-CHFAK1_JOINS = [("in3", 16, 32, 1, 4), ("in2", 8, 16, 4, 2),
-                ("in1", 8, 8, 8, 2), ("in0", 8, 8, 16, 2),
-                ("head", 3, 8, 32, 2)]
-RAGGED_JOINS = [(5, 7, 3, 9, 2), (3, 5, 2, 3, 4), (0, 7, 3, 5, 2),
-                (0, 3, 5, 7, 2)]
-# zoo.Unet's joins at chfak 5, upsampled channels first: (name, skip
-# channels Cs, upsampled channels Cu, input H = W, factor); dec0 is the
-# quirk join cat(up(u0), up(u0))
-UNET5_JOINS = [("dec3", 80, 80, 4, 2), ("dec2", 40, 40, 8, 2),
-               ("dec1", 40, 40, 16, 2), ("dec0", 40, 40, 32, 2)]
-BATCH = 8192
+BATCH = 8192            # the serve batch
 # the HTTP server: its micro-batch and the distinct frames 32 clients post
 SERVE_BATCH, SERVE_FRAMES = 256, 1024
-EVAL_N, FRAME_F, MASK_F = 2450, 64 * 64 * 3, 64 * 64
+EVAL_N = 2450           # the synthetic eval set
 MASKER_N = 64        # frames a masker step merges and decodes (2K)
-PIX = 64 * 64
 SERVE_KERNELS = ("normalize_u8", "upsample2x", "threshold_iou")
 # video -process and -vismasker compute no IoU
 VIDEO_KERNELS = ("normalize_u8", "upsample2x")
@@ -283,17 +220,12 @@ TRAIN_KERNELS = ("normalize_u8", "merge_pair", "merge_pair_bwd",
                  "upsample2x", "upsample2x_bwd", "threshold_iou")
 STEP_LAUNCHES = {"normalize_u8": 1, "merge_pair": 1, "merge_pair_bwd": 1,
                  "upsample2x": 5, "upsample2x_bwd": 5}
-# the outputs of merge_pair_bwd checked (da, db, dz): the masker step's
-# (its frames need no gradient), all three, and da with dz
-BWD_NEEDS = [(False, False, True), (True, True, True), (True, False, True)]
 PROTOCOL = ["-train", "-eval", "-synthetic_data", "--chfak", "5",
             "--dropout", "0.5", "--datasize", "20000", "--cepochs", "10",
             "--mepochs", "12", "-frozen", "--model", "chip-smoke-train"]
 MIN_IOU = 0.70
-# the seed-parallel runner: R seeds of the easy protocol at once, and
-# the widths its step speed is read at
+# the seed-parallel runner: R seeds of the easy protocol at once
 SP_R = 3
-SP_SPEED_R = (1, 3, 10)
 SP_PROTOCOL = ["-synthetic_data", "--chfak", "5", "--dropout", "0.5",
                "--datasize", "20000", "--cepochs", "10", "--mepochs", "12",
                "-frozen", "--model", "chip-smoke-sp"]
@@ -323,7 +255,7 @@ ABLATION_ARGV = SMALL + ["--mepochs", "1", "--model", "chip-smoke-abl"]
 # the meshed pipeline's batch (each of 2 ranks runs half), the bound on
 # a DP step against the whole-batch step (relative to each tensor's
 # largest |value|: a mean of two half-batch means against one mean),
-# the timed steps, and the seed-parallel runner's short run
+# and the seed-parallel runner's short run
 DP_ARGV = ["-train", "-eval", "-synthetic_data", "--chfak", "5",
            "--dropout", "0.5", "--datasize", "2000", "--testsize", "200",
            "--cepochs", "3", "--mepochs", "1", "--high-rew-thresh", "0.55",
@@ -338,16 +270,14 @@ DP_TOL = 1e-5
 # taking every row twice makes (`_doubled`: the same math, twice the
 # batch)
 DP_FLOOR = 4.0
-DP_REPEAT = 20
 DP_EVAL_THRESH = 0.05
 # the HTTP server over ranks
 SERVE_DP_WORLD = 2
 # the zoo path: zoo.Unet at chfak 5, a pair step over A (ZOO_N frames)
-# and its ZOO_N negatives, its launches, the Adam steps (ZOO_WARM
-# untimed, which allocate Adam's state, then ZOO_WINDOWS timed windows
-# of ZOO_STEPS), and the sum_segm chunk (steps x batch)
+# and its ZOO_N negatives, its launches, ZOO_STEPS Adam steps, and the
+# sum_segm chunk (steps x batch)
 ZOO_N, ZOO_SUM_SEGM = 32, (5, 32)
-ZOO_WARM, ZOO_STEPS, ZOO_WINDOWS = 5, 50, 3
+ZOO_STEPS = 155
 ZOO_KERNELS = ("normalize_u8", "upsample2x", "upsample2x_bwd",
                "merge_pair", "merge_pair_bwd")
 ZOO_STEP_LAUNCHES = {"upsample2x": 5, "upsample2x_bwd": 5, "merge_pair": 1,
@@ -396,12 +326,6 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float = 0.0):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train-seeds", default="0",
@@ -431,13 +355,11 @@ def main(argv=None) -> int:
     # -- set-up -----------------------------------------------------------
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "python", sys.version.split()[0])
-    t0 = time.time()
     # the host CRF library (g++) builds while nvcc builds the kernels
     with ThreadPoolExecutor(1) as pool:
         crf_build = pool.submit(crf.build_library)
         _build.build_kernels(verbose=True)
-        log(f"[setup] kernels built in {time.time() - t0:.1f} s; densecrf "
-            f"library {crf_build.result()} in {time.time() - t0:.1f} s")
+        log(f"[setup] kernels built; densecrf library {crf_build.result()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -449,7 +371,7 @@ def main(argv=None) -> int:
     if args.only_dp:
         log("[main path: dp] launches:", phase_dp(_build))
         if torch.cuda.device_count() >= SERVE_DP_WORLD:
-            phase_serve_dp_nccl(card)
+            phase_serve_dp_nccl()
         else:
             log("[serve-http dp] NCCL across cards did not run: this "
                 "machine has one card")
@@ -458,14 +380,6 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    summary = {}
-    phase_kernels(_build, summary)
-    phase_seeded_ingest(summary)
-    phase_train_kernels(summary)
-    phase_up_first(summary)
-    phase_serve(_build)
-    phase_train_step(_build)
-    phase_train_speed()
     phase_seeded_step(_build)
 
     _build.launches.clear()                 # serving main path starts
@@ -486,9 +400,9 @@ def main(argv=None) -> int:
     log("[main path: video] launches:", video_launches)
     # the HTTP server and int8 paths clear and read the counts around
     # their own main-path traffic
-    serve_http_launches = phase_serve_http(_build, card)
+    serve_http_launches = phase_serve_http(_build)
     log("[main path: serve-http] launches:", serve_http_launches)
-    int8_launches = phase_int8(_build, card)
+    int8_launches = phase_int8(_build)
     log("[main path: int8] launches:", int8_launches)
     for path, counts, kernels in (
             ("ensemble", ensemble_launches, SERVE_KERNELS),
@@ -520,28 +434,24 @@ def main(argv=None) -> int:
     later["drift"] = (drift_launches, TRAIN_KERNELS)
     later["ablation"] = (ablation_launches, TRAIN_KERNELS)
     later["zoo"] = (phase_zoo(_build), ZOO_KERNELS)
-    phase_cluster(card)
-    later["bench-width"] = (phase_bench_width(_build, card),
-                            BENCH_WIDTH_KERNELS)
+    phase_cluster()
+    later["bench-width"] = (phase_bench_width(_build), BENCH_WIDTH_KERNELS)
     later["dp"] = (phase_dp(_build), TRAIN_KERNELS)
     for path, (counts, kernels) in later.items():
         log(f"[main path: {path}] launches:", counts)
         for name in kernels:
             check(counts.get(name, 0) > 0,
                   f"{name} never launched on the {path} main path")
-    for name in _build.KERNELS:
-        summary[name]["launches"] = sum(
-            counts.get(name, 0) for counts in (
-                serve_launches, ensemble_launches, profile_launches,
-                video_launches, serve_http_launches, int8_launches,
-                train_launches,
-                *(c for c, _ in later.values())))
-        check(summary[name]["launches"] > 0,
-              f"{name} never launched on a main path")
+    total = {name: sum(counts.get(name, 0) for counts in (
+        serve_launches, ensemble_launches, profile_launches, video_launches,
+        serve_http_launches, int8_launches, train_launches,
+        *(c for c, _ in later.values()))) for name in _build.KERNELS}
+    for name, n in total.items():
+        check(n > 0, f"{name} never launched on a main path")
 
     log(f"[done] {time.time() - t_start:.1f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(json.dumps({"kernels": list(summary.values())}))
+    log(json.dumps({"launches_on_main_paths": total}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -549,57 +459,10 @@ def main(argv=None) -> int:
     return 0
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
 def _bits(t):
     """The raw bits, so equality is bit-equality."""
     return t.view({torch.float32: torch.int32,
                    torch.bfloat16: torch.int16}[t.dtype])
-
-
-def _join_inputs(n, cs, cu, h, w, f, dt, gen):
-    """NHWC skip (n, fH, fW, Cs) and x (n, H, W, Cu) on the card."""
-    return tuple(torch.rand(shape, device="cuda", generator=gen).to(dt)
-                 for shape in ((n, f * h, f * w, cs), (n, h, w, cu)))
-
-
-def _unaligned(t):
-    """A copy of t whose data starts 1 element past a 16-byte boundary."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
-    return buf.copy_(t.flatten()).view(t.shape)
-
-
-def _unfused_fwd(skip, x, f):
-    """A join as the decoder ran it before the fusion: the upsample
-    kernel with no skip (twice for x4), then torch.cat."""
-    from cgs_tpu_torch.ops.upsample import LEVELS, upcat_fwd
-    for _ in range(LEVELS[f]):
-        x = upcat_fwd(None, x)
-    return torch.cat([skip, x], -1)
-
-
-def _unfused_bwd(g, cs, f, need_skip):
-    """Its gradient as it ran before the fusion: the sum-pool kernel on
-    the upsampled channels' slice (twice for x4), and a copy of the
-    skip's slice."""
-    from cgs_tpu_torch.ops.upsample import LEVELS, upcat_bwd
-    dskip = g[..., :cs].contiguous() if need_skip else None
-    dx = g[..., cs:]
-    for _ in range(LEVELS[f]):
-        dx = upcat_bwd(dx, 0, need_skip=False)[1]
-    return dskip, dx
 
 
 def _name(dt) -> str:
@@ -637,388 +500,12 @@ def _step_segments(banks, shift, critic=False):
             Segment(xneg, c)]
 
 
-def phase_kernels(_build, summary) -> None:
-    from cgs_tpu_torch.ops.kernels import (
-        INV255, Segment, gather_normalize_u8, gather_normalize_u8_plain,
-        normalize_u8, normalize_u8_plain, threshold_iou,
-        threshold_iou_plain,
-    )
-    from cgs_tpu_torch.ops.upsample import upcat_fwd, upcat_plain
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.time()
-
-    def u8(shape):
-        return torch.randint(0, 256, shape, dtype=torch.uint8,
-                             device=dev, generator=gen)
-
-    # normalize_u8, the gather-shift-normalise ingest: bit-equal to its
-    # plain version at the serve batch (f32 and bf16), the masker step's
-    # three segments at every shift -63..63, the critic step's batch,
-    # repeated indices, an empty segment, N = 0, and the any-shape case
-    err = 0.0
-
-    def same_ingest(segs, dt, what):
-        nonlocal err
-        (got, gy), (want, wy) = (gather_normalize_u8(segs, dt),
-                                 gather_normalize_u8_plain(segs, dt))
-        check(got.shape == want.shape
-              and torch.equal(_bits(got), _bits(want))
-              and ((gy is None and wy is None) or torch.equal(gy, wy)),
-              f"normalize_u8 differs from plain at {what}")
-        if got.numel():
-            err = max(err, float((got.float() - want.float()).abs().max()))
-
-    frames = u8((BATCH, 64, 64, 3))
-    banks = _step_banks(gen)
-    for dt in (torch.float32, torch.bfloat16):
-        same_ingest([Segment(frames)], dt, f"serve {BATCH} {_name(dt)}")
-        for shift in range(-63, 64):
-            same_ingest(_step_segments(banks, shift), dt,
-                        f"masker step, shift {shift} {_name(dt)}")
-        same_ingest(_step_segments(banks, 9, critic=True), dt,
-                    "critic step")
-        a, b = _step_segments(banks, 2)[:2], _step_segments(banks, 0)[2]
-        same_ingest([a[0], a[1]._replace(idx=a[1].idx[:0]), b], dt,
-                    "an empty segment")
-        same_ingest([Segment(banks[0], a[0].idx[:0])], dt, "N = 0")
-        x = u8((3, 4097))
-        check(torch.equal(_bits(normalize_u8(x, dt)),
-                          _bits(normalize_u8_plain(x, dt))),
-              "normalize_u8 differs from plain at (3, 4097)")
-    nb = BATCH * FRAME_F
-    b_ms, b_by = bound_ms(5 * nb, nb)
-    row = {
-        "name": "normalize_u8", "route": "cuda",
-        "source": "cgs_tpu_torch/csrc/normalize_u8.cu",
-        "replaces": "cgs_tpu/ops/pallas_kernels.py:71",
-        "launches": 0, "max_abs_err": err,
-        "ms": time_ms(lambda: normalize_u8(frames)),
-        "plain_ms": time_ms(lambda: normalize_u8_plain(frames)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": time_ms(lambda: frames.mul(INV255)),
-        "library_two_pass_ms": time_ms(
-            lambda: frames.to(torch.float32).mul_(INV255)),
-        "bf16_ms": time_ms(lambda: normalize_u8(frames, torch.bfloat16)),
-        "bf16_plain_ms": time_ms(
-            lambda: normalize_u8_plain(frames, torch.bfloat16)),
-        "bf16_bound_ms": bound_ms(3 * nb, nb)[0],
-        "shape": f"uint8 ({BATCH}, 64, 64, 3) -> f32"}
-    del frames
-    # the train steps' ingests: the masker step's 3 segments (128
-    # frames, 64 labels) and the critic step's 64 frames with labels
-    for key, segs in (("masker_step", _step_segments(banks, 5)),
-                      ("critic_step", _step_segments(banks, 5,
-                                                     critic=True))):
-        n = sum(sg.rows for sg in segs)
-        n_lab = sum(sg.rows for sg in segs if sg.labels is not None)
-        nbytes = 5 * n * FRAME_F + 8 * n + 8 * n_lab
-        row[key] = {
-            "frames": n,
-            "ms": time_ms(lambda: gather_normalize_u8(segs), iters=50),
-            "device_ms": device_breakdown(lambda: gather_normalize_u8(segs),
-                                          reps=20)["ms_per_step"],
-            "plain_ms": time_ms(lambda: gather_normalize_u8_plain(segs),
-                                iters=50),
-            "plain_device_ms": device_breakdown(
-                lambda: gather_normalize_u8_plain(segs),
-                reps=20)["ms_per_step"],
-            "bound_ms": bound_ms(nbytes, n * FRAME_F)[0]}
-    summary["normalize_u8"] = row
-    log("[kernels] normalize_u8 (gather-shift-normalise):", json.dumps(row))
-    del banks
-    torch.cuda.empty_cache()
-
-    # upsample2x, fused into the concat: bit-equal at the five skip
-    # joins of chfak 1 and chfak 5, f32 and bf16, at the serve batch and
-    # the masker step's; the chfak-5 joins timed beside the unfused pair
-    # they replaced (and, at batch 64, their device time)
-    fwd = {}
-    for n in (BATCH, MASKER_N):
-        for dt in (torch.float32, torch.bfloat16):
-            for joins in (CHFAK1_JOINS, CHFAK5_JOINS):
-                ins = [(name, f) + _join_inputs(n, cs, cu, h, h, f, dt, gen)
-                       for name, cs, cu, h, f in joins]
-                for name, f, skip, x in ins:
-                    check(torch.equal(_bits(upcat_fwd(skip, x, f)),
-                                      _bits(upcat_plain(skip, x, f))),
-                          f"upsample2x differs from plain at {name} "
-                          f"{tuple(skip.shape)} + {tuple(x.shape)} x{f} {dt}")
-            rows = []
-            for name, f, skip, x in ins:          # the chfak-5 joins
-                nbytes = (2 * skip.numel() + (1 + f * f) * x.numel()) \
-                    * skip.element_size()
-                rows.append({
-                    "join": name,
-                    "ms": time_ms(lambda: upcat_fwd(skip, x, f)),
-                    "unfused_ms": time_ms(lambda: _unfused_fwd(skip, x, f)),
-                    "plain_ms": time_ms(lambda: upcat_plain(skip, x, f)),
-                    "bound_ms": bound_ms(nbytes)[0]})
-            res = {k: sum(r[k] for r in rows) for k in
-                   ("ms", "unfused_ms", "plain_ms", "bound_ms")}
-            res["joins"] = rows
-            if n == MASKER_N:
-                for key, fn in (("device_ms", upcat_fwd),
-                                ("unfused_device_ms", _unfused_fwd)):
-                    res[key] = device_breakdown(
-                        lambda: [fn(s, x, f) for _, f, s, x in ins],
-                        reps=20)["ms_per_step"]
-            fwd[f"batch {n} {_name(dt)}"] = res
-            del ins, skip, x
-            torch.cuda.empty_cache()
-    # ragged joins no decoder has (odd Cs, Cu and W, no pixel or row
-    # 16-byte aligned), no skip, N = 0, and inputs off a 16-byte boundary
-    for cs, cu, h, w, f in RAGGED_JOINS:
-        for n in (3, 0):
-            for dt in (torch.float32, torch.bfloat16):
-                skip, x = _join_inputs(n, cs, cu, h, w, f, dt, gen)
-                for sk, xx in ((skip, x), (_unaligned(skip), _unaligned(x))):
-                    check(torch.equal(_bits(upcat_fwd(sk, xx, f)),
-                                      _bits(upcat_plain(sk, xx, f))),
-                          f"upsample2x differs from plain at "
-                          f"{(n, cs, cu, h, w, f)} {dt}")
-    log("[kernels] upsample2x (fused into the concat), the 5 chfak-5 "
-        "joins (ms, sums over the joins):", json.dumps(fwd))
-    r = fwd[f"batch {BATCH} f32"]
-    summary["upsample2x"] = {
-        "name": "upsample2x", "route": "cuda",
-        "source": "cgs_tpu_torch/csrc/upsample2x.cu",
-        "replaces": "cgs_tpu/ops/pallas_upsample.py:87",
-        "launches": 0, "max_abs_err": 0.0,      # bit-equal, checked above
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
-        "unfused_ms": r["unfused_ms"],
-        "shape": f"the 5 chfak-5 skip joins (upsample into concat), f32, "
-                 f"batch {BATCH} (sum)"}
-
-    # threshold_iou: exact counts at the eval set, ragged N, odd numel,
-    # N = 0, a mask and a gt off their 16-byte boundaries (the element
-    # path), and calls back to back (each leaves the last-block ticket at
-    # 0 for the next); one device operation per call
-    def same_counts(got, m, g, thr, what):
-        got = [int(v) for v in got]
-        want = [int(v) for v in threshold_iou_plain(m, g, thr)]
-        check(got == want, f"threshold_iou {got} != plain {want} at {what}")
-
-    for shape in [(EVAL_N, MASK_F), (1001, MASK_F), (3, 4095),
-                  (0, MASK_F)]:
-        m = torch.rand(shape, device=dev, generator=gen)
-        g = torch.rand(shape, device=dev, generator=gen) > 0.7
-        same_counts(threshold_iou(m, g, 0.05), m, g, 0.05, shape)
-        if shape[0]:
-            same_counts(threshold_iou(_unaligned(m), g, 0.05), m, g, 0.05,
-                        f"{shape}, mask off a 16-byte boundary")
-            same_counts(threshold_iou(m, _unaligned(g), 0.05), m, g, 0.05,
-                        f"{shape}, gt off a 16-byte boundary")
-    m = torch.rand((EVAL_N, MASK_F), device=dev, generator=gen)
-    g = (torch.rand((EVAL_N, MASK_F), device=dev, generator=gen) > 0.7)
-    thrs = (0.05, 0.5, 0.05, 0.95)
-    outs = [threshold_iou(m, g, t) for t in thrs]      # no sync between
-    for out, t in zip(outs, thrs):
-        same_counts(out, m, g, t, f"back-to-back call, threshold {t}")
-    ops = device_breakdown(lambda: threshold_iou(m, g, 0.05),
-                           reps=20)["device_ops_per_step"]
-    check(ops == 1, f"threshold_iou made {ops} device operations per "
-                    "call, want 1")
-    # device time with the L2 flushed before each call (`evaluate`'s
-    # masks arrive by a 50 MB upload): by reading 256 MB, which leaves
-    # the L2 clean, and by writing them, which leaves it full of dirty
-    # lines the kernel's reads must write back; and warm, back to back
-    flush = torch.zeros(2 ** 28 // 4, device=dev)
-    cold_ms, per_call = kernel_device_ms(
-        lambda: threshold_iou(m, g, 0.05), "threshold_iou",
-        before=flush.sum)
-    check(per_call == 1, f"threshold_iou: {per_call} kernels per call")
-    ne = EVAL_N * MASK_F
-    b_ms, b_by = bound_ms(5 * ne + 16, ne)
-    summary["threshold_iou"] = {
-        "name": "threshold_iou", "route": "cuda",
-        "source": "cgs_tpu_torch/csrc/threshold_iou.cu",
-        "replaces": "cgs_tpu/ops/pallas_kernels.py:221",
-        "launches": 0, "max_abs_err": 0.0,        # exact, checked above
-        "ms": cold_ms,
-        "plain_ms": time_ms(
-            lambda: threshold_iou_plain(m, g, 0.05), iters=50),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "device_ms": cold_ms,
-        "dirty_l2_device_ms": kernel_device_ms(
-            lambda: threshold_iou(m, g, 0.05), "threshold_iou",
-            before=flush.zero_)[0],
-        "warm_device_ms": kernel_device_ms(
-            lambda: threshold_iou(m, g, 0.05), "threshold_iou")[0],
-        "host_ms_per_call": time_ms(lambda: threshold_iou(m, g, 0.05),
-                                    iters=50),
-        "device_ops_per_call": ops,
-        "shape": f"f32 + bool ({EVAL_N}, {MASK_F}); ms is device time "
-                 "with the L2 flushed (by a read) before each call"}
-    log("[kernels] threshold_iou:", json.dumps(summary["threshold_iou"]))
-    del m, g, flush
-    torch.cuda.empty_cache()
-    log(f"[kernels] ok in {time.time() - t0:.1f} s")
-
-
-CATEGORIES = (   # first match wins, on the lower-cased kernel name
-    ("port kernels", ("normalize_u8", "ingest_", "upsample",
-                      "threshold_iou", "merge_pair")),
-    ("concat", ("catarray", "cat_")),
-    ("max-pool", ("max_pool",)),
-    ("convolution", ("conv", "cudnn", "xmma", "gemm", "sm90", "wgrad",
-                     "dgrad", "fprop", "nchw", "nhwc")),
-    ("elementwise", ("elementwise", "reduce", "copy", "fill")),
-)
-
-
-def device_breakdown(step, reps: int = 2) -> dict:
-    """Device time of `reps` steps by kernel category, from
-    torch.profiler, with the top kernels, the device operations
-    (kernels, copies, fills) per step, and the device's idle share of
-    the host-timed window (profiler on, so an upper bound)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-        wall_us = (time.time() - t0) * 1e6
-    kern = {}
-    n_kernels = 0
-    for e in prof.key_averages():
-        # a user annotation (the optimizer's `Optimizer.step#...` span)
-        # also shows on the device timeline; its kernels count already
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        kern[e.key] = kern.get(e.key, 0.0) + us
-        n_kernels += e.count
-    busy = sum(kern.values())
-    cats = {}
-    for k, us in kern.items():
-        low = k.lower()
-        cat = next((c for c, keys in CATEGORIES
-                    if any(s in low for s in keys)), "other")
-        cats[cat] = cats.get(cat, 0.0) + us
-    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
-    return {"ms_per_step": busy / reps / 1e3,
-            "idle_share": max(0.0, 1.0 - busy / wall_us),
-            "device_ops_per_step": n_kernels / reps,
-            "by_category_ms": {c: us / reps / 1e3 for c, us in
-                               sorted(cats.items(), key=lambda kv: -kv[1])},
-            "top_kernels_ms": [[k[:90], us / reps / 1e3] for k, us in top]}
-
-
-def kernel_device_ms(step, match: str, reps: int = 20, before=None):
-    """(device ms per call, launches per call) of the kernels whose name
-    holds `match`, from torch.profiler over `reps` calls of `step`, with
-    `before()` (an L2 flush, say) enqueued ahead of each call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if before is not None:
-                before()
-            step()
-        torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and match in e.key.lower()):
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0))
-            count += e.count
-    return us / reps / 1e3, count / reps
-
-
 def _random_params(critic, masker, seed: int):
     from cgs_tpu_torch.models.interop import init_torch_default
     gen = torch.Generator().manual_seed(seed)
     return {name: {k: v.clone() for k, v in
                    init_torch_default(mod, gen).state_dict().items()}
             for name, mod in (("critic", critic), ("masker", masker))}
-
-
-def phase_serve(_build) -> None:
-    from unittest import mock
-
-    import cgs_tpu_torch.ops.upsample as upsample_mod
-    import cgs_tpu_torch.pipeline as pipeline_mod
-    from cgs_tpu_torch.models.critic import Critic
-    from cgs_tpu_torch.models.decoder import UnetDecoder
-    from cgs_tpu_torch.ops.kernels import normalize_u8_plain
-    from cgs_tpu_torch.pipeline import MaskPipeline
-
-    dev = torch.device("cuda")
-    frames = torch.randint(0, 256, (BATCH, 64, 64, 3), dtype=torch.uint8,
-                           device=dev,
-                           generator=torch.Generator(device=dev)
-                           .manual_seed(1))
-    for dtype in (torch.float32, torch.bfloat16):
-        t0 = time.time()
-        critic = Critic(chfak=5, dropout=0.5, compute_dtype=dtype)
-        masker = UnetDecoder(chfak=5, compute_dtype=dtype)
-        params = _random_params(critic, masker, seed=0)
-        pipe = MaskPipeline(critic, masker, params, batch_size=BATCH,
-                            device="cuda")
-        _build.launches.clear()
-        pred, mask, _ = pipe.run_device(frames)
-        torch.cuda.synchronize()
-        per_batch = dict(_build.launches)
-        check(per_batch == {"normalize_u8": 1, "upsample2x": 5},
-              f"launches per batch {per_batch}, want 1 normalize_u8 "
-              "and 5 upsample2x")
-        check(mask.shape == (BATCH, 64, 64, 1) and pred.shape == (BATCH,),
-              f"output shapes {tuple(mask.shape)} {tuple(pred.shape)}")
-        check(bool(torch.isfinite(mask).all()) and
-              bool(((mask > 0) & (mask < 1)).all()),
-              "masks not finite or outside (0, 1)")
-        # the same weights through the plain versions on the card
-        with mock.patch.object(pipeline_mod, "normalize_u8",
-                               normalize_u8_plain), \
-                mock.patch.object(upsample_mod, "upcat_fwd",
-                                  upsample_mod.upcat_plain):
-            ppred, pmask, _ = pipe.run_device(frames)
-        torch.cuda.synchronize()
-        if torch.equal(mask, pmask) and torch.equal(pred, ppred):
-            how = "bit-identical"
-        else:
-            d = float((mask - pmask).abs().max())
-            log(f"[serve] kernel and plain masks differ by {d:.3g}: "
-                "cuDNN may pick another algorithm for another buffer; "
-                "allowing atol=1e-5")
-            check(d <= 1e-5, f"kernel path differs from plain by {d}")
-            how = f"max |diff| {d:.3g}"
-        del ppred, pmask
-        reps = 10
-        torch.cuda.synchronize()
-        t1 = time.time()
-        for _ in range(reps):
-            out = pipe.run_device(frames)
-        torch.cuda.synchronize()
-        dt = time.time() - t1
-        del out, pred, mask
-        name = "f32" if dtype == torch.float32 else "bf16"
-        log(f"[serve] chfak 5 {name} batch {BATCH}: kernel vs plain "
-            f"{how}; launches/batch {per_batch}")
-        log(f"[serve] frames/s chfak5 {name} batch {BATCH} "
-            f"device-resident: {reps * BATCH / dt:.0f} "
-            f"({dt / reps * 1e3:.2f} ms/batch)")
-        breakdown = device_breakdown(lambda: pipe.run_device(frames))
-        log(f"[serve] device time chfak5 {name}:", json.dumps(breakdown))
-        # the decoder's five joins were the serve batch's only concats
-        check("concat" not in breakdown["by_category_ms"],
-              f"the serve batch still runs concat kernels: {breakdown}")
-        log(f"[serve] phase {name} {time.time() - t0:.1f} s")
-        del pipe
-        torch.cuda.empty_cache()
 
 
 def _png(frame) -> bytes:
@@ -1064,49 +551,37 @@ def _same_png(got: np.ndarray, want: np.ndarray) -> float:
 
 
 def _traffic(url: str, bodies, threads: int):
-    """POST every body from `threads` client threads; (responses in
-    order, per-request latencies in s, wall s)."""
+    """POST every body from `threads` client threads; the responses in
+    order."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def one(body):
-        t = time.perf_counter()
-        out = _post(url, body)
-        return out, time.perf_counter() - t
-
-    t0 = time.perf_counter()
     with ThreadPoolExecutor(threads) as ex:
-        res = list(ex.map(one, bodies))
-    wall = time.perf_counter() - t0
-    return [r for r, _ in res], np.array([s for _, s in res]), wall
+        return list(ex.map(lambda body: _post(url, body), bodies))
 
 
 # the HTTP load generator, run in its own interpreter so that its
 # threads do not share the server's (argv: URL, pickled list of bodies,
 # output path, threads); the standard library only
 _CLIENTS = r"""
-import pickle, sys, time, urllib.request
+import pickle, sys, urllib.request
 from concurrent.futures import ThreadPoolExecutor
 url, src, dst, threads = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
 with open(src, "rb") as f:
     bodies = pickle.load(f)
 def one(body):
-    t = time.perf_counter()
     req = urllib.request.Request(url, data=body, method="POST")
     with urllib.request.urlopen(req, timeout=60) as r:
-        status, out = r.status, r.read()
-    return status, out, time.perf_counter() - t
-t0 = time.perf_counter()
+        return r.status, r.read()
 with ThreadPoolExecutor(threads) as ex:
     res = list(ex.map(one, bodies))
-wall = time.perf_counter() - t0
 with open(dst, "wb") as f:
-    pickle.dump({"res": res, "wall": wall}, f)
+    pickle.dump(res, f)
 """
 
 
 def _traffic_proc(url: str, bodies, threads: int, tmp: str):
-    """`_traffic` from a client process of its own: (responses in
-    order, per-request latencies in s, the clients' wall s)."""
+    """`_traffic` from a client process of its own: the responses in
+    order."""
     import pickle
     src, dst = os.path.join(tmp, "bodies.pkl"), os.path.join(tmp, "out.pkl")
     with open(src, "wb") as f:
@@ -1115,32 +590,23 @@ def _traffic_proc(url: str, bodies, threads: int, tmp: str):
                     str(threads)], check=True, timeout=300)
     with open(dst, "rb") as f:
         got = pickle.load(f)
-    for status, _, _ in got["res"]:
+    for status, _ in got:
         check(status == 200, f"POST {url}: {status}")
-    return ([b for _, b, _ in got["res"]],
-            np.array([t for _, _, t in got["res"]]), got["wall"])
+    return [b for _, b in got]
 
 
-def _device_busy_ms(run):
-    """(run()'s result, the ms in which the card ran anything while it
-    ran: the union of the intervals of every device event that
-    torch.profiler's CUDA tracing saw, kernels and copies)."""
+def _device_names(run):
+    """(run()'s result, the names of the device kernels and copies that
+    torch.profiler's CUDA tracing saw while it ran); it times nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = run()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name != "Context Sync")
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:                    # microseconds
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return out, busy / 1e3
+    return out, {e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.name != "Context Sync"}
 
 
 def _dispatch_kernels(dispatch, names) -> dict:
@@ -1267,8 +733,9 @@ def _serve_dp(fx: dict, d: str, backend=None, device_indices=None) -> dict:
     `serve_worker`): 32 clients in a process of their own POST every
     frame (raw PNGs within one level of the offline pipeline's,
     identical on >= 99.9% of pixels), then `/reload` under 8 clients
-    (never a mix of the two sets). Returns the rates, the reload counts
-    and rank 0's launches under the traffic."""
+    (never a mix of the two sets). Returns the dispatches, the share of
+    identical levels, the reload counts and rank 0's launches under the
+    traffic."""
     import urllib.request
 
     from cgs_tpu_torch.core.config import parse_args
@@ -1288,8 +755,7 @@ def _serve_dp(fx: dict, d: str, backend=None, device_indices=None) -> dict:
               f"/stats world {stats['world']}")
         d0 = stats["dispatches"]
         _build.launches.clear()
-        raw, lat, wall = _traffic_proc(f"{base}/segment", fx["bodies"], 32,
-                                       d)
+        raw = _traffic_proc(f"{base}/segment", fx["bodies"], 32, d)
         launches = dict(_build.launches)
         n_disp = srv.batcher.stats["dispatches"] - d0
         same = np.mean([_same_png(_levels(r), fx["png_old"][i])
@@ -1303,10 +769,7 @@ def _serve_dp(fx: dict, d: str, backend=None, device_indices=None) -> dict:
                                        fx["png_new"])
     finally:
         srv.shutdown()
-    return {"requests_per_s": SERVE_FRAMES / wall,
-            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
-            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
-            "dispatches": n_disp, "identical": same, "reload": reload,
+    return {"dispatches": n_disp, "identical": same, "reload": reload,
             "launches": launches}
 
 
@@ -1328,7 +791,6 @@ def _serve_uneven_ensemble(fx: dict, d: str) -> dict:
     from cgs_tpu_torch.parallel import multihost, probes
     from cgs_tpu_torch.serve import MaskServer
 
-    t0 = time.time()
     base = os.path.join(d, "ens")
     critic, masker = Critic(chfak=5, dropout=0.5), UnetDecoder(chfak=5)
     for s in range(UNEVEN_R):
@@ -1367,26 +829,21 @@ def _serve_uneven_ensemble(fx: dict, d: str) -> dict:
           "in a joined world rank 0 did not serve the ensemble unmeshed "
           "as one rank does")
     return {"warned": warned, "frames": len(frames), "bit_equal": True,
-            "joined_world_rank0": "unmeshed", "s": time.time() - t0}
+            "joined_world_rank0": "unmeshed"}
 
 
-def _log_serve_dp(tag: str, dp: dict, rate1, card: str) -> None:
-    one = ("" if rate1 is None else
-           f"; one rank: {rate1['requests_per_s']:.1f} requests/s, p50 "
-           f"{rate1['p50_ms']:.2f} ms, p99 {rate1['p99_ms']:.2f} ms")
+def _log_serve_dp(tag: str, dp: dict) -> None:
     log(f"[serve-http dp] two ranks ({tag}), chfak 5 f32, batch "
         f"{SERVE_BATCH}, 32 clients, {SERVE_FRAMES} frames: "
-        f"{dp['requests_per_s']:.1f} requests/s, p50 {dp['p50_ms']:.2f} ms, "
-        f"p99 {dp['p99_ms']:.2f} ms, {dp['dispatches']} dispatches{one}; "
-        f"raw identical on {dp['identical']:.5f}; reload under 8 clients "
-        f"{json.dumps(dp['reload'])}; rank 0 launches {dp['launches']}; "
-        f"{card}")
+        f"{dp['dispatches']} dispatches; raw identical on "
+        f"{dp['identical']:.5f}; reload under 8 clients "
+        f"{json.dumps(dp['reload'])}; rank 0 launches {dp['launches']}")
 
 
-def _serve_default(fx: dict, d: str) -> dict:
+def _serve_default(fx: dict, d: str) -> float:
     """`serve.py` with no --data-parallel on this machine: it must serve
     on one rank whatever the count of cards. The 32 clients of
-    `_serve_dp`; returns the rates."""
+    `_serve_dp`; returns the share of identical levels."""
     from cgs_tpu_torch.core.config import parse_args
     from cgs_tpu_torch.serve import MaskServer
 
@@ -1398,41 +855,37 @@ def _serve_default(fx: dict, d: str) -> dict:
               f"the default server runs {srv.world} ranks on "
               f"{torch.cuda.device_count()} cards")
         base, _ = _http(srv)
-        raw, lat, wall = _traffic_proc(f"{base}/segment", fx["bodies"], 32,
-                                       d)
+        raw = _traffic_proc(f"{base}/segment", fx["bodies"], 32, d)
         same = np.mean([_same_png(_levels(r), fx["png_old"][i])
                         for i, r in enumerate(raw)])
         check(same >= 0.999, f"one rank: raw PNGs identical on {same:.5f}")
     finally:
         srv.shutdown()
-    return {"requests_per_s": SERVE_FRAMES / wall,
-            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
-            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+    return same
 
 
-def phase_serve_dp_nccl(card: str) -> None:
+def phase_serve_dp_nccl() -> None:
     """`serve.py --data-parallel 2` over NCCL on cards 0 and 1, with the
     checks of `_serve_dp` (a machine with two or more cards), between
     two runs of the default server, which must take one rank."""
-    t0 = time.time()
     fx = _serve_fixture()
     with tempfile.TemporaryDirectory() as d:
         one_a = _serve_default(fx, d)
         dp = _serve_dp(fx, d)
         one_b = _serve_default(fx, d)
-    _log_serve_dp("NCCL, cards 0 and 1", dp, one_a, card)
+    _log_serve_dp("NCCL, cards 0 and 1", dp)
     log(f"[serve-http dp] the default server (one rank of "
-        f"{torch.cuda.device_count()} cards) before and after: "
-        f"{json.dumps([one_a, one_b])}")
-    log(f"[serve-http dp] phase {time.time() - t0:.1f} s")
+        f"{torch.cuda.device_count()} cards) before and after: raw "
+        f"identical on {one_a:.5f} / {one_b:.5f}")
 
 
-def phase_serve_http(_build, card: str) -> dict:
+def phase_serve_http(_build) -> dict:
     """The HTTP mask server's main path (`cgs_tpu_torch.serve`): chfak 5
     f32, `--infer-batch` SERVE_BATCH, seeded random weights in .pt files
     of a temporary run dir. 32 client threads, in a process of their
     own, POST SERVE_FRAMES distinct frames, then again under the
-    profiler's CUDA tracing (the card's busy share): every raw PNG within one level of the offline
+    profiler's CUDA tracing, which must see device kernels: every raw
+    PNG within one level of the offline
     `MaskPipeline.run` at batch SERVE_BATCH and identical on >= 99.9% of
     pixels; `thresholded` equal except within 1e-5 of the threshold;
     `crf` equal to `DenseCRF` of the soft mask the server handed it;
@@ -1449,7 +902,6 @@ def phase_serve_http(_build, card: str) -> dict:
     from cgs_tpu_torch.eval.crf import DenseCRF
     from cgs_tpu_torch.serve import MaskServer
 
-    t0 = time.time()
     fx = _serve_fixture()
     frames, bodies, soft_old = fx["frames"], fx["bodies"], fx["soft_old"]
     old_w, new_w = fx["old_w"], fx["new_w"]
@@ -1480,7 +932,7 @@ def phase_serve_http(_build, card: str) -> dict:
             # frame once
             _build.launches.clear()
             d0 = dispatches()
-            raw, lat, wall = _traffic_proc(seg, bodies, 32, d)
+            raw = _traffic_proc(seg, bodies, 32, d)
             launches = dict(_build.launches)
             n_disp = dispatches() - d0
             same = np.mean([_same_png(_levels(r), png_old[i])
@@ -1490,30 +942,15 @@ def phase_serve_http(_build, card: str) -> dict:
                   f"{n_disp} dispatches for {SERVE_FRAMES} requests")
             with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
                 check(r.status == 200, f"/healthz {r.status}")
-            rate = {"requests_per_s": SERVE_FRAMES / wall,
-                    "masks_per_s": SERVE_FRAMES / wall,
-                    "p50_ms": float(np.percentile(lat, 50)) * 1e3,
-                    "p99_ms": float(np.percentile(lat, 99)) * 1e3,
-                    "dispatches": n_disp, "frames_per_dispatch":
-                    SERVE_FRAMES / max(n_disp, 1)}
-            # the same traffic again under the profiler's CUDA tracing:
-            # the card's busy share of the clients' window
-            d0 = dispatches()
-            (raw_p, lat_p, wall_p), busy = _device_busy_ms(
+            # the same traffic again under the profiler's CUDA tracing
+            _, traced = _device_names(
                 lambda: _traffic_proc(seg, bodies, 32, d))
-            n_disp_p = dispatches() - d0
-            check(busy > 0, "the profiler saw no device work under traffic")
-            rate["traced"] = {
-                "requests_per_s": SERVE_FRAMES / wall_p,
-                "p50_ms": float(np.percentile(lat_p, 50)) * 1e3,
-                "p99_ms": float(np.percentile(lat_p, 99)) * 1e3,
-                "dispatches": n_disp_p, "device_busy_ms": busy,
-                "device_busy_share": busy / (wall_p * 1e3),
-                "device_ms_per_dispatch": busy / max(n_disp_p, 1)}
+            check(bool(traced), "the profiler saw no device work under "
+                  "traffic")
             # thresholded and crf
             sub = range(0, SERVE_FRAMES, 8)
-            thr, _, _ = _traffic(f"{seg}?variant=thresholded&threshold=0.5",
-                                 [bodies[i] for i in sub], 32)
+            thr = _traffic(f"{seg}?variant=thresholded&threshold=0.5",
+                           [bodies[i] for i in sub], 32)
             flips = 0
             for i, r in zip(sub, thr):
                 want = (soft_old[i] >= 0.5) * 255
@@ -1547,11 +984,10 @@ def phase_serve_http(_build, card: str) -> dict:
             srv8 = MaskServer(cfg8)
             servers.append(srv8)
             base8, _ = _http(srv8)
-            raw8, _, _ = _traffic(f"{base8}/segment",
-                                  [bodies[i] for i in sub], 32)
+            raw8 = _traffic(f"{base8}/segment", [bodies[i] for i in sub], 32)
             same8 = np.mean([_same_png(_levels(r), png_old[i])
                              for i, r in zip(sub, raw8)])
-            thr8, _, _ = _traffic(
+            thr8 = _traffic(
                 f"{base8}/segment?variant=thresholded&threshold=0.5",
                 [bodies[i] for i in sub], 32)
             flips8 = sum(int((_levels(r) != (soft_old[i] >= 0.5) * 255)[
@@ -1570,25 +1006,22 @@ def phase_serve_http(_build, card: str) -> dict:
         # the same traffic over two ranks on the one card (gloo)
         dp = _serve_dp(fx, d, backend="gloo", device_indices=[0, 0])
         uneven = _serve_uneven_ensemble(fx, d)
+    ours = sorted(k[:60] for k in traced
+                  if any(w in k for w in TRACE_KERNELS))
     log(f"[serve-http] chfak 5 f32, batch {SERVE_BATCH}, 32 clients, "
-        f"{SERVE_FRAMES} distinct frames: {json.dumps(rate)}; raw PNGs "
+        f"{SERVE_FRAMES} distinct frames: {n_disp} dispatches; raw PNGs "
         f"identical on {same:.5f} of pixels (the rest 1 level off); "
+        f"traced: {len(traced)} device kernel names, the port's {ours}; "
         f"thresholded and crf checked; u8 wire identical on {same8:.5f}; "
         f"reload under 8 clients {json.dumps(reload)}; launches per "
-        f"dispatch {per_dispatch}, profiler kernels {counts}; {card}")
-    log(f"[serve-http] requests/s {rate['requests_per_s']:.1f}, p50 "
-        f"{rate['p50_ms']:.2f} ms, p99 {rate['p99_ms']:.2f} ms, masks/s "
-        f"{rate['masks_per_s']:.1f}, the clients in their own process; "
-        f"traced: device busy {rate['traced']['device_busy_share']:.4f} of "
-        f"the window, {rate['traced']['device_ms_per_dispatch']:.3f} ms a "
-        f"dispatch ({card}); phase {time.time() - t0:.1f} s")
-    _log_serve_dp("gloo, both ranks on cuda:0", dp, rate, card)
+        f"dispatch {per_dispatch}, profiler kernels {counts}")
+    _log_serve_dp("gloo, both ranks on cuda:0", dp)
     log(f"[serve-http dp] --ensemble {UNEVEN_R} --data-parallel "
         f"{SERVE_DP_WORLD}: {json.dumps(uneven)}")
     return launches
 
 
-def phase_int8(_build, card: str) -> dict:
+def phase_int8(_build) -> dict:
     """int8 inference (`MaskPipeline(quantize="int8")`) at chfak 5: at
     batch 8 (in chunks of 2 frames) every quantized conv's s32 sums
     (im2col + `torch._int_mm`) equal the plain float64 convolution
@@ -1596,9 +1029,8 @@ def phase_int8(_build, card: str) -> dict:
     dynamic scales and with static scales from 512 calibration frames,
     pred within 1e-2, mask within 3e-2 and hard masks at 0.5 agreeing
     on > 99.5% of pixels against the f32 path (JAX's bounds,
-    tests/test_quant.py:84-89); 1 ingest and 5 join launches per batch;
-    frames/s of int8 dynamic, int8 static, f32 and bf16. Returns the
-    launches of the int8 batches."""
+    tests/test_quant.py:84-89); 1 ingest and 5 join launches per batch.
+    Returns the launches of the int8 batches."""
     from unittest import mock
 
     import cgs_tpu_torch.ops.quant as quant
@@ -1607,7 +1039,6 @@ def phase_int8(_build, card: str) -> dict:
     from cgs_tpu_torch.models.decoder import UnetDecoder
     from cgs_tpu_torch.pipeline import MaskPipeline
 
-    t0 = time.time()
     x, _ = synthetic_eval_set(n_frames=BATCH + 512, seed=9)
     frames, calib = x[:BATCH], x[BATCH:]
     dev = torch.device("cuda")
@@ -1657,29 +1088,12 @@ def phase_int8(_build, card: str) -> dict:
         check(err["pred"] < 1e-2 and err["mask"] < 3e-2
               and err["hard_agree"] > 0.995,
               f"{name} against f32 at chfak 5: {err}")
-        rows[name] = {"vs_f32": err, "pipe": pipe}
-    rates = {}
-    bf16 = MaskPipeline(Critic(chfak=5, compute_dtype=torch.bfloat16),
-                        UnetDecoder(chfak=5, compute_dtype=torch.bfloat16),
-                        params, batch_size=BATCH, device="cuda")
-    for name, pipe in (("f32", f32), ("bf16", bf16),
-                       *((k, v.pop("pipe")) for k, v in rows.items())):
-        pipe.run_device(frames_dev)
-        reps = 5
-        torch.cuda.synchronize()
-        t = time.time()
-        for _ in range(reps):
-            out = pipe.run_device(frames_dev)
-        torch.cuda.synchronize()
-        rates[name] = reps * BATCH / (time.time() - t)
-        del out
+        rows[name] = {"vs_f32": err}
+        del pipe
     log(f"[int8] chfak 5, batch {BATCH}: 12 quantized convs' s32 sums "
         f"equal the float64 plain version at batch 8; against f32 "
         f"{json.dumps(rows)}; launches per batch 1 + 5")
-    log(f"[int8] frames/s chfak5 batch {BATCH} device-resident: "
-        + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
-        + f" ({card}); phase {time.time() - t0:.1f} s")
-    del f32, bf16, frames_dev
+    del f32, frames_dev
     torch.cuda.empty_cache()
     return launches
 
@@ -1690,7 +1104,6 @@ def phase_eval(_build) -> None:
     from cgs_tpu_torch.handler import Handler
     from cgs_tpu_torch.ops.iou import iou
 
-    t0 = time.time()
     cfg = parse_args(["-eval", "-salience", "-synthetic_data",
                       "--chfak", "5", "--model", "chip-smoke"])
     handler = Handler(cfg)
@@ -1699,10 +1112,7 @@ def phase_eval(_build) -> None:
     check(x.shape == (EVAL_N, 64, 64, 3), f"eval set {x.shape}")
     pipe = handler._pipeline(salience=cfg.salience)
     before = _build.launches["threshold_iou"]
-    t1 = time.time()
     result = evaluate(cfg, pipe, x, gt, write=False)
-    torch.cuda.synchronize()
-    wall = time.time() - t1
     check(_build.launches["threshold_iou"] > before,
           "threshold_iou did not launch in evaluate")
     ious = result["ious"]
@@ -1711,21 +1121,17 @@ def phase_eval(_build) -> None:
     check(len(ious) == 2 and all(0.0 <= v <= 1.0 for v in ious),
           f"ious {ious}")
     check(bool(np.isfinite(result["preds"]).all()), "preds not finite")
-    again, parts = _eval_breakdown(cfg, pipe, x, gt)
+    again = evaluate(cfg, pipe, x, gt, write=False)
     check(again["ious"] == ious, f"second evaluate: {again['ious']}")
     log(f"[eval] chfak 5 f32, {EVAL_N} frames: IoU {ious} (host numpy "
-        f"IoU {host}); evaluate wall {wall:.3f} s; phase "
-        f"{time.time() - t0:.1f} s")
-    log("[eval] evaluate again, by part (s, host clock, synchronised "
-        "around each part):", json.dumps(parts))
+        f"IoU {host}), the same on a second evaluate")
     _eval_crf(_build, x, gt)
 
 
 def _eval_crf(_build, x, gt) -> None:
     """`evaluate` under -crf through a Handler's own CRF: [mask, crf]
     IoUs; the crf variant equals `DenseCRF` of the plain path's masks
-    (checked on every 10th frame: frames are refined independently);
-    the CRF's host seconds for the whole set."""
+    (checked on every 10th frame: frames are refined independently)."""
     from unittest import mock
 
     import cgs_tpu_torch.ops.upsample as upsample_mod
@@ -1736,7 +1142,6 @@ def _eval_crf(_build, x, gt) -> None:
     from cgs_tpu_torch.handler import Handler
     from cgs_tpu_torch.ops.kernels import normalize_u8_plain
 
-    t0 = time.time()
     cfg = parse_args(["-eval", "-crf", "-synthetic_data", "--chfak", "5",
                       "--model", "chip-smoke"])
     handler = Handler(cfg, primary=False)
@@ -1745,15 +1150,7 @@ def _eval_crf(_build, x, gt) -> None:
           "-crf: the densecrf library did not build or load")
     pipe = handler._pipeline(salience=False)
     check(pipe.wire == "f32", f"-crf eval on the {pipe.wire} wire")
-    crf_s = []
-
-    def timed_crf(imgs, masks):
-        t = time.perf_counter()
-        out = crf_fn(imgs, masks)
-        crf_s.append(time.perf_counter() - t)
-        return out
-
-    result = evaluate(cfg, pipe, x, gt, crf_fn=timed_crf, write=False)
+    result = evaluate(cfg, pipe, x, gt, crf_fn=crf_fn, write=False)
     ious = result["ious"]
     check(len(ious) == 2 and all(0.0 <= v <= 1.0 for v in ious),
           f"-crf ious {ious}")
@@ -1772,57 +1169,7 @@ def _eval_crf(_build, x, gt) -> None:
           "path's masks")
     log(f"[eval] -crf chfak 5 f32, {EVAL_N} frames: IoU [mask, crf] "
         f"{ious}; crf variant equals DenseCRF of the plain path's masks "
-        f"({len(want)} frames checked); CRF host time {crf_s[0]:.3f} s "
-        f"for {EVAL_N} frames ({os.cpu_count()} host cores); phase "
-        f"{time.time() - t0:.1f} s")
-
-
-def _eval_breakdown(cfg, pipe, x, gt):
-    """`evaluate` once more with each part timed on the host clock, the
-    card synchronised before and after it: `pipeline.run`,
-    `mask_iou_on_device` (the masks' upload, then the `threshold_iou`
-    call, timed on its own), the saliency normalisation, and the rest
-    (host numpy: the u8 frames, the hard masks, the saliency IoU).
-    Measurement only: the same calls run in the same order."""
-    from unittest import mock
-
-    import cgs_tpu_torch.eval.harness as harness
-
-    times = {}
-
-    def timed(key, fn):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            times[key] = times.get(key, 0.0) + time.perf_counter() - t
-            return out
-        return run
-
-    norm = ("normalize_saliency_global" if cfg.salglobal
-            else "normalize_saliency_topk")
-    with mock.patch.object(pipe, "run", timed("pipeline.run", pipe.run)), \
-            mock.patch.object(harness, "mask_iou_on_device",
-                              timed("mask_iou_on_device",
-                                    harness.mask_iou_on_device)), \
-            mock.patch.object(harness, "threshold_iou",
-                              timed("threshold_iou call",
-                                    harness.threshold_iou)), \
-            mock.patch.object(harness, norm,
-                              timed("saliency normalisation",
-                                    getattr(harness, norm))):
-        t = time.perf_counter()
-        result = harness.evaluate(cfg, pipe, x, gt, write=False)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t
-    times["upload (mask_iou_on_device less the threshold_iou call)"] = (
-        times["mask_iou_on_device"] - times["threshold_iou call"])
-    times["rest of evaluate (host numpy)"] = total - sum(
-        times[k] for k in ("pipeline.run", "mask_iou_on_device",
-                           "saliency normalisation"))
-    times["evaluate"] = total
-    return result, times
+        f"({len(want)} frames checked)")
 
 
 def phase_process() -> None:
@@ -1831,7 +1178,6 @@ def phase_process() -> None:
     from cgs_tpu_torch.eval.segment import _mask_variants
     from cgs_tpu_torch.handler import Handler
 
-    t0 = time.time()
     cfg = parse_args(["-process", "--chfak", "5", "--model", "chip-smoke",
                       "--seed", "1"])
     handler = Handler(cfg)
@@ -1840,9 +1186,7 @@ def phase_process() -> None:
     thr = cfg.binarymaskthreshold
     red = handler._pipeline(salience=False, wire="u8", hard_threshold=thr)
     full = handler._pipeline(salience=False)
-    t1 = time.time()
     _, m_u8, png_u8 = _mask_variants(cfg, red, x)
-    wall = time.time() - t1
     _, m_f32, png_f32 = _mask_variants(cfg, full, x)
     check(len(png_u8) == len(png_f32) == 2, "expected raw + hard planes")
     soft = m_f32[0]
@@ -1852,9 +1196,8 @@ def phase_process() -> None:
     for a, b in zip(png_u8, png_f32):
         np.testing.assert_array_equal(a, b)
     log(f"[process] chfak 5, 384 frames: u8 wire and device hard plane "
-        f"equal the host-thresholded f32 wire; _mask_variants wall "
-        f"{wall:.3f} s; hard fraction {float(m_u8[1].mean()):.4f}; phase "
-        f"{time.time() - t0:.1f} s")
+        f"equal the host-thresholded f32 wire; hard fraction "
+        f"{float(m_u8[1].mean()):.4f}")
 
 
 def phase_ensemble(_build) -> dict:
@@ -1874,7 +1217,6 @@ def phase_ensemble(_build) -> dict:
         checkpoint_paths, save_model_pt,
     )
 
-    t0 = time.time()
     argv = ["-eval", "--ensemble", str(ENSEMBLE_R), "-synthetic_data",
             "--chfak", "5", "--model", "chip-smoke-ens"]
     old = os.getcwd()
@@ -1899,10 +1241,8 @@ def phase_ensemble(_build) -> dict:
     x, gt = load_eval_set(cfg)
     torch.cuda.synchronize()
     _build.launches.clear()                 # ensemble main path starts
-    t1 = time.time()
     result = evaluate(cfg, pipe, x, gt, write=False)
     torch.cuda.synchronize()
-    wall = time.time() - t1
     launches = dict(_build.launches)        # ensemble main path ends
     check(launches == ENSEMBLE_LAUNCHES,
           f"ensemble evaluate launched {launches}, want "
@@ -1926,31 +1266,10 @@ def phase_ensemble(_build) -> dict:
     ious = result["ious"]
     check(len(ious) == 1 and 0.0 <= ious[0] <= 1.0, f"ious {ious}")
 
-    # frames/s, device-resident, batch 8192, f32
-    dev = torch.device("cuda")
-    frames = torch.randint(0, 256, (BATCH, 64, 64, 3), dtype=torch.uint8,
-                           device=dev,
-                           generator=torch.Generator(device=dev)
-                           .manual_seed(2))
-    rates = {}
-    for what, p in (("ensemble R=3", pipe), ("one model", singles[0])):
-        p.run_device(frames)
-        reps = 5
-        torch.cuda.synchronize()
-        t = time.time()
-        for _ in range(reps):
-            out = p.run_device(frames)
-        torch.cuda.synchronize()
-        rates[what] = reps * BATCH / (time.time() - t)
-        del out
     log(f"[ensemble] chfak 5 f32, R={ENSEMBLE_R}, {EVAL_N} frames: IoU "
         f"{ious}; launches {launches}; masks bit-equal to the plain path, "
-        f"max |diff| to the mean of {ENSEMBLE_R} single pipelines "
-        f"{d:.3g}; evaluate wall {wall:.3f} s")
-    log(f"[ensemble] frames/s chfak5 f32 batch {BATCH} device-resident: "
-        + ", ".join(f"{k} {v:.0f}" for k, v in rates.items())
-        + f"; phase {time.time() - t0:.1f} s")
-    del pipe, singles, frames
+        f"max |diff| to the mean of {ENSEMBLE_R} single pipelines {d:.3g}")
+    del pipe, singles
     torch.cuda.empty_cache()
     return launches
 
@@ -1961,7 +1280,6 @@ def phase_profile(_build) -> dict:
     launches of the run."""
     from cgs_tpu_torch import cli
 
-    t0 = time.time()
     old = os.getcwd()
     with tempfile.TemporaryDirectory() as d:
         os.chdir(d)
@@ -1989,7 +1307,7 @@ def phase_profile(_build) -> dict:
         f"{len(events)} events, {len(kernels)} distinct device kernels, "
         f"the port's: "
         f"{sorted(k[:60] for k in kernels if any(w in k for w in TRACE_KERNELS))}"
-        f"; IoU {handler.last_ious}; phase {time.time() - t0:.1f} s")
+        f"; IoU {handler.last_ious}")
     return launches
 
 
@@ -2011,7 +1329,6 @@ def phase_video(_build) -> dict:
     from cgs_tpu_torch.data.synthetic import synthetic_eval_set
     from cgs_tpu_torch.utils.video import vidwrite
 
-    t0 = time.time()
     old = os.getcwd()
     with tempfile.TemporaryDirectory() as d:
         os.chdir(d)
@@ -2042,313 +1359,8 @@ def phase_video(_build) -> dict:
                      "cv-GT-sorted.mp4": 64},
           f"-vismasker wrote {curves}")
     log(f"[video] chfak 5: -process on a 48-frame 128x128 mp4 wrote "
-        f"{masks}; -vismasker wrote {curves}; phase "
-        f"{time.time() - t0:.1f} s")
+        f"{masks}; -vismasker wrote {curves}")
     return launches
-
-
-def _layout(t) -> str:
-    if t.is_contiguous():
-        return "nchw-dense" if t.dim() == 4 else "contiguous"
-    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last):
-        return "channels_last-dense"
-    return f"strided {tuple(t.stride())}"
-
-
-def phase_train_kernels(summary) -> None:
-    """The training slice's kernels: merge_pair, merge_pair_bwd and the
-    fused upsample-into-concat backward, bit-equal to their plain
-    versions, and timed at the masker step's shapes (the summary rows)
-    and at batch 8192."""
-    from cgs_tpu_torch.ops.kernels import (
-        merge_pair, merge_pair_bwd, merge_pair_bwd_plain, merge_pair_plain,
-    )
-    from cgs_tpu_torch.ops.upsample import upcat_bwd, upcat_bwd_plain
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
-    t0 = time.time()
-
-    def frames(n, h=64, w=64, c=3):      # NCHW stored channels_last
-        return torch.rand((n, h, w, c), device=dev,
-                          generator=gen).permute(0, 3, 1, 2)
-
-    errs = {"merge_pair": 0.0, "merge_pair_bwd": 0.0,
-            "upsample2x_bwd": 0.0}
-
-    def same(got, want, what):
-        name = what.split()[0]
-        for g, w in zip(got, want):
-            check(g.shape == w.shape and torch.equal(_bits(g), _bits(w)),
-                  f"{what} differs from plain")
-            if g.numel():
-                errs[name] = max(errs[name], float(
-                    (g.float() - w.float()).abs().max()))
-
-    # merges: the masker step, batch 8192, a ragged shape, N = 0, into
-    # the joined (2N) batch, with a and b separate, as the two halves of
-    # one joined batch (the ingest's) and off a 16-byte boundary; the
-    # backward for each set of outputs in BWD_NEEDS, with the joined
-    # gradient in both memory formats cuDNN's dgrad may hand over
-    for n, h, w in [(MASKER_N, 64, 64), (BATCH, 64, 64), (7, 5, 9),
-                    (0, 64, 64)]:
-        ab, z = frames(2 * n, h, w), frames(n, h, w, 1)
-        a, b = frames(n, h, w), frames(n, h, w)
-        ua = _unaligned(a.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        pairs = ((a, b, "separate"), (ab[:n], ab[n:], "joined"),
-                 (ua, b, "unaligned"))
-        for x, y, how in pairs:
-            same([merge_pair(x, y, z)], [merge_pair_plain(x, y, z)],
-                 f"merge_pair at {(n, h, w)} {how}")
-        g = frames(2 * n, h, w)
-        for fmt in (torch.channels_last, torch.contiguous_format):
-            gg = g.contiguous(memory_format=fmt)
-            for x, y, how in pairs:
-                for need in BWD_NEEDS:
-                    got = merge_pair_bwd(x, y, z, gg, need)
-                    want = merge_pair_bwd_plain(x, y, z, gg, need)
-                    what = f"merge_pair_bwd at {(n, h, w)} {how} {fmt} {need}"
-                    check(all((t is not None) == k
-                              for t, k in zip(got, need)),
-                          f"{what}: outputs not as asked")
-                    same([t for t in got if t is not None],
-                         [t for t in want if t is not None], what)
-            del gg
-        del a, b, z, ab, ua, g, pairs
-    torch.cuda.empty_cache()
-
-    # timed with a and b the halves of one joined batch and the joined
-    # gradient channels_last-dense, as in the masker step, and NCHW;
-    # merge_pair_bwd for dz alone (what the step asks for, 52 B a
-    # pixel) and for all three outputs (80 B a pixel)
-    dz_only, every = (False, False, True), (True, True, True)
-    rows = {}
-    for n in (MASKER_N, BATCH):
-        ab, z = frames(2 * n), frames(n, 64, 64, 1)
-        a, b = ab[:n], ab[n:]
-        g = frames(2 * n)
-        g_nchw = g.contiguous()
-        px = n * PIX
-        row = {
-            "merge_pair": {
-                "ms": time_ms(lambda: merge_pair(a, b, z), iters=50),
-                "plain_ms": time_ms(lambda: merge_pair_plain(a, b, z),
-                                    iters=50),
-                "bound": bound_ms(52 * px, 19 * px)},
-            "merge_pair_bwd": {}}
-        bwd = row["merge_pair_bwd"]
-        for key, need, nbytes, ops in (("dz", dz_only, 52, 11),
-                                       ("all", every, 80, 31)):
-            bwd[key] = {
-                "ms": time_ms(lambda: merge_pair_bwd(a, b, z, g, need),
-                              iters=50),
-                "ms_nchw_grads": time_ms(lambda: merge_pair_bwd(
-                    a, b, z, g_nchw, need), iters=50),
-                "plain_ms": time_ms(lambda: merge_pair_bwd_plain(
-                    a, b, z, g, need), iters=50),
-                "bound": bound_ms(nbytes * px, ops * px)}
-            if n == MASKER_N:
-                bwd[key]["device_ms"] = kernel_device_ms(
-                    lambda: merge_pair_bwd(a, b, z, g, need),
-                    "merge_pair_bwd")[0]
-        if n == MASKER_N:
-            row["merge_pair"]["device_ms"] = kernel_device_ms(
-                lambda: merge_pair(a, b, z), "merge_pair")[0]
-        rows[n] = row
-        del a, b, z, ab, g, g_nchw
-        torch.cuda.empty_cache()
-    log("[kernels] merges (ms; N = 64 is the masker step; merge_pair "
-        "writes the joined 2N batch; merge_pair_bwd for dz alone, as the "
-        "step asks, and for all three outputs):", json.dumps(rows))
-    for name, src_line in (("merge_pair", 110), ("merge_pair_bwd", 151)):
-        r = rows[MASKER_N][name]
-        r8 = rows[BATCH][name]
-        if name == "merge_pair_bwd":
-            r, r8 = r["dz"], r8["dz"]
-        summary[name] = {
-            "name": name, "route": "cuda",
-            "source": "cgs_tpu_torch/csrc/merge_pair.cu",
-            "replaces": f"cgs_tpu/ops/pallas_kernels.py:{src_line}",
-            "launches": 0, "max_abs_err": errs[name],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None, "device_ms": r["device_ms"],
-            "batch_8192_ms": r8["ms"], "batch_8192_bound_ms": r8["bound"][0],
-            "shape": f"f32 ({MASKER_N}, 3, 64, 64) channels_last + mask "
-                     f"({MASKER_N}, 1, 64, 64)"}
-    summary["merge_pair_bwd"]["shape"] += (
-        f", joined gradient ({2 * MASKER_N}, 3, 64, 64) channels_last; dz "
-        "alone, as the masker step asks")
-    summary["merge_pair_bwd"]["all_outputs"] = {
-        "device_ms": rows[MASKER_N]["merge_pair_bwd"]["all"]["device_ms"],
-        "bound_ms": rows[MASKER_N]["merge_pair_bwd"]["all"]["bound"][0],
-        "batch_8192_ms": rows[BATCH]["merge_pair_bwd"]["all"]["ms"],
-        "batch_8192_bound_ms":
-            rows[BATCH]["merge_pair_bwd"]["all"]["bound"][0]}
-
-    # upsample backward, fused: the five joins of chfak 5 and chfak 1 at
-    # batch 128 and the ragged joins at N = 3 and 0, f32 and bf16, the
-    # concat gradient in both memory formats cuDNN's dgrad may hand
-    # over, with and without the skip's gradient
-    cases = [(128, cs, cu, h, h, f)
-             for _, cs, cu, h, f in CHFAK5_JOINS + CHFAK1_JOINS]
-    cases += [(n, *j) for j in RAGGED_JOINS for n in (3, 0)]
-    for n, cs, cu, h, w, f in cases:
-        for dt in (torch.float32, torch.bfloat16):
-            g = torch.rand((n, f * h, f * w, cs + cu), device=dev,
-                           generator=gen).to(dt)
-            g_nchw = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-            grads = [g, g_nchw] + ([_unaligned(g)] if n == 3 else [])
-            for gg in grads:
-                for need in (True, False):
-                    got = upcat_bwd(gg, cs, f, need)
-                    want = upcat_bwd_plain(gg, cs, f, need)
-                    check((got[0] is None) == (want[0] is None),
-                          "upsample2x_bwd: d_skip returned when not asked")
-                    same([t for t in got if t is not None],
-                         [t for t in want if t is not None],
-                         f"upsample2x_bwd at {(n, cs, cu, h, w, f)} {dt} "
-                         f"strides {gg.stride()} d_skip {need}")
-    del g, g_nchw, grads
-    torch.cuda.empty_cache()
-
-    # timed at the chfak-5 joins with the gradient channels_last-dense
-    # (what cuDNN's dgrad hands over, the step phase prints it) and the
-    # skip's gradient where the masker step asks for it (not for the
-    # head join's frame)
-    bwd = {}
-    for n in (MASKER_N, BATCH):
-        for dt in (torch.float32, torch.bfloat16):
-            gs = [(name, cs, f, name != "head",
-                   torch.rand((n, f * h, f * h, cs + cu), device=dev,
-                              generator=gen).to(dt))
-                  for name, cs, cu, h, f in CHFAK5_JOINS]
-            rows = []
-            for name, cs, f, need, g in gs:
-                n_skip = g.numel() // g.shape[3] * cs
-                n_dx = (g.numel() - n_skip) // (f * f)
-                nbytes = (g.numel() + n_skip * need + n_dx) * g.element_size()
-                rows.append({
-                    "join": name, "d_skip": need,
-                    "ms": time_ms(lambda: upcat_bwd(g, cs, f, need),
-                                  iters=50),
-                    "unfused_ms": time_ms(
-                        lambda: _unfused_bwd(g, cs, f, need), iters=50),
-                    "plain_ms": time_ms(
-                        lambda: upcat_bwd_plain(g, cs, f, need), iters=50),
-                    "bound_ms": bound_ms(nbytes, n_dx * (f * f - 1))[0]})
-            res = {k: sum(r[k] for r in rows) for k in
-                   ("ms", "unfused_ms", "plain_ms", "bound_ms")}
-            res["joins"] = rows
-            if n == MASKER_N:
-                for key, fn in (("device_ms", upcat_bwd),
-                                ("unfused_device_ms", _unfused_bwd)):
-                    res[key] = device_breakdown(
-                        lambda: [fn(g, cs, f, need)
-                                 for _, cs, f, need, g in gs],
-                        reps=20)["ms_per_step"]
-            bwd[f"batch {n} {_name(dt)}"] = res
-            del gs, g
-            torch.cuda.empty_cache()
-    log("[kernels] upsample2x_bwd (fused), the 5 chfak-5 joins (ms, sums "
-        "over the joins):", json.dumps(bwd))
-    r = bwd[f"batch {MASKER_N} f32"]
-    summary["upsample2x_bwd"] = {
-        "name": "upsample2x_bwd", "route": "cuda",
-        "source": "cgs_tpu_torch/csrc/upsample2x.cu",
-        "replaces": "cgs_tpu/ops/pallas_upsample.py:132",
-        "launches": 0, "max_abs_err": errs["upsample2x_bwd"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
-        "unfused_ms": r["unfused_ms"], "device_ms": r["device_ms"],
-        "unfused_device_ms": r["unfused_device_ms"],
-        "shape": f"the 5 chfak-5 skip joins, f32, batch {MASKER_N} (sum)"}
-    log(f"[kernels] training kernels ok in {time.time() - t0:.1f} s")
-
-
-def phase_up_first(summary) -> None:
-    """The up-first join of the zoo U-Nets, cat([up(x), skip]), at
-    zoo.Unet's four chfak-5 joins (NHWC), f32 and bf16, batch 64 and
-    8192: forward and backward (the gradient channels_last- and
-    NCHW-dense, with and without the skip's gradient) bit-equal to
-    their plain versions; the joins timed (sums) beside the plain
-    versions and the byte bound. Adds 'up_first' to the upsample rows."""
-    from cgs_tpu_torch.ops.upsample import (
-        upcat_bwd, upcat_bwd_plain, upcat_fwd, upcat_plain,
-    )
-
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    t0 = time.time()
-    fwd, bwd = {}, {}
-    for n in (MASKER_N, BATCH):
-        iters = 20 if n == MASKER_N else 10
-        for dt in (torch.float32, torch.bfloat16):
-            rows_f, rows_b = [], []
-            for name, cs, cu, h, f in UNET5_JOINS:
-                skip, x = _join_inputs(n, cs, cu, h, h, f, dt, gen)
-                check(torch.equal(_bits(upcat_fwd(skip, x, f, True)),
-                                  _bits(upcat_plain(skip, x, f, True))),
-                      f"up-first upsample2x differs from plain at {name} "
-                      f"batch {n} {dt}")
-                nbytes = (2 * skip.numel() + (1 + f * f) * x.numel()) \
-                    * skip.element_size()
-                rows_f.append({
-                    "join": name,
-                    "ms": time_ms(lambda: upcat_fwd(skip, x, f, True),
-                                  iters=iters),
-                    "plain_ms": time_ms(lambda: upcat_plain(skip, x, f, True),
-                                        iters=iters),
-                    "bound_ms": bound_ms(nbytes)[0]})
-                del skip, x
-                g = torch.rand((n, f * h, f * h, cs + cu), device="cuda",
-                               generator=gen).to(dt)
-                g_nchw = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-                for gg in (g, g_nchw):
-                    for need in (True, False):
-                        got = upcat_bwd(gg, cs, f, need, True)
-                        want = upcat_bwd_plain(gg, cs, f, need, True)
-                        check((got[0] is None) == (not need) and all(
-                            torch.equal(_bits(a), _bits(b))
-                            for a, b in zip(got, want) if a is not None),
-                            f"up-first upsample2x_bwd differs from plain at "
-                            f"{name} batch {n} {dt} strides {gg.stride()} "
-                            f"d_skip {need}")
-                del g_nchw, got, want
-                n_skip = g.numel() // g.shape[3] * cs
-                n_dx = (g.numel() - n_skip) // (f * f)
-                nbytes = (g.numel() + n_skip + n_dx) * g.element_size()
-                rows_b.append({
-                    "join": name,
-                    "ms": time_ms(lambda: upcat_bwd(g, cs, f, True, True),
-                                  iters=iters),
-                    "plain_ms": time_ms(
-                        lambda: upcat_bwd_plain(g, cs, f, True, True),
-                        iters=iters),
-                    "bound_ms": bound_ms(nbytes, n_dx * (f * f - 1))[0]})
-                del g
-                torch.cuda.empty_cache()
-            for out, rows in ((fwd, rows_f), (bwd, rows_b)):
-                res = {k: sum(r[k] for r in rows)
-                       for k in ("ms", "plain_ms", "bound_ms")}
-                res["joins"] = rows
-                out[f"batch {n} {_name(dt)}"] = res
-    log("[kernels] up-first join (zoo.Unet's 4 chfak-5 joins, ms, sums), "
-        "forward:", json.dumps(fwd))
-    log("[kernels] up-first join, backward (with the skip's gradient):",
-        json.dumps(bwd))
-    for name, res in (("upsample2x", fwd), ("upsample2x_bwd", bwd)):
-        r, r64 = res[f"batch {BATCH} f32"], res[f"batch {MASKER_N} f32"]
-        summary[name]["up_first"] = {
-            "shape": "zoo.Unet's 4 chfak-5 joins, upsampled channels first, "
-                     f"f32, batch {BATCH} (sum)",
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bf16_ms": res[f"batch {BATCH} bf16"]["ms"],
-            "bf16_bound_ms": res[f"batch {BATCH} bf16"]["bound_ms"],
-            f"batch_{MASKER_N}_ms": r64["ms"],
-            f"batch_{MASKER_N}_plain_ms": r64["plain_ms"],
-            f"batch_{MASKER_N}_bound_ms": r64["bound_ms"]}
-    log(f"[kernels] up-first join ok in {time.time() - t0:.1f} s")
 
 
 def phase_zoo(_build) -> dict:
@@ -2359,9 +1371,9 @@ def phase_zoo(_build) -> dict:
     the kernels and through their plain versions: the loss terms and
     every gradient bit-equal, every decoder gradient non-zero, the
     launches ZOO_STEP_LAUNCHES. Then the main path itself, with the
-    launch counts cleared before and read after: ZOO_WARM Adam pair
-    steps, then ZOO_WINDOWS windows of ZOO_STEPS (steps/s each), a
-    `sum_segm` chunk over the frames as a uint8 bank,
+    launch counts cleared before and read after: ZOO_STEPS Adam pair
+    steps with finite losses, a `sum_segm` chunk over the frames as a
+    uint8 bank,
     and `unet_embeddings.project_embeddings` (the U-Net's embeds, the
     PCA on the card). Returns the launches."""
     import cgs_tpu_torch.sandbox.merge_variants as mv
@@ -2371,7 +1383,6 @@ def phase_zoo(_build) -> dict:
     from cgs_tpu_torch.models.zoo import Unet
     from cgs_tpu_torch.ops.kernels import normalize_u8
 
-    t0 = time.time()
     frames, _ = synthetic_eval_set(n_frames=2 * ZOO_N, seed=7)
     bank = torch.from_numpy(frames).cuda()
     x = normalize_u8(bank).permute(0, 3, 1, 2)      # NCHW channels_last
@@ -2402,10 +1413,6 @@ def phase_zoo(_build) -> dict:
 
         k_terms, k_grads, k_launches = one_step(True)
         p_terms, p_grads, p_launches = one_step(False)
-        timed = mv.make_pair_merge_step(
-            unet, torch.optim.SGD(unet.parameters(), lr=0.0), l1=0.1,
-            live=True)
-        breakdown = device_breakdown(lambda: timed(a, y, b), reps=2)
         check(k_launches == ZOO_STEP_LAUNCHES,
               f"zoo pair step launched {k_launches}, want "
               f"{ZOO_STEP_LAUNCHES}")
@@ -2425,15 +1432,8 @@ def phase_zoo(_build) -> dict:
         opt = torch.optim.Adam(unet.parameters(), lr=2e-4)
         step = mv.make_pair_merge_step(unet, opt, l1=0.1, live=True)
         _build.launches.clear()
-        losses = [step(a, y, b)["loss"] for _ in range(ZOO_WARM)]
-        rates = []
-        for _ in range(ZOO_WINDOWS):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            losses += [step(a, y, b)["loss"] for _ in range(ZOO_STEPS)]
-            torch.cuda.synchronize()
-            rates.append(ZOO_STEPS / (time.perf_counter() - t1))
-        losses = torch.stack(losses).cpu().numpy()
+        losses = torch.stack([step(a, y, b)["loss"]
+                              for _ in range(ZOO_STEPS)]).cpu().numpy()
         check(np.isfinite(losses).all(), f"zoo pair losses {losses}")
         chunk = ss.make_sum_segm_chunk(unet, torch.optim.Adam(
             unet.parameters(), lr=1e-3))
@@ -2457,16 +1457,12 @@ def phase_zoo(_build) -> dict:
     log(f"[zoo] one chfak-5 zoo.Unet pair step (A {ZOO_N} + B {ZOO_N}, "
         f"live, inject, l1 0.1): terms and all {len(k_grads)} gradients "
         f"bit-equal between the kernel and plain paths, every decoder "
-        f"gradient non-zero, launches {k_launches}; device "
-        f"{json.dumps(breakdown)}")
-    log(f"[zoo] pair steps/s {[round(r, 2) for r in rates]} (Adam, "
-        f"{ZOO_WARM} untimed steps, then {ZOO_WINDOWS} windows of "
-        f"{ZOO_STEPS} steps; median {sorted(rates)[ZOO_WINDOWS // 2]:.2f}; "
-        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}); sum_segm chunk "
-        f"{s_steps} x {s_batch} losses {np.round(ss_losses, 1).tolist()}; "
-        f"unet_embeddings projection {std.shape} of {proj['mask'].shape[0]} "
-        f"frames; main-path launches {launches}; phase "
-        f"{time.time() - t0:.1f} s")
+        f"gradient non-zero, launches {k_launches}")
+    log(f"[zoo] {ZOO_STEPS} Adam pair steps, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; sum_segm chunk {s_steps} x {s_batch} losses "
+        f"{np.round(ss_losses, 1).tolist()}; unet_embeddings projection "
+        f"{std.shape} of {proj['mask'].shape[0]} frames; main-path "
+        f"launches {launches}")
     return launches
 
 
@@ -2607,178 +1603,12 @@ def _steps_vs_plain(_build, cfg, models, critic_rows: int, fuses) -> dict:
     return launched
 
 
-def phase_train_step(_build) -> None:
-    """One chfak-5 masker step (`masker_step`, default flags: frames and
-    labels gathered from uint8 banks by index, A shifted), kernel path
-    against plain path: loss terms and every gradient bit-equal, every
-    decoder gradient non-zero, launches per step as expected. The
-    optimizer has lr 0, so both runs start from the same weights and
-    the step's gradients stay in .grad."""
-    from unittest import mock
-
-    import cgs_tpu_torch.ops.merge as merge_mod
-    import cgs_tpu_torch.ops.upsample as upsample_mod
-    from cgs_tpu_torch.core.config import parse_args
-    from cgs_tpu_torch.train.steps import StepRng, masker_step
-
-    t0 = time.time()
-    dev = torch.device("cuda")
-    cfg = parse_args(["-train", "--chfak", "5", "--dropout", "0.5"])
-    check(cfg.live and cfg.inject, "default flags are live + inject")
-    models = _train_models(torch.float32, seed=3)
-    opt = torch.optim.SGD([p for m in models.values()
-                           for p in m.parameters()], lr=0.0)
-    segs = _step_segments(_step_banks(
-        torch.Generator(device=dev).manual_seed(4), n=256), 0)
-    terms = ("replace", "inject", "norm", "critic")
-
-    def run():
-        rng = StepRng.seeded(0, dev)          # the same draws each run
-        out = masker_step(cfg, models, opt, segs[:2], segs[2], rng)
-        torch.cuda.synchronize()
-        return ({t: float(v) for t, v in zip(terms, out)},
-                {f"{n}.{k}": p.grad.detach().clone()
-                 for n, m in models.items()
-                 for k, p in m.named_parameters()})
-
-    layouts = {}
-    real_mbwd, real_ubwd = merge_mod.merge_pair_bwd, upsample_mod.upcat_bwd
-
-    needs = []
-
-    def spy_mbwd(a, b, z, g, need):
-        layouts["merge_pair_bwd (joined g)"] = _layout(g)
-        needs.append(tuple(need))
-        return real_mbwd(a, b, z, g, need)
-
-    def spy_ubwd(gg, cs, factor, need_skip, up_first=False):
-        layouts.setdefault("upsample2x_bwd (shape, strides, Cs, d_skip)",
-                           []).append([list(gg.shape), list(gg.stride()),
-                                       cs, need_skip])
-        return real_ubwd(gg, cs, factor, need_skip, up_first)
-
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        _build.launches.clear()
-        with mock.patch.object(merge_mod, "merge_pair_bwd", spy_mbwd), \
-                mock.patch.object(upsample_mod, "upcat_bwd", spy_ubwd):
-            k_terms, k_grads = run()
-        per_step = dict(_build.launches)
-        with _plain_kernels():
-            _build.launches.clear()
-            p_terms, p_grads = run()
-            check(sum(_build.launches.values()) == 0,
-                  f"plain path launched {dict(_build.launches)}")
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    log("[step] launches per masker step:", per_step)
-    check(per_step == STEP_LAUNCHES,
-          f"launches per masker step {per_step}, want {STEP_LAUNCHES}")
-    # the frames need no gradient: the step asks merge_pair_bwd for dz
-    log("[step] merge_pair_bwd asked for (da, db, dz):", needs)
-    check(needs == [(False, False, True)],
-          f"the masker step asked merge_pair_bwd for {needs}, want "
-          "[(False, False, True)]")
-    log("[step] gradient layouts the kernels were handed:",
-        json.dumps(layouts))
-    d_terms = max(abs(k_terms[t] - p_terms[t]) for t in terms)
-    d_grads = max(float((k_grads[k] - p_grads[k]).abs().max())
-                  for k in k_grads)
-    check(all(np.isfinite(v) for v in k_terms.values()),
-          f"loss terms not finite: {k_terms}")
-    # the kernels are bit-equal to their plain versions and cuDNN is
-    # deterministic, so the two paths agree in every bit
-    check(k_terms == p_terms and all(
-        torch.equal(_bits(k_grads[k]), _bits(p_grads[k])) for k in k_grads),
-        f"kernel path vs plain path: terms {d_terms}, grads {d_grads}")
-    zero = [k for k, v in k_grads.items()
-            if k.startswith("masker.") and not bool(v.abs().sum() > 0)]
-    check(not zero, f"decoder gradients all zero: {zero}")
-    log(f"[step] chfak 5 f32 masker step: terms {k_terms}; kernel vs plain "
-        f"max |diff| terms {d_terms:.3g} grads {d_grads:.3g}; all "
-        f"{sum(k.startswith('masker.') for k in k_grads)} decoder "
-        f"gradients non-zero; phase {time.time() - t0:.1f} s")
-
-
-def phase_train_speed() -> None:
-    """Critic (batch 64) and masker (2K = 64) train steps/s at chfak 5,
-    f32 (TF32 off) and bf16, on random uint8 banks on the card, and the
-    device time of one critic and one masker step (`critic_step`,
-    `masker_step`, frames gathered from the banks by index), with no
-    concat kernel left in either."""
-    from cgs_tpu_torch.core.config import parse_args
-    from cgs_tpu_torch.ops.kernels import Segment
-    from cgs_tpu_torch.train.contrastive import sample_index_stacks
-    from cgs_tpu_torch.train.loops import critic_chunk, masker_chunk
-    from cgs_tpu_torch.train.steps import (
-        StepRng, critic_step, make_optimizer, masker_step,
-    )
-
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(5)
-    bank = torch.randint(0, 256, (4096, 64, 64, 3), dtype=torch.uint8,
-                         device=dev, generator=g)
-    ybank = torch.rand(4096, device=dev, generator=g)
-    cfg = parse_args(["-train", "--chfak", "5", "--dropout", "0.5"])
-    nrng = np.random.default_rng(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        name = "f32" if dtype == torch.float32 else "bf16"
-        t0 = time.time()
-        rng = StepRng.seeded(0, dev)
-        models = _train_models(dtype, seed=6)
-        opt = make_optimizer({"critic": models["critic"]})
-        idx = nrng.integers(0, 4096, (205, 64))
-        critic_chunk(cfg, models["critic"], opt, bank, ybank, idx[:5], rng)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        losses = critic_chunk(cfg, models["critic"], opt, bank, ybank,
-                              idx[5:], rng).cpu().numpy()
-        c_sps = 200 / (time.time() - t1)
-        check(bool(np.isfinite(losses).all()), "critic losses not finite")
-        x = Segment(bank, torch.from_numpy(idx[0]).to(dev), labels=ybank)
-        c_prof = device_breakdown(lambda: critic_step(
-            cfg, models["critic"], opt, x, rng))
-
-        models = _train_models(dtype, seed=6)
-        opt = make_optimizer(models)
-        xpos, ypos = bank[:2048], ybank[:2048]
-        xneg, yneg = bank[2048:], ybank[2048:]
-        h, l, c = sample_index_stacks(nrng, 2048, 2048, 55, 32)
-        masker_chunk(cfg, models, opt, xpos, ypos, xneg, yneg, h[:5],
-                     l[:5], c[:5], rng)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        losses = masker_chunk(cfg, models, opt, xpos, ypos, xneg, yneg,
-                              h[5:], l[5:], c[5:], rng).cpu().numpy()
-        m_sps = 50 / (time.time() - t1)
-        check(bool(np.isfinite(losses).all()), "masker losses not finite")
-        log(f"[speed] chfak 5 {name}: critic {c_sps:.1f} steps/s (batch "
-            f"64), masker {m_sps:.1f} steps/s (2K = 64)")
-        h0, l0, c0 = (torch.from_numpy(i[0].astype(np.int64)).to(dev)
-                      for i in (h, l, c))
-        a = [Segment(xpos, h0, labels=ypos), Segment(xneg, l0, labels=yneg)]
-        m_prof = device_breakdown(lambda: masker_step(
-            cfg, models, opt, a, Segment(xneg, c0), rng))
-        log(f"[speed] device time of one masker step, chfak5 {name}:",
-            json.dumps(m_prof))
-        log(f"[speed] device time of one critic step, chfak5 {name}:",
-            json.dumps(c_prof))
-        for step, prof in (("masker", m_prof), ("critic", c_prof)):
-            check("concat" not in prof["by_category_ms"],
-                  f"the {step} step still runs concat kernels: {prof}")
-        log(f"[speed] phase {name} {time.time() - t0:.1f} s")
-        del models, opt
-        torch.cuda.empty_cache()
-
-
 def phase_train(seed: int) -> None:
     """The paper's synthetic protocol, -frozen, at chfak 5, through the
     N-seed runner and the CLI, writing no files but the runner's
     `results.txt` line (in a temporary directory)."""
     from cgs_tpu_torch.sandbox.multirun import run_seeds
 
-    t0 = time.time()
     old = os.getcwd()
     seen = {}
     with tempfile.TemporaryDirectory() as d:
@@ -2815,7 +1645,7 @@ def phase_train(seed: int) -> None:
         f"masker steps; contrastive {sets.n_pos} pos / {sets.n_neg} neg; "
         f"critic loss first/last chunk {closs[:100].mean():.5f} / "
         f"{closs[-100:].mean():.5f}; eval IoU {handler.last_ious}; "
-        f"results.txt: {line.strip()!r}; phase {time.time() - t0:.1f} s")
+        f"results.txt: {line.strip()!r}")
     check(iou >= MIN_IOU, f"seed {seed}: eval IoU {iou} < {MIN_IOU}")
 
 
@@ -2832,7 +1662,6 @@ def phase_train_primary(_build) -> dict:
     from cgs_tpu_torch import cli
     from cgs_tpu_torch.core.config import parse_args
 
-    t0 = time.time()
     try:
         import matplotlib                                # noqa: F401
         drawer = "matplotlib"
@@ -2868,12 +1697,11 @@ def phase_train_primary(_build) -> dict:
         cfg.batch_size, ("both",))
     log(f"[train-primary] chfak {cfg.chfak} critic step (batch "
         f"{cfg.batch_size}) and masker step (K = {MASKER_N // 2}): kernel "
-        f"path bit-equal to plain path; launches {json.dumps(steps)}; "
-        f"phase {time.time() - t0:.1f} s")
+        f"path bit-equal to plain path; launches {json.dumps(steps)}")
     return launches
 
 
-def phase_cluster(card: str) -> None:
+def phase_cluster() -> None:
     """The sandbox clustering at realistic size: `cluster_frames` (per-
     pixel HSV KMeans) over KMEANS_FRAMES synthetic frames (4096 pixels
     each, K = 20, 25 iterations) on the card and on the CPU from the
@@ -2882,8 +1710,7 @@ def phase_cluster(card: str) -> None:
     `create_patch_embedding_clusters` at the reference config (700 + 700
     frames, embed_dim 100, 100 clusters, pw 10, stride 2) on the card:
     every raw patch histogram sums to pw^2 = 100, tree-prob column 2
-    peaks at 1, and the 7-tuple round-trips. Wall times beside the
-    card."""
+    peaks at 1, and the 7-tuple round-trips."""
     from cgs_tpu_torch.data.synthetic import synthetic_eval_set
     from cgs_tpu_torch.sandbox import cluster
     from cgs_tpu_torch.sandbox.patch_embed import (
@@ -2895,13 +1722,9 @@ def phase_cluster(card: str) -> None:
     init = torch.randperm(x[..., 0].size,
                           generator=torch.Generator().manual_seed(0))
     init = init[:KMEANS_K].numpy()
-    res, wall = {}, {}
-    for dev in ("cuda", "cpu"):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res[dev] = cluster.cluster_frames(x, y, KMEANS_K, iters=KMEANS_ITERS,
-                                          init_idx=init, device=dev)
-        wall[dev] = time.time() - t0
+    res = {dev: cluster.cluster_frames(x, y, KMEANS_K, iters=KMEANS_ITERS,
+                                       init_idx=init, device=dev)
+           for dev in ("cuda", "cpu")}
     agree = float((res["cuda"]["labels"] == res["cpu"]["labels"]).mean())
     gap = float(np.abs(res["cuda"]["centroids"]
                        - res["cpu"]["centroids"]).max())
@@ -2913,9 +1736,8 @@ def phase_cluster(card: str) -> None:
           f"{res['cpu']['target']} on the CPU")
     log(f"[cluster] cluster_frames {KMEANS_FRAMES} frames "
         f"({x[..., 0].size} pixels), K = {KMEANS_K}, {KMEANS_ITERS} "
-        f"iterations: card {wall['cuda']:.2f} s, CPU {wall['cpu']:.2f} s "
-        f"(wall, set-up and layers included); labels equal on {agree:.6f}, "
-        f"centroids {gap:.3g} apart, target {res['cuda']['target']}; {card}")
+        f"iterations, card against CPU: labels equal on {agree:.6f}, "
+        f"centroids {gap:.3g} apart, target {res['cuda']['target']}")
 
     hsv = cluster.rgb_to_hsv(torch.from_numpy(x).float() / 255.0).numpy()
     has = y > 0
@@ -2924,12 +1746,9 @@ def phase_cluster(card: str) -> None:
           "without")
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "embed.pickle")
-        torch.cuda.synchronize()
-        t0 = time.time()
         emb = create_patch_embedding_clusters(
             hsv[has], y[has], hsv[~has], np.zeros(int((~has).sum())), path,
             device="cuda", **EMBED_CFG)
-        fit_s = time.time() - t0
         sub = hsv[:256]
         flat, pshape = emb.embed_batch(sub)
         check(pshape == (len(sub), 28, 28, 100) and bool(
@@ -2940,77 +1759,80 @@ def phase_cluster(card: str) -> None:
               and bool(np.isfinite(probs).all()),
               f"tree-prob table {probs.shape}, column 2 max "
               f"{probs[:, 2].max()}")
-        t0 = time.time()
         p1, l1 = emb.predict_batch(sub)
-        pred_s = time.time() - t0
         back = PatchEmbedder(device="cuda").load_embed_tuple(path)
         p2, l2 = back.predict_batch(sub)
         check(back.n_cluster == 100 and np.array_equal(l1, l2)
               and np.array_equal(p1, p2), "the 7-tuple does not round-trip")
     log(f"[cluster] create_patch_embedding_clusters 700 + 700 frames, "
-        f"embed_dim 100, 100 clusters, pw 10, stride 2: {fit_s:.2f} s on "
-        f"the card (wall); predict_batch of 256 frames {pred_s:.3f} s; "
+        f"embed_dim 100, 100 clusters, pw 10, stride 2, on the card: "
         f"histograms sum to 100; tree-prob column 2 max 1; the 7-tuple "
-        f"round-trips; {card}")
+        f"round-trips")
 
 
-def phase_bench_width(_build, card: str) -> dict:
+def phase_bench_width(_build) -> dict:
     """`sandbox/bench_width.py` at chfak 5: `main(BENCH_WIDTH_ARGV)`
     (inference f32 / bf16 at its auto batch), then its `bench_training`
     at BENCH_WIDTH_STEPS x BENCH_WIDTH_ROUNDS (critic and masker chunks
     f32 / bf16, the masker chunk at fuse none / merges); every line
-    finite and positive. Then, outside the counted run, the kernels at
-    this path's shapes, kernel path against plain path, bit-equal:
-    `MaskPipeline.run_device` at the auto batch in f32 and bf16, and one
-    critic step (batch 64) and one masker step (K = 32) at fuse none and
-    merges, on the sweep's models. Returns the launches of the sweep."""
+    finite and positive (the lines it prints are its timings, and are
+    not shown). Then, outside the counted run, the kernels at
+    this path's and the cells' shapes, kernel path against plain path,
+    bit-equal: `MaskPipeline.run_device` at the auto batch and at the
+    serve batch (BATCH, the process cells' batch) in f32 and bf16, and
+    one critic step (batch 64) and one masker step (K = 32) at fuse
+    both (the masker cell's step), none and merges, on the sweep's
+    models. Returns the launches of the sweep."""
+    import contextlib
     import importlib
+    import io
 
     from cgs_tpu_torch.pipeline import MaskPipeline
 
     bench_width = importlib.import_module(
         "cgs_tpu_torch.sandbox.bench_width")
-    t0 = time.time()
     chunks = dict(steps=BENCH_WIDTH_STEPS, rounds=BENCH_WIDTH_ROUNDS)
     _build.launches.clear()             # the main path starts
-    results = bench_width.main(BENCH_WIDTH_ARGV)
-    for bf16 in (False, True):
-        results += bench_width.bench_training(5, 0.5, bf16, **chunks)
-    for fuse in ("none", "merges"):
-        results += bench_width.bench_training(5, 0.5, False, fuse=fuse,
-                                              phases=("masker",), **chunks)
+    with contextlib.redirect_stdout(io.StringIO()):
+        results = bench_width.main(BENCH_WIDTH_ARGV)
+        for bf16 in (False, True):
+            results += bench_width.bench_training(5, 0.5, bf16, **chunks)
+        for fuse in ("none", "merges"):
+            results += bench_width.bench_training(
+                5, 0.5, False, fuse=fuse, phases=("masker",), **chunks)
     launches = dict(_build.launches)    # ... and ends
     check(len(results) == 8 and all(
         np.isfinite(r["value"]) and r["value"] > 0 for r in results),
         f"bench_width results {results}")
-    for r in results:
-        log(f"[bench-width] {json.dumps(r)}; {card}")
-    log(f"[bench-width] launches {launches}; sweep {time.time() - t0:.1f} s")
+    log(f"[bench-width] {[r['metric'] for r in results]}: finite and "
+        f"positive; launches {launches}")
 
     dev = torch.device("cuda")
-    batch = results[0]["batch"]
-    frames = torch.randint(0, 256, (batch, 64, 64, 3), dtype=torch.uint8,
-                           device=dev,
+    batches = sorted({results[0]["batch"], BATCH})
+    frames = torch.randint(0, 256, (batches[-1], 64, 64, 3),
+                           dtype=torch.uint8, device=dev,
                            generator=torch.Generator(device=dev)
                            .manual_seed(0))
     checked = {}
     for dtype in (torch.float32, torch.bfloat16):
         critic, masker = bench_width._models(5, 0.5, dtype, dev, train=False)
-        pipe = MaskPipeline(critic, masker,
-                            {"critic": critic.state_dict(),
-                             "masker": masker.state_dict()},
-                            batch_size=batch, device=dev)
-        checked[f"MaskPipeline {_name(dtype)} batch {batch}"] = (
-            _pipeline_vs_plain(_build, pipe, frames))
-        del pipe
+        for batch in batches:
+            pipe = MaskPipeline(critic, masker,
+                                {"critic": critic.state_dict(),
+                                 "masker": masker.state_dict()},
+                                batch_size=batch, device=dev)
+            checked[f"MaskPipeline {_name(dtype)} batch {batch}"] = (
+                _pipeline_vs_plain(_build, pipe, frames[:batch]))
+            del pipe
     critic, masker = bench_width._models(5, 0.5, torch.float32, dev,
                                          train=True)
     checked.update(_steps_vs_plain(
         _build, bench_width._train_config(5, 0.5),
-        {"critic": critic, "masker": masker}, 64, ("none", "merges")))
+        {"critic": critic, "masker": masker}, 64,
+        ("both", "none", "merges")))
     torch.cuda.empty_cache()
     log(f"[bench-width] chfak 5, kernel path bit-equal to plain path: "
-        f"{json.dumps(checked)}; phase {time.time() - t0:.1f} s")
+        f"{json.dumps(checked)}")
     return launches
 
 
@@ -3038,70 +1860,6 @@ def _seeded_indices(gen, r: int, n: int, s: int = 1):
                           generator=gen),
             torch.randint(0, n, (r, s, MASKER_N), device="cuda",
                           generator=gen))
-
-
-def phase_seeded_ingest(summary) -> None:
-    """The ingest for R seeds in one launch: bit-equal to its plain
-    version (the R single-seed pieces, segment by segment) at R = 3, a
-    masker step's A (each seed rolled by its own shift, with labels) and
-    B, and a critic step's batch, in f32 and bf16; R = 1 with (1, n)
-    rows bit-equal to today's (n,) call; timed at R = 3."""
-    from cgs_tpu_torch.ops.kernels import (
-        Segment, gather_normalize_u8, gather_normalize_u8_plain,
-    )
-    t0 = time.time()
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(17)
-    bank = torch.randint(0, 256, (2048, 64, 64, 3), dtype=torch.uint8,
-                         device=dev, generator=gen)
-    y = torch.rand(2048, device=dev, generator=gen)
-    r = SP_R
-    a_idx, b_idx = (i[:, 0].contiguous() for i in
-                    _seeded_indices(gen, r, 2048))
-    err = 0.0
-
-    def same(segs, dt, what):
-        nonlocal err
-        (got, gy), (want, wy) = (gather_normalize_u8(segs, dt),
-                                 gather_normalize_u8_plain(segs, dt))
-        check(got.shape == want.shape
-              and torch.equal(_bits(got), _bits(want))
-              and ((gy is None and wy is None) or torch.equal(gy, wy)),
-              f"seeded normalize_u8 differs from plain at {what}")
-        err = max(err, float((got.float() - want.float()).abs().max()))
-
-    for dt in (torch.float32, torch.bfloat16):
-        for sh in range(-63, 64, 9):
-            shifts = [sh, -sh, 2 * sh]
-            same([Segment(bank, a_idx, shifts, y), Segment(bank, b_idx)], dt,
-                 f"R = {r} masker step, shifts {shifts} {_name(dt)}")
-            same([Segment(bank, b_idx, shifts, y)], dt,
-                 f"R = {r} critic step, shifts {shifts} {_name(dt)}")
-        one = [Segment(bank, a_idx[:1], [5], y), Segment(bank, b_idx[:1])]
-        flat = [Segment(bank, a_idx[0], 5, y), Segment(bank, b_idx[0])]
-        (g1, y1), (g0, y0) = (gather_normalize_u8(one, dt),
-                              gather_normalize_u8(flat, dt))
-        check(torch.equal(_bits(g1), _bits(g0)) and torch.equal(y1, y0),
-              f"R = 1 seeded ingest differs from the (n,) call {_name(dt)}")
-    check(err == 0.0, f"seeded ingest max |err| {err}")
-    segs = [Segment(bank, a_idx, [3, -7, 11], y), Segment(bank, b_idx)]
-    n = sum(sg.rows for sg in segs)
-    n_lab = segs[0].rows
-    row = {"seeds": r, "frames": n,
-           "ms": time_ms(lambda: gather_normalize_u8(segs), iters=50),
-           "device_ms": device_breakdown(lambda: gather_normalize_u8(segs),
-                                         reps=20)["ms_per_step"],
-           "plain_ms": time_ms(lambda: gather_normalize_u8_plain(segs),
-                               iters=50),
-           "plain_device_ms": device_breakdown(
-               lambda: gather_normalize_u8_plain(segs),
-               reps=20)["ms_per_step"],
-           "bound_ms": bound_ms(5 * n * FRAME_F + 8 * n + 8 * n_lab,
-                                n * FRAME_F)[0],
-           "max_abs_err": err}
-    summary["normalize_u8"]["seeded_masker_step_r3"] = row
-    log("[kernels] seeded normalize_u8, a masker step of R = 3 seeds:",
-        json.dumps(row), f"({time.time() - t0:.1f} s)")
 
 
 def _seeded_masker_run(cfg, models, opt, bank, y, a_idx, b_idx, rng,
@@ -3332,24 +2090,15 @@ def _seeded_dropout_checks(bank, y, gen, runs: int) -> dict:
 
 
 def phase_seeded_step(_build) -> None:
-    """One seeded masker step launches 1 ingest, 1 + 1 merge and 5 + 5
-    joins at R = 1 and R = 3 (device operations, layout moves and their
-    copies' device time beside them); at R = 2 and 3 its kernel path is
-    bit-equal to its plain path (terms and gradients, deterministic
-    cuDNN); three seeded steps of R = 2 at dropout 0 with given shifts
-    agree with three serial `masker_step`s per seed within SP_TOL
-    (`_seeded_vs_serial`); seeded steps/s at R = 1, 3, 10 beside the
-    serial steps'."""
+    """At R = 2 and 3 a seeded masker step's kernel path is bit-equal to
+    its plain path (terms and gradients, deterministic cuDNN); three
+    seeded steps of R = 2 at dropout 0 with given shifts agree with
+    three serial `masker_step`s per seed within SP_TOL
+    (`_seeded_vs_serial`); at dropout 0.5, R = 3 and 10 seeded steps
+    against each seed's serial steps (`_seeded_dropout_checks`)."""
     from cgs_tpu_torch.core.config import parse_args
-    from cgs_tpu_torch.models.seeded import layout_moves
-    from cgs_tpu_torch.ops.kernels import Segment
-    from cgs_tpu_torch.sandbox.seed_parallel import (
-        SeedRng, seeded_critic_step,
-    )
-    from cgs_tpu_torch.train.loops import critic_chunk, masker_chunk
-    from cgs_tpu_torch.train.steps import StepRng, make_optimizer
+    from cgs_tpu_torch.sandbox.seed_parallel import SeedRng
 
-    t0 = time.time()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(21)
     nb = 4096
@@ -3359,43 +2108,7 @@ def phase_seeded_step(_build) -> None:
     cfg = parse_args(["-train", "--chfak", "5", "--dropout", "0.5"])
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    report = {}
     try:
-        # launches, device operations and layout moves per seeded step
-        for r in (1, SP_R):
-            models, _ = _seeded_models(list(range(r)), 0.5)
-            opt = make_optimizer(models)
-            rng = SeedRng.seeded(range(r), dev)
-            a_idx, b_idx = _seeded_indices(gen, r, nb)
-
-            def step():
-                _seeded_masker_run(cfg, models, opt, bank, y, a_idx, b_idx,
-                                   rng)
-            step()
-            torch.cuda.synchronize()
-            _build.launches.clear()
-            layout_moves.clear()
-            step()
-            torch.cuda.synchronize()
-            per_step, moves = dict(_build.launches), dict(layout_moves)
-            check(per_step == STEP_LAUNCHES,
-                  f"R = {r}: launches per seeded masker step {per_step}, "
-                  f"want {STEP_LAUNCHES}")
-            prof = device_breakdown(step)
-            copy_ms, copies = kernel_device_ms(step, "copy", reps=5)
-            report[f"R={r}"] = {
-                "launches": per_step,
-                "layout_moves_forward": moves,
-                "device_ops_per_step": prof["device_ops_per_step"],
-                "device_ms_per_step": prof["ms_per_step"],
-                "idle_share": prof["idle_share"],
-                "copy_kernels_per_step": copies,
-                "copy_device_ms_per_step": copy_ms,
-                "by_category_ms": prof["by_category_ms"]}
-            del models, opt
-        log("[seeded step] chfak 5 f32 masker step, per step:",
-            json.dumps(report))
-
         # kernel path against plain path at the seed-major batches the
         # seeded step hands the kernels (R * 2K frames into the ingest's
         # A, the merges and the decoder's joins, a 2R * 2K joined
@@ -3472,72 +2185,8 @@ def phase_seeded_step(_build) -> None:
                   f"seeded steps at dropout 0.5, R = {runs}, differ from "
                   f"serial by {drop}")
 
-        # steps/s: seeded masker and critic at R = 1, 3, 10, and serial
-        speed = {}
-        for r in SP_SPEED_R:
-            models, _ = _seeded_models(list(range(r)), 0.5)
-            opt = make_optimizer(models)
-            rng = SeedRng.seeded(range(r), dev)
-            a_idx, b_idx = _seeded_indices(gen, r, nb, s=35)
-            _seeded_masker_run(cfg, models, opt, bank, y, a_idx[:, :5],
-                               b_idx[:, :5], rng)
-            torch.cuda.synchronize()
-            t1 = time.time()
-            out = _seeded_masker_run(cfg, models, opt, bank, y, a_idx[:, 5:],
-                                     b_idx[:, 5:], rng).cpu()
-            m_sps = 30 / (time.time() - t1)
-            check(bool(torch.isfinite(out).all()), "seeded terms not finite")
-            copt = make_optimizer({"critic": models["critic"]})
-            cidx = torch.randint(0, nb, (r, 55, 64), device=dev,
-                                 generator=gen)
-            for s in range(5):
-                seeded_critic_step(cfg, models["critic"], copt,
-                                   Segment(bank, cidx[:, s].contiguous(),
-                                           labels=y), rng)
-            torch.cuda.synchronize()
-            t1 = time.time()
-            for s in range(5, 55):
-                loss = seeded_critic_step(
-                    cfg, models["critic"], copt,
-                    Segment(bank, cidx[:, s].contiguous(), labels=y), rng)
-            loss = loss.cpu()
-            c_sps = 50 / (time.time() - t1)
-            speed[f"R={r}"] = {"masker_steps_per_s": m_sps,
-                               "critic_steps_per_s": c_sps,
-                               "masker_seed_steps_per_s": m_sps * r,
-                               "critic_seed_steps_per_s": c_sps * r}
-            del models, opt, copt
-            torch.cuda.empty_cache()
-        smodels = _train_models(torch.float32, seed=6)
-        sopt = make_optimizer(smodels)
-        rng = StepRng.seeded(0, dev)
-        nrng = np.random.default_rng(1)
-        h, l, c = (nrng.integers(0, nb // 2, (35, k))
-                   for k in (32, 32, 64))
-        xa, ya, xb, yb = bank[:nb // 2], y[:nb // 2], bank[nb // 2:], \
-            y[nb // 2:]
-        masker_chunk(cfg, smodels, sopt, xa, ya, xb, yb, h[:5], l[:5], c[:5],
-                     rng)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        masker_chunk(cfg, smodels, sopt, xa, ya, xb, yb, h[5:], l[5:], c[5:],
-                     rng).cpu()
-        s_m = 30 / (time.time() - t1)
-        copt = make_optimizer({"critic": smodels["critic"]})
-        idx = nrng.integers(0, nb, (55, 64))
-        critic_chunk(cfg, smodels["critic"], copt, bank, y, idx[:5], rng)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        critic_chunk(cfg, smodels["critic"], copt, bank, y, idx[5:],
-                     rng).cpu()
-        s_c = 50 / (time.time() - t1)
-        speed["serial"] = {"masker_steps_per_s": s_m,
-                           "critic_steps_per_s": s_c}
-        log("[seeded step] chfak 5 f32 steps/s (masker 2K = 64 and critic "
-            "batch 64 per seed; a record, not a target):", json.dumps(speed))
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    log(f"[seeded step] phase {time.time() - t0:.1f} s")
 
 
 def phase_seed_parallel(_build) -> dict:
@@ -3550,7 +2199,6 @@ def phase_seed_parallel(_build) -> dict:
     from cgs_tpu_torch.data.synthetic import synthetic_eval_set
     from cgs_tpu_torch.sandbox.seed_parallel import K, run_parallel
 
-    t0 = time.time()
     cfg = parse_args(SP_PROTOCOL)
     x, y, _ = collect_data(cfg, write=False)
     xe, gt = synthetic_eval_set(n_frames=5000, seed=99)
@@ -3579,9 +2227,7 @@ def phase_seed_parallel(_build) -> dict:
         f"norm, critic) per seed {last.mean(1).round(5).tolist()}; critic "
         f"loss of the last epoch per seed "
         f"{out['critic_losses'][:, -313:].mean(1).round(5).tolist()}; "
-        f"phase seconds "
-        f"{json.dumps(out['seconds'])}; results.txt: {line.strip()!r}; "
-        f"phase {time.time() - t0:.1f} s")
+        f"results.txt: {line.strip()!r}")
     check(out["steps"]["masker"] == 12 * -(-n_pos // K),
           f"masker steps {out['steps']}, want 12 * ceil({n_pos} / {K})")
     check(out["steps"]["critic"] == 10 * 313, f"critic steps {out['steps']}")
@@ -3602,8 +2248,6 @@ def phase_resume(_build) -> dict:
     path's launches."""
     from cgs_tpu_torch.core.config import parse_args
     from cgs_tpu_torch.handler import CRITIC, MASKER, Handler
-
-    t0 = time.time()
 
     def run(name, break_at=None):
         h = Handler(parse_args(RESUME_ARGV + ["--model", name]),
@@ -3648,15 +2292,10 @@ def phase_resume(_build) -> dict:
             for d in range(0, spe, RESUME_CHUNK)]   # the chunk boundaries
     same = {name: all(torch.equal(ref.params[name][k], res.params[name][k])
                       for k in ref.params[name]) for name in (CRITIC, MASKER)}
-    saves = {ph: [1e3 * v for v in m.save_seconds]
-             for ph, m in ref.train_states.items()}
     log(f"[resume] chfak 5, 2k frames, critic 2 / masker 2 epochs of {spe} "
         f"steps: broken after masker chunk 2 (saved steps {saved}); the "
         f"resumed run trained {res.loss_log[MASKER].shape[0]} masker steps; "
-        f"bit-equal to the uninterrupted run: {same}; save ms per chunk "
-        f"(masker) {np.round(saves[MASKER], 2).tolist()}, per epoch "
-        f"(critic) {np.round(saves[CRITIC], 2).tolist()}; phase "
-        f"{time.time() - t0:.1f} s")
+        f"bit-equal to the uninterrupted run: {same}")
     check(saved == ends[:2], f"saved masker steps {saved}, want {ends[:2]}")
     check(res.loss_log[MASKER].shape[0] == 2 * spe - ends[1],
           f"resumed masker steps {res.loss_log[MASKER].shape}")
@@ -3671,7 +2310,6 @@ def phase_drift_ablation(_build):
     more. Returns the two paths' launches."""
     from cgs_tpu_torch.sandbox import ablation, drift
 
-    t0 = time.time()
     old = os.getcwd()
     with tempfile.TemporaryDirectory() as d:
         os.chdir(d)
@@ -3679,7 +2317,6 @@ def phase_drift_ablation(_build):
             _build.launches.clear()         # drift main path
             rows = drift.main(list(DRIFT_ARGV), primary=False)
             drift_launches = dict(_build.launches)
-            t1 = time.time()
             _build.launches.clear()         # ablation main path
             res = ablation.run_ablation(list(ABLATION_ARGV), runs=2,
                                         results_path="results.txt")
@@ -3695,9 +2332,8 @@ def phase_drift_ablation(_build):
     summary = ablation.paired_summary(res)
     check(all(len(v["ious"]) == 2 for v in res.values()),
           f"ablation variants {list(res)}")
-    log(f"[drift] rows {json.dumps(rows)}; phase {t1 - t0:.1f} s")
-    log(f"[ablation] R = 2, chfak 5:\n{summary}\n[ablation] phase "
-        f"{time.time() - t1:.1f} s")
+    log(f"[drift] rows {json.dumps(rows)}")
+    log(f"[ablation] R = 2, chfak 5:\n{summary}")
     return drift_launches, ablation_launches
 
 
@@ -3737,9 +2373,7 @@ def _dp_rank(argv, dirs, params, a, y, b, frames, members, sp):
     from cgs_tpu_torch.parallel.mesh import current_mesh
 
     out = {"adam": probes.steps(params, a, y, b, chfak=5),
-           "sgd": probes.steps(params, a, y, b, chfak=5, optim="sgd"),
-           "speed": probes.steps(params, a, y, b, chfak=5,
-                                 repeat=DP_REPEAT)}
+           "sgd": probes.steps(params, a, y, b, chfak=5, optim="sgd")}
     _build.launches.clear()                 # the dp main path starts
     out["cli"] = probes.cli_run(argv, dirs, primary=False)
     out["launches"] = dict(_build.launches)  # ... and ends
@@ -3834,8 +2468,7 @@ def _dp_checks(tag, ranks, ref) -> dict:
           f"{cli['eval_host_iou']}")
     log(f"[dp {tag}] -train -eval, chfak 5, 2k frames: eval IoU "
         f"{cli['ious']} over 2 ranks (host numpy IoU of the assembled "
-        f"masks {cli['eval_host_iou']}), {cli1['ious']} on 1; run "
-        f"seconds {cli['seconds']:.1f} / {cli1['seconds']:.1f}")
+        f"masks {cli['eval_host_iou']}), {cli1['ious']} on 1")
 
     pipe, half, full = got["pipe"], ref["pipe_half"], ref["pipe_full"]
     check(other["pipe"] == _digest(pipe),
@@ -3878,18 +2511,6 @@ def _dp_checks(tag, ranks, ref) -> dict:
     check(first <= SP_TOL, f"dp {tag}: run_parallel's first critic losses "
           f"{first:.3e} from the unmeshed R = 2 run > {SP_TOL}")
 
-    speed, speed1 = got["speed"], ref["speed"]
-    rates = {"critic": (DP_REPEAT / speed1["critic_s"],
-                        DP_REPEAT / speed["critic_s"]),
-             "masker": (DP_REPEAT / speed1["masker_s"],
-                        DP_REPEAT / speed["masker_s"])}
-    log(f"[dp {tag}] steps/s at world 1 / world 2 (64-frame batch; "
-        + ("two ranks share one card: no scaling figure" if tag == "gloo"
-           else "one card per rank") + "): "
-        + ", ".join(f"{k} {a:.1f} / {b:.1f}" for k, (a, b) in rates.items())
-        + f"; one all_reduce of the masker step's gradient "
-        f"({speed['allreduce_bytes']} bytes) "
-        f"{speed['allreduce_ms']:.3f} ms")
     for name in TRAIN_KERNELS:
         check(got["launches"].get(name, 0) > 0,
               f"{name} never launched on the dp main path ({tag})")
@@ -3908,7 +2529,6 @@ def phase_dp(_build) -> dict:
     from cgs_tpu_torch.models.decoder import UnetDecoder
     from cgs_tpu_torch.parallel import multihost, probes
 
-    t0 = time.time()
     params = _random_params(Critic(chfak=5), UnetDecoder(chfak=5), 21)
     members = [params, _random_params(Critic(chfak=5), UnetDecoder(chfak=5),
                                       22)]
@@ -3955,9 +2575,6 @@ def phase_dp(_build) -> dict:
                            "sgd": probes.steps(params, da, dy, db, chfak=5,
                                                optim="sgd", meshed=False,
                                                device="cuda")},
-               "speed": probes.steps(params, a, y, b, chfak=5,
-                                     meshed=False, device="cuda",
-                                     repeat=DP_REPEAT),
                "cli": probes.cli_run(DP_ARGV + ["--data-parallel", "1"],
                                      [d], primary=False, meshed=False)}
     sp = (sp_cfg, x, yy, 2, 0, xe, gt)
@@ -3991,7 +2608,6 @@ def phase_dp(_build) -> dict:
     else:
         log("[dp nccl-2] (c) NCCL across cards did not run: this machine "
             "has one card")
-    log(f"[dp] phase {time.time() - t0:.1f} s")
     return launches
 
 

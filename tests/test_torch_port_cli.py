@@ -272,8 +272,7 @@ def _imports(path: Path):
 def test_port_imports_no_jax_and_nothing_of_cgs_tpu():
     """Static: this process has JAX imported already."""
     files = sorted((REPO / "cgs_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "ten_seeds.py",
-              REPO / "time_ingest.py"]
+    files += [REPO / "chip_smoke.py", REPO / "ten_seeds.py"]
     assert len(files) > 20
     assert {"mesh.py", "multihost.py", "probes.py"} <= {
         p.name for p in files if p.parent.name == "parallel"}

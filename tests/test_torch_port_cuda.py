@@ -1,10 +1,17 @@
 """PyTorch port on the card: each CUDA kernel against its plain
-version (the ingest for R seeds too), the pipeline's, the R = 3
-ensemble's and the masker step's kernel path against their plain paths,
-`MaskPipeline.run`'s staging ring against `run_device`,
-a seeded masker step's launches, the dense CRF on kernel-path
-masks, and the gradient of a fused upsample-into-concat join through a
-conv.
+version (the ingest for R seeds too) at the shapes of the serve batch
+(8192 frames), the masker step (2K = 64) and ragged ones, in f32 and
+bf16, with `threshold_iou` one device operation a call; the pipeline's
+(chfak 1 and 5, f32 and bf16), the R = 3 ensemble's and the masker
+step's (chfak 1, and chfak 5 at K = 32 with the gradient layouts and
+outputs the step hands the kernels) kernel path against their plain
+paths; no concat kernel in a pipeline batch, a critic step or a masker
+step, and finite critic and masker chunk losses;
+`MaskPipeline.run`'s staging ring against `run_device`, a seeded masker
+step's launches at R = 1, 3 and 10, the dense CRF on kernel-path masks,
+and the gradient of a fused upsample-into-concat join through a conv.
+These are the card's checks of single kernels and single steps;
+`chip_smoke.py` runs whole paths, and `portbench/` measures speed.
 
 Marked `cuda`; every test skips without a CUDA device. This file
 imports neither JAX nor the JAX package, so it also runs on a machine
@@ -14,8 +21,10 @@ with the card and no JAX:
         tests/test_torch_port_cuda.py
 """
 
+import math
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,16 +39,21 @@ from cgs_tpu_torch.ops.upsample import (
     upsample2x_bwd, upsample2x_bwd_plain, upsample2x_plain,
 )
 
+BATCH = 8192            # the serve batch
+MASKER_N = 64           # the frames a masker step merges and decodes (2K)
 STEPS = [(1, 1, 160), (2, 2, 160), (4, 4, 80), (8, 8, 40), (16, 16, 40),
          (32, 32, 40), (1, 1, 32), (2, 2, 32), (4, 4, 16), (8, 8, 8),
          (16, 16, 8), (32, 32, 8), (3, 5, 7), (5, 9, 3)]
-# the decoder's skip joins (Cs, Cu, H, W, factor) at chfak 5 and 1, and
-# ragged ones (odd Cs, Cu and W; no pixel or row 16-byte aligned)
-JOINS = [(80, 160, 1, 1, 4), (40, 80, 4, 4, 2), (40, 40, 8, 8, 2),
-         (40, 40, 16, 16, 2), (3, 40, 32, 32, 2), (16, 32, 1, 1, 4),
-         (8, 16, 4, 4, 2), (8, 8, 8, 8, 2), (8, 8, 16, 16, 2),
-         (3, 8, 32, 32, 2), (5, 7, 3, 9, 2), (3, 5, 2, 3, 4),
-         (0, 7, 3, 5, 2)]
+# the decoder's skip joins (Cs, Cu, H, W, factor) at chfak 5 and 1
+DECODER_JOINS = [(80, 160, 1, 1, 4), (40, 80, 4, 4, 2), (40, 40, 8, 8, 2),
+                 (40, 40, 16, 16, 2), (3, 40, 32, 32, 2), (16, 32, 1, 1, 4),
+                 (8, 16, 4, 4, 2), (8, 8, 8, 8, 2), (8, 8, 16, 16, 2),
+                 (3, 8, 32, 32, 2)]
+# ragged joins no decoder has (odd Cs, Cu and W; no pixel or row 16-byte
+# aligned; Cs = 0 is the plain upsample)
+RAGGED_JOINS = [(5, 7, 3, 9, 2), (3, 5, 2, 3, 4), (0, 7, 3, 5, 2),
+                (0, 3, 5, 7, 2)]
+JOINS = DECODER_JOINS + RAGGED_JOINS
 # zoo.Unet's joins at chfak 5 (upsampled channels first)
 UNET_JOINS = [(80, 80, 4, 4, 2), (40, 40, 8, 8, 2), (40, 40, 16, 16, 2),
               (40, 40, 32, 32, 2)]
@@ -63,11 +77,66 @@ def _unaligned(t):
     return buf.copy_(t.flatten()).view(t.shape)
 
 
+# the device kernel each launch counter of `_build.launches` stands for,
+# by a piece of its name (the first piece a name holds decides)
+PORT_KERNELS = (("merge_pair_bwd", "merge_pair_bwd"),
+                ("merge_pair", "merge_pair"),
+                ("upsample_cat_bwd", "upsample2x_bwd"),
+                ("upsample_cat_fwd", "upsample2x"),
+                ("ingest_", "normalize_u8"),
+                ("threshold_iou", "threshold_iou"))
+
+
+def _device_ops(fn):
+    """{name: count} of the device operations (kernels, copies, fills)
+    of one fn() call, from torch.profiler; it times nothing. The last of
+    three calls is read, each launched 50 ms into its step (the tracer
+    can drop device events from the first milliseconds of a step). The
+    trace must hold every port kernel that call launched, as many times
+    as `_build.launches` counted it, so a check that a kernel is absent
+    never rests on a trace with a window missing."""
+    import collections
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1)) as prof:
+        for _ in range(3):
+            time.sleep(0.05)
+            _build.launches.clear()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    launched = dict(_build.launches)
+    ops = {e.key: e.count for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)}
+    traced = collections.Counter()
+    for name, count in ops.items():
+        for piece, launch in PORT_KERNELS:
+            if piece in name:
+                traced[launch] += count
+                break
+    assert launched and dict(traced) == launched, (launched, ops)
+    return ops
+
+
+def _concats(ops):
+    """The concat kernels among `ops` (torch.cat's `CatArray*`); the
+    port's own kernels, `upsample_cat_*` among them, are not concats."""
+    ours = ("ingest_", "upsample", "threshold_iou", "merge_pair")
+    return [k for k in ops
+            if any(c in k.lower() for c in ("catarray", "cat_"))
+            and not any(o in k.lower() for o in ours)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_normalize_u8_bit_equal(dev, dtype):
     for shape in [(0, 12288), (7, 12288), (1001, 12288), (3, 4097),
-                  (5, 64, 64, 3), (4, 5, 7, 3)]:
+                  (5, 64, 64, 3), (4, 5, 7, 3), (BATCH, 64, 64, 3)]:
         u8 = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev)
         assert torch.equal(_bits(normalize_u8(u8, dtype)),
                            _bits(normalize_u8_plain(u8, dtype))), shape
@@ -81,8 +150,9 @@ def test_normalize_u8_bit_equal(dev, dtype):
 def test_gather_normalize_u8_bit_equal(dev, dtype):
     """The masker step's three segments (repeated indices, one shift for
     A, labels for A) at every shift -70..70, the critic step's one, an
-    empty segment, N = 0, rows that are not a multiple of 16 bytes and
-    banks off a 16-byte boundary."""
+    empty segment, N = 0, rows that are not a multiple of 16 bytes,
+    banks off a 16-byte boundary and the serve batch, a bank of 8192
+    frames read whole."""
     def bank(m, h=64, w=64):
         return torch.randint(0, 256, (m, h, w, 3), dtype=torch.uint8,
                              device=dev)
@@ -101,7 +171,8 @@ def test_gather_normalize_u8_bit_equal(dev, dtype):
                Segment(xneg, c)],
               [Segment(xpos, c[:0])],
               [Segment(bank(6, 5, 7), idx(9, 6), 4), Segment(bank(3, 5, 7))],
-              [Segment(_unaligned(xpos), h, -5, ypos), Segment(xneg, c)]]
+              [Segment(_unaligned(xpos), h, -5, ypos), Segment(xneg, c)],
+              [Segment(bank(BATCH))]]
     for segs in cases:
         (got, gy), (want, wy) = (gather_normalize_u8(segs, dtype),
                                  gather_normalize_u8_plain(segs, dtype))
@@ -115,7 +186,9 @@ def test_gather_normalize_u8_bit_equal(dev, dtype):
 def test_seeded_gather_normalize_u8_bit_equal(dev, dtype):
     """R seeds in one launch: each seed's index rows and its own shift,
     segment-major and seed-major within a segment, at R = 1, 3 and 64
-    (the most one launch takes); R = 1 equals the (n,) call."""
+    (the most one launch takes); at R = 3 a masker step's A and B and a
+    critic step's batch at shift triples across -63..63; R = 1 equals
+    the (n,) call."""
     bank = torch.randint(0, 256, (40, 64, 64, 3), dtype=torch.uint8,
                          device=dev)
     y = torch.rand(40, device=dev)
@@ -129,15 +202,25 @@ def test_seeded_gather_normalize_u8_bit_equal(dev, dtype):
         assert _build.launches["normalize_u8"] == 1
         want, wy = gather_normalize_u8_plain(segs, dtype)
         assert torch.equal(_bits(got), _bits(want)) and torch.equal(gy, wy)
+    a, b = (torch.randint(0, 40, (3, MASKER_N), device=dev) for _ in "ab")
+    for sh in range(-63, 64, 9):
+        shifts = [sh, -sh, 2 * sh]
+        for segs in ([Segment(bank, a, shifts, y), Segment(bank, b)],
+                     [Segment(bank, b, shifts, y)]):
+            got, gy = gather_normalize_u8(segs, dtype)
+            want, wy = gather_normalize_u8_plain(segs, dtype)
+            assert torch.equal(_bits(got), _bits(want)), shifts
+            assert torch.equal(gy, wy), shifts
     one, _ = gather_normalize_u8([Segment(bank, a[:1], [9], y)], dtype)
     flat, _ = gather_normalize_u8([Segment(bank, a[0], 9, y)], dtype)
     assert torch.equal(_bits(one), _bits(flat))
 
 
 @pytest.mark.cuda
-def test_seeded_masker_step_launches_once_per_kernel(dev):
-    """A seeded masker step of R = 3 seeds launches what a serial one
-    does: 1 ingest, 1 + 1 merge, 5 + 5 joins."""
+@pytest.mark.parametrize("r", [1, 3, 10])
+def test_seeded_masker_step_launches_once_per_kernel(dev, r):
+    """A seeded masker step of R seeds launches what a serial one does:
+    1 ingest, 1 + 1 merge, 5 + 5 joins; its (R, 4) terms are finite."""
     from cgs_tpu_torch.core.config import Config
     from cgs_tpu_torch.models.critic import Critic
     from cgs_tpu_torch.models.decoder import UnetDecoder
@@ -147,20 +230,20 @@ def test_seeded_masker_step_launches_once_per_kernel(dev):
     )
     from cgs_tpu_torch.train.steps import make_optimizer
 
-    init = init_seed_params(Critic(), UnetDecoder(), [0, 1, 2])
-    models = {"critic": _on_device(SeededCritic(3), init["critic"], dev),
-              "masker": _on_device(SeededDecoder(3), init["masker"], dev)}
+    init = init_seed_params(Critic(), UnetDecoder(), list(range(r)))
+    models = {"critic": _on_device(SeededCritic(r), init["critic"], dev),
+              "masker": _on_device(SeededDecoder(r), init["masker"], dev)}
     opt = make_optimizer(models)
     bank = torch.randint(0, 256, (40, 64, 64, 3), dtype=torch.uint8,
                          device=dev)
     y = torch.rand(40, device=dev)
-    a = torch.randint(0, 40, (3, 64), device=dev)
-    b = torch.randint(0, 40, (3, 64), device=dev)
+    a = torch.randint(0, 40, (r, 64), device=dev)
+    b = torch.randint(0, 40, (r, 64), device=dev)
     _build.launches.clear()
     terms = seeded_masker_step(Config().derive(), models, opt,
                                Segment(bank, a, labels=y), Segment(bank, b),
-                               SeedRng.seeded([0, 1, 2], dev))
-    assert terms.shape == (3, 4) and bool(torch.isfinite(terms).all())
+                               SeedRng.seeded(list(range(r)), dev))
+    assert terms.shape == (r, 4) and bool(torch.isfinite(terms).all())
     assert dict(_build.launches) == {
         "normalize_u8": 1, "merge_pair": 1, "merge_pair_bwd": 1,
         "upsample2x": 5, "upsample2x_bwd": 5}
@@ -180,8 +263,10 @@ def test_threshold_iou_exact(dev):
     """Exact counts at the eval set, ragged N, an odd numel (the tail
     element by element), N = 0, a mask and a gt off their 16-byte
     boundaries (the element path), and calls back to back (each leaves
-    the last-block ticket at 0 for the next)."""
-    for shape in [(0, 4096), (5, 4096), (2450, 4096), (3, 4095)]:
+    the last-block ticket at 0 for the next); one device operation, the
+    kernel, a call."""
+    for shape in [(0, 4096), (5, 4096), (1001, 4096), (2450, 4096),
+                  (3, 4095)]:
         m = torch.rand(shape, device=dev)
         g = torch.rand(shape, device=dev) > 0.7
         got = [int(v) for v in threshold_iou(m, g, 0.05)]
@@ -196,6 +281,8 @@ def test_threshold_iou_exact(dev):
     for (i, u), t in zip(outs, (0.05, 0.5, 0.05, 0.95)):
         assert [int(i), int(u)] == [int(v) for v in
                                     threshold_iou_plain(m, g, t)], t
+    ops = _device_ops(lambda: threshold_iou(m, g, 0.05))
+    assert sum(ops.values()) == 1 and "threshold_iou" in next(iter(ops)), ops
 
 
 @pytest.mark.cuda
@@ -213,21 +300,38 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
 
 
 @pytest.mark.cuda
-def test_pipeline_kernel_path_equals_plain_path(dev):
+@pytest.mark.parametrize("chfak, batch, dtype", [
+    (1, 64, torch.float32), (5, BATCH, torch.float32),
+    (5, BATCH, torch.bfloat16)])
+def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
+                                                batch, dtype):
+    """One batch of `run_device` at the reference's width and at the
+    paper's at the serve batch: 1 ingest and 5 join launches, masks in
+    (0, 1), no concat kernel, and the plain path's outputs under
+    deterministic cuDNN."""
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
     from cgs_tpu_torch.models.critic import Critic
     from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.models.interop import init_torch_default
     from cgs_tpu_torch.pipeline import MaskPipeline
 
-    critic, masker = Critic(dropout=0.0), UnetDecoder()
-    params = {"critic": critic.state_dict(), "masker": masker.state_dict()}
-    pipe = MaskPipeline(critic, masker, params, batch_size=64)
-    frames = torch.randint(0, 256, (64, 64, 64, 3), dtype=torch.uint8,
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    critic = Critic(chfak=chfak, dropout=0.0, compute_dtype=dtype)
+    masker = UnetDecoder(chfak=chfak, compute_dtype=dtype)
+    gen = torch.Generator().manual_seed(0)
+    params = {name: init_torch_default(mod, gen).state_dict()
+              for name, mod in (("critic", critic), ("masker", masker))}
+    pipe = MaskPipeline(critic, masker, params, batch_size=batch)
+    frames = torch.randint(0, 256, (batch, 64, 64, 3), dtype=torch.uint8,
                            device=dev)
     _build.launches.clear()
     pred, mask, _ = pipe.run_device(frames)
     assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 5}
+    assert mask.shape == (batch, 64, 64, 1) and pred.shape == (batch,)
+    assert bool(((mask > 0) & (mask < 1)).all())
+    ops = _device_ops(lambda: pipe.run_device(frames))
+    assert any("upsample_cat" in k for k in ops) and not _concats(ops), ops
     with mock.patch.object(pipeline_mod, "normalize_u8",
                            normalize_u8_plain), \
             mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain):
@@ -385,8 +489,9 @@ def test_merge_pair_and_bwd_bit_equal(dev):
     tile), N = 0, frames that are the halves of one joined batch and
     frames off a 16-byte boundary; the backward for the outputs the
     masker step asks for (dz), all three and (da, dz), with the joined
-    gradient in both memory formats."""
-    for n, h, w in [(0, 64, 64), (7, 5, 9), (64, 64, 64), (3, 64, 65)]:
+    gradient in both memory formats; at batch 8192 too."""
+    for n, h, w in [(0, 64, 64), (7, 5, 9), (64, 64, 64), (3, 64, 65),
+                    (BATCH, 64, 64)]:
         ab = _frames(dev, 2 * n, h, w)
         z = _frames(dev, n, h, w, 1)
         _build.launches.clear()
@@ -436,18 +541,26 @@ def test_upsample2x_bwd_bit_equal(dev, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_upcat_and_bwd_bit_equal(dev, dtype):
-    """The fused pair at every join, a ragged shape, Cs = 0 and N = 0,
+    """The fused pair at every join, the ragged shapes, Cs = 0 and N = 0,
+    at N = 3 (inputs and gradient also off a 16-byte boundary) and 128,
     with the concat gradient in both memory formats cuDNN's dgrad may
-    hand over, with and without the skip's gradient."""
+    hand over, with and without the skip's gradient; the decoder joins'
+    forward at the masker step's batch and at the serve batch."""
     for cs, cu, h, w, f in JOINS:
-        for n in (3, 0):
+        for n in (3, 0, 128):
             skip = torch.rand((n, f * h, f * w, cs), device=dev).to(dtype)
             x = torch.rand((n, h, w, cu), device=dev).to(dtype)
+            ins = [(skip, x)]
+            if n == 3:
+                ins.append((_unaligned(skip), _unaligned(x)))
             _build.launches.clear()
-            assert _same([upcat_fwd(skip, x, f)], [upcat_plain(skip, x, f)])
+            for sk, xx in ins:
+                assert _same([upcat_fwd(sk, xx, f)],
+                             [upcat_plain(sk, xx, f)]), (cs, cu, h, w, f, n)
             g = torch.rand((n, f * h, f * w, cs + cu), device=dev).to(dtype)
             nchw = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-            for gg in (g, nchw):
+            grads = [g, nchw] + ([_unaligned(g)] if n == 3 else [])
+            for gg in grads:
                 for need in (True, False):
                     got = upcat_bwd(gg, cs, f, need)
                     want = upcat_bwd_plain(gg, cs, f, need)
@@ -456,34 +569,50 @@ def test_upcat_and_bwd_bit_equal(dev, dtype):
                                  [t for t in want if t is not None]), (
                         cs, cu, h, w, f, n, gg.stride(), need)
             assert dict(_build.launches) == (
-                {"upsample2x": 1, "upsample2x_bwd": 4} if n else {})
+                {"upsample2x": len(ins), "upsample2x_bwd": 2 * len(grads)}
+                if n else {})
+    for n in (MASKER_N, BATCH):
+        for cs, cu, h, w, f in DECODER_JOINS:
+            skip = torch.rand((n, f * h, f * w, cs), device=dev).to(dtype)
+            x = torch.rand((n, h, w, cu), device=dev).to(dtype)
+            assert _same([upcat_fwd(skip, x, f)],
+                         [upcat_plain(skip, x, f)]), (cs, cu, h, w, f, n)
+            del skip, x
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_up_first_upcat_and_bwd_bit_equal(dev, dtype):
     """The up-first join of the zoo U-Nets, cat([up_f(x), skip]), at
-    zoo.Unet's chfak-5 joins and the ragged shapes, forward and backward
-    (both memory formats of the gradient, with and without the skip's
-    gradient), bit-equal to its plain version."""
-    for cs, cu, h, w, f in UNET_JOINS + JOINS[-3:]:
-        skip = torch.rand((3, f * h, f * w, cs), device=dev).to(dtype)
-        x = torch.rand((3, h, w, cu), device=dev).to(dtype)
+    zoo.Unet's chfak-5 joins (N = 3, the masker step's 64 and the serve
+    batch) and the ragged shapes, forward and backward (both memory
+    formats of the gradient, and at N = 3 one off a 16-byte boundary,
+    with and without the skip's gradient), bit-equal to its plain
+    version."""
+    cases = [(n, *j) for n in (3, MASKER_N, BATCH) for j in UNET_JOINS]
+    cases += [(3, *j) for j in RAGGED_JOINS]
+    for n, cs, cu, h, w, f in cases:
+        skip = torch.rand((n, f * h, f * w, cs), device=dev).to(dtype)
+        x = torch.rand((n, h, w, cu), device=dev).to(dtype)
         _build.launches.clear()
         assert _same([upcat_fwd(skip, x, f, up_first=True)],
                      [upcat_plain(skip, x, f, up_first=True)])
-        g = torch.rand((3, f * h, f * w, cs + cu), device=dev).to(dtype)
+        del skip, x
+        g = torch.rand((n, f * h, f * w, cs + cu), device=dev).to(dtype)
         nchw = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-        for gg in (g, nchw, _unaligned(g)):
+        grads = [g, nchw] + ([_unaligned(g)] if n == 3 else [])
+        for gg in grads:
             for need in (True, False):
                 got = upcat_bwd(gg, cs, f, need, up_first=True)
                 want = upcat_bwd_plain(gg, cs, f, need, up_first=True)
                 assert (got[0] is None) == (want[0] is None)
                 assert _same([t for t in got if t is not None],
                              [t for t in want if t is not None]), (
-                    cs, cu, h, w, f, gg.stride(), need)
+                    n, cs, cu, h, w, f, gg.stride(), need)
+                del got, want
+        del g, nchw, grads
         assert dict(_build.launches) == {"upsample2x": 1,
-                                         "upsample2x_bwd": 6}
+                                         "upsample2x_bwd": 4 + 2 * (n == 3)}
 
 
 @pytest.mark.cuda
@@ -523,16 +652,33 @@ def test_up2_gradient_through_cat_equals_plain(dev, dtype):
     assert bool(g_k.abs().sum() > 0)
 
 
+def _handed_layout(t, nhwc=False):
+    """Whether a gradient a kernel is handed is dense in one of the two
+    memory formats its card test covers (NCHW or channels_last; for an
+    NHWC view, its NCHW permutation)."""
+    nchw = t.permute(0, 3, 1, 2) if nhwc else t
+    return nchw.is_contiguous() or nchw.is_contiguous(
+        memory_format=torch.channels_last)
+
+
 @pytest.mark.cuda
-def test_masker_step_kernel_path_equals_plain_path(dev, monkeypatch):
-    """One masker step (`train/steps.py:masker_step`, frames gathered
-    from uint8 banks by index and shifted), its loss terms and
-    gradients, kernel path against the plain versions patched in,
-    bit-equal under deterministic cuDNN (the kernels are bit-equal to
-    their plain versions); one ingest launch for the step's frames and
-    labels; every decoder gradient is non-zero (an upsample without a
-    gradient would zero them). The optimizer has lr 0, so both runs
-    start from the same weights and the gradients stay in .grad."""
+@pytest.mark.parametrize("chfak, k, dropout", [(1, 8, 0.0), (5, 32, 0.5)])
+def test_masker_step_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
+                                                   k, dropout):
+    """One masker step (`train/steps.py:masker_step`, default flags live
+    and inject, frames gathered from uint8 banks by index and shifted),
+    at the reference's width and at the paper's with K = 32 (2K = 64),
+    its loss terms and gradients, kernel path against the plain
+    versions patched in, bit-equal under deterministic cuDNN (the
+    kernels are bit-equal to their plain versions; both runs draw the
+    same dropout masks); the terms finite; one ingest launch for the
+    step's frames and labels, the plain path launching nothing;
+    `merge_pair_bwd` asked for dz alone (the frames need no gradient);
+    every gradient handed to `merge_pair_bwd` and the joins' backward
+    in a layout their card tests cover; every decoder gradient non-zero
+    (an upsample without a gradient would zero them). The optimizer has
+    lr 0, so both runs start from the same weights and the gradients
+    stay in .grad."""
     import cgs_tpu_torch.ops.merge as merge_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.train.losses as losses_mod
@@ -542,8 +688,10 @@ def test_masker_step_kernel_path_equals_plain_path(dev, monkeypatch):
     from cgs_tpu_torch.train.steps import StepRng, masker_step
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    cfg = Config(dropout=0.0).derive()
-    models = {"critic": Critic(dropout=0.0), "masker": UnetDecoder()}
+    cfg = Config(chfak=chfak, dropout=dropout).derive()
+    assert cfg.live and cfg.inject
+    models = {"critic": Critic(chfak=chfak, dropout=dropout),
+              "masker": UnetDecoder(chfak=chfak)}
     for m in models.values():
         m.to(dev, memory_format=torch.channels_last)
     opt = torch.optim.SGD([p for m in models.values()
@@ -551,7 +699,7 @@ def test_masker_step_kernel_path_equals_plain_path(dev, monkeypatch):
     xpos, xneg = (torch.randint(0, 256, (24, 64, 64, 3), dtype=torch.uint8,
                                 device=dev) for _ in range(2))
     ypos, yneg = torch.rand(24, device=dev), torch.rand(24, device=dev)
-    h, l, c = (torch.randint(0, 24, (n,), device=dev) for n in (8, 8, 16))
+    h, l, c = (torch.randint(0, 24, (n,), device=dev) for n in (k, k, 2 * k))
     a = [Segment(xpos, h, labels=ypos), Segment(xneg, l, labels=yneg)]
 
     def run():
@@ -561,11 +709,28 @@ def test_masker_step_kernel_path_equals_plain_path(dev, monkeypatch):
                 [p.grad.clone() for m in models.values()
                  for p in m.parameters()])
 
+    needs, layouts = [], []
+
+    def spy_mbwd(a, b, z, g, need):
+        needs.append(tuple(need))
+        layouts.append(_handed_layout(g))
+        return merge_pair_bwd(a, b, z, g, need)
+
+    def spy_ubwd(g, cs, factor=2, need_skip=True, up_first=False):
+        layouts.append(_handed_layout(g, nhwc=True))
+        return upcat_bwd(g, cs, factor, need_skip, up_first)
+
     _build.launches.clear()
-    terms, grads = run()
+    with mock.patch.object(merge_mod, "merge_pair_bwd", spy_mbwd), \
+            mock.patch.object(upsample_mod, "upcat_bwd", spy_ubwd):
+        terms, grads = run()
     assert dict(_build.launches) == {
         "normalize_u8": 1, "merge_pair": 1, "merge_pair_bwd": 1,
         "upsample2x": 5, "upsample2x_bwd": 5}
+    assert needs == [(False, False, True)]
+    assert len(layouts) == 6 and all(layouts), layouts
+    assert all(math.isfinite(t) for t in terms), terms
+    _build.launches.clear()
     with mock.patch.object(losses_mod, "gather_normalize_u8",
                            gather_normalize_u8_plain), \
             mock.patch.object(merge_mod, "merge_pair", merge_pair_plain), \
@@ -574,11 +739,61 @@ def test_masker_step_kernel_path_equals_plain_path(dev, monkeypatch):
             mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain), \
             mock.patch.object(upsample_mod, "upcat_bwd", upcat_bwd_plain):
         p_terms, p_grads = run()
+    assert not _build.launches
     assert terms == p_terms
     for g, pg in zip(grads, p_grads):
         assert torch.equal(_bits(g), _bits(pg))
     for name, p in models["masker"].named_parameters():
         assert bool(p.grad.abs().sum() > 0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_chunks_finite_and_steps_run_no_concat(dev, dtype):
+    """At the paper's width (dropout 0.5): a few `critic_chunk` and
+    `masker_chunk` steps (the masker's through its captured graph) give
+    finite losses, and one `critic_step` and one `masker_step` run no
+    concat kernel (the ingest writes the critic's joined batch, the
+    merges the joined merge batch, the joins their concat)."""
+    from cgs_tpu_torch.core.config import Config
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.train.contrastive import sample_index_stacks
+    from cgs_tpu_torch.train.loops import critic_chunk, masker_chunk
+    from cgs_tpu_torch.train.steps import (
+        StepRng, critic_step, make_optimizer, masker_step,
+    )
+
+    cfg = Config(chfak=5, dropout=0.5).derive()
+    models = {"critic": Critic(chfak=5, dropout=0.5, compute_dtype=dtype),
+              "masker": UnetDecoder(chfak=5, compute_dtype=dtype)}
+    for m in models.values():
+        m.to(dev, memory_format=torch.channels_last).train()
+    bank = torch.randint(0, 256, (256, 64, 64, 3), dtype=torch.uint8,
+                         device=dev)
+    y = torch.rand(256, device=dev)
+    nrng, rng = np.random.default_rng(0), StepRng.seeded(0, dev)
+
+    copt = make_optimizer({"critic": models["critic"]})
+    idx = nrng.integers(0, 256, (3, MASKER_N))
+    losses = critic_chunk(cfg, models["critic"], copt, bank, y, idx, rng)
+    assert bool(torch.isfinite(losses).all()), losses
+    x = Segment(bank, torch.from_numpy(idx[0]).to(dev), labels=y)
+    ops = _device_ops(lambda: critic_step(cfg, models["critic"], copt, x,
+                                          rng))
+    assert any("ingest_" in k for k in ops) and not _concats(ops), ops
+
+    mopt = make_optimizer(models)
+    xa, ya, xb, yb = bank[:128], y[:128], bank[128:], y[128:]
+    h, l, c = sample_index_stacks(nrng, 128, 128, 3, MASKER_N // 2)
+    terms = masker_chunk(cfg, models, mopt, xa, ya, xb, yb, h, l, c, rng)
+    assert bool(torch.isfinite(terms).all()), terms
+    h0, l0, c0 = (torch.from_numpy(i[0].astype(np.int64)).to(dev)
+                  for i in (h, l, c))
+    a = [Segment(xa, h0, labels=ya), Segment(xb, l0, labels=yb)]
+    ops = _device_ops(lambda: masker_step(cfg, models, mopt, a,
+                                          Segment(xb, c0), rng))
+    assert any("upsample_cat" in k for k in ops) and not _concats(ops), ops
 
 
 @pytest.fixture

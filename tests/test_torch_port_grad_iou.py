@@ -10,7 +10,7 @@ mode, as the JAX package's own tests run them): dz within 1e-6 of the
 JAX VJP (the port sums the channels in the kernel, ((d0 + d1) + d2);
 JAX sums them after its kernel, in XLA's order), the counts exactly.
 The CUDA kernels are held against the plain versions on the card by
-tests/test_torch_port_cuda.py and chip_smoke.py.
+tests/test_torch_port_cuda.py.
 """
 
 import itertools

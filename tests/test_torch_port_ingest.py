@@ -12,7 +12,7 @@ its VJP, within 1e-6 / 1e-5 as `tests/test_torch_port_train.py` holds
 them. A masker chunk through the joined batches is held against the
 same chunk with separate a, b and `torch.cat`, exactly. The CUDA kernel
 itself is held against the plain version on the card by
-`tests/test_torch_port_cuda.py` and `chip_smoke.py`.
+`tests/test_torch_port_cuda.py`.
 """
 
 from unittest import mock

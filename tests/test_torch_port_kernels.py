@@ -5,8 +5,7 @@ against the JAX function (the Pallas kernels in interpret mode, as the
 JAX package's own tests run them): bit-equal for the ingest and the
 upsample, exactly equal counts for threshold_iou. The CUDA kernels
 themselves are held against the plain versions on the card by
-tests/test_torch_port_cuda.py (marked `cuda`, skipped without a card)
-and by chip_smoke.py.
+tests/test_torch_port_cuda.py (marked `cuda`, skipped without a card).
 """
 
 import re

@@ -11,7 +11,7 @@ for the x4 join, or `upsample2x_pallas` in interpret mode where
 Inputs are made from numpy seeds at batch 2, at the five joins of
 chfak 1 and of chfak 5, in f32 and bf16. On the CPU the wrappers run
 the plain versions; the CUDA kernels are held to them on the card by
-tests/test_torch_port_cuda.py and chip_smoke.py.
+tests/test_torch_port_cuda.py.
 
 Tolerances: the forward and the skip's gradient are copies, so they are
 exact. dx is a sum of 4 (x2) or 16 (x4) terms: within 1e-6 of JAX in
