@@ -19,6 +19,10 @@ critic.
 
 Dropout draws from an explicit `torch.Generator` (`generator=`) so a
 `-noevalmode` run is reproducible; it is live only in `train()` mode.
+
+On the card with grad mode off, each conv with its ReLU and pool runs as
+the conv without its bias and one `bias_act_pool` launch
+(`models/epilogue.py`), bit-equal to the modules' chain.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+
+from cgs_tpu_torch.models import epilogue
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
@@ -44,6 +50,9 @@ def compute_autocast(device_type: str, compute_dtype: torch.dtype):
     """bf16 compute with f32 params: autocast the convs and linears."""
     return torch.autocast(device_type=device_type, dtype=torch.bfloat16,
                           enabled=compute_dtype == torch.bfloat16)
+
+
+CONVS = 5      # the convolutions of `features`
 
 
 class Critic(nn.Module):
@@ -80,14 +89,18 @@ class Critic(nn.Module):
         collect=True, the 5-entry feature pyramid for the decoder."""
         x = x.to(self.compute_dtype)
         embeds: List[torch.Tensor] = []
+        fused = epilogue.fused(x, CONVS)
         with compute_autocast(x.device.type, self.compute_dtype):
-            for layer in self.features:
-                if isinstance(layer, nn.Dropout):
-                    x = dropout(x, layer.p, self.training, generator)
-                    continue
-                x = layer(x)
-                if isinstance(layer, nn.MaxPool2d):
-                    embeds.append(x)      # post-pool, pre-dropout
+            if fused:
+                x = self._features_fused(x, embeds, generator)
+            else:
+                for layer in self.features:
+                    if isinstance(layer, nn.Dropout):
+                        x = dropout(x, layer.p, self.training, generator)
+                        continue
+                    x = layer(x)
+                    if isinstance(layer, nn.MaxPool2d):
+                        embeds.append(x)  # post-pool, pre-dropout
             embeds.append(x)              # bottleneck tap
             h = x
             for layer in self.crit[:-1]:  # the sigmoid runs in f32 below
@@ -99,3 +112,19 @@ class Critic(nn.Module):
         if collect:
             return pred, embeds
         return pred
+
+    def _features_fused(self, x: torch.Tensor, embeds: List[torch.Tensor],
+                        generator: Optional[torch.Generator]
+                        ) -> torch.Tensor:
+        """`features` with each conv, its ReLU and its pool (none after
+        the bottleneck conv) as one `conv_epilogue`; dropout as above."""
+        f = self.features
+        for i, layer in enumerate(f):
+            if isinstance(layer, nn.Dropout):
+                x = dropout(x, layer.p, self.training, generator)
+            elif isinstance(layer, nn.Conv2d):
+                pool = i + 2 < len(f) and isinstance(f[i + 2], nn.MaxPool2d)
+                x = epilogue.conv_epilogue(layer, x, "relu", 2 if pool else 1)
+                if pool:
+                    embeds.append(x)      # post-pool, pre-dropout
+        return x

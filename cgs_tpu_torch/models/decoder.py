@@ -19,7 +19,10 @@ upsample-into-concat kernel on the card (the x4 join too): 5 launches
 per forward and 5 per backward, and no `torch.cat`. Activations stay
 `torch.channels_last`, so the NHWC views the kernel takes are
 `permute`s with no copy, and the joins keep the JAX layout's channel
-order (skip first).
+order (skip first). On the card with grad mode off, each conv and its
+bias (with the head's LeakyReLU, and its sigmoid in f32) run as the conv
+without its bias and one `bias_act_pool` launch (`models/epilogue.py`):
+7 a forward, bit-equal to the modules' chain.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
+from cgs_tpu_torch.models import epilogue
 from cgs_tpu_torch.models.critic import compute_autocast
 from cgs_tpu_torch.ops.upsample import up_cat
 
@@ -66,14 +70,20 @@ class UnetDecoder(nn.Module):
         Returns the mask (B, 1, 64, 64) in (0, 1), float32."""
         x = x.to(self.compute_dtype)
         embeds = [e.to(self.compute_dtype) for e in embeds]
-        dec = self.dec_model
+        dec, head = self.dec_model, self.masker
+        fused = epilogue.fused(x, len(dec) + 2)
+        conv = epilogue.conv_epilogue if fused else (lambda m, t: m(t))
         with compute_autocast(x.device.type, self.compute_dtype):
-            out = dec[4](embeds[4])
+            out = conv(dec[4], embeds[4])
             neck_up = embeds[3].shape[2] // embeds[4].shape[2]
-            out = dec[3](up_cat(embeds[3], out, neck_up))
-            out = dec[2](up_cat(embeds[2], out))
-            out = dec[1](up_cat(embeds[1], out))
-            out = dec[0](up_cat(embeds[0], out))
-            h = self.masker[0](up_cat(x, out))
-            h = self.masker[2](self.masker[1](h))
+            out = conv(dec[3], up_cat(embeds[3], out, neck_up))
+            out = conv(dec[2], up_cat(embeds[2], out))
+            out = conv(dec[1], up_cat(embeds[1], out))
+            out = conv(dec[0], up_cat(embeds[0], out))
+            if fused:
+                h = conv(head[0], up_cat(x, out), "leaky_relu",
+                         slope=head[1].negative_slope)
+                return conv(head[2], h, "sigmoid", out_dtype=torch.float32)
+            h = head[0](up_cat(x, out))
+            h = head[2](head[1](h))
         return torch.sigmoid(h.float())

@@ -45,6 +45,8 @@ SIGNATURES = {
                                             _P)},
     "merge_pair": {"cgs_merge_pair": (_P,) * 5 + (_I64, _I64, _P),
                    "cgs_merge_pair_bwd": (_P,) * 7 + (_I64,) * 6 + (_P,)},
+    "conv_epilogue": {"cgs_bias_act_pool": (_P,) * 3 + (_I64,) * 6
+                      + (_F32, _I64, _I64, _P)},
 }
 
 # one launch counter per C entry point, named without the `cgs_` prefix

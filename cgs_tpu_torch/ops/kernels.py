@@ -1,15 +1,17 @@
 """The uint8 ingest (gather by index, roll, normalise), the fused
-counterfactual merges and their gradient, and the fused threshold+IoU
-count: CUDA kernel wrappers and their plain PyTorch versions.
+counterfactual merges and their gradient, the fused threshold+IoU
+count and the convolution epilogue (bias, activation, 2x2 max-pool):
+CUDA kernel wrappers and their plain PyTorch versions.
 
 Ports of `cgs_tpu/ops/pallas_kernels.py:normalize_u8` (with the
 gather, concatenation and roll a JAX train step fuses around it),
-`:merge_pair`, `:merge_pair_bwd` and `:threshold_iou`. On a CUDA
-tensor each wrapper launches its kernel (`csrc/normalize_u8.cu`,
-`csrc/merge_pair.cu`, `csrc/threshold_iou.cu`) or raises; on a CPU
-tensor it runs the plain version, which is also the oracle the kernel
-is held against on the card. There is no fallback from the kernel to
-the plain version.
+`:merge_pair`, `:merge_pair_bwd` and `:threshold_iou`; the epilogue
+replaces no Pallas kernel (XLA fused it into the convolution on the
+TPU). On a CUDA tensor each wrapper launches its kernel
+(`csrc/normalize_u8.cu`, `csrc/merge_pair.cu`, `csrc/threshold_iou.cu`,
+`csrc/conv_epilogue.cu`) or raises; on a CPU tensor it runs the plain
+version, which is also the oracle the kernel is held against on the
+card. There is no fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cgs_tpu_torch.ops import _build
 
@@ -471,3 +474,90 @@ def threshold_iou(masks: torch.Tensor, gt: torch.Tensor,
     _build.check(err, "threshold_iou")
     _build.launches["threshold_iou"] += 1
     return counts[0], counts[1]
+
+
+# ---------------------------------------------------------------------
+# convolution epilogue: bias, activation, 2x2 max-pool
+# ---------------------------------------------------------------------
+
+ACTS = ("none", "relu", "leaky_relu", "sigmoid")  # csrc/conv_epilogue.cu: Act
+EPILOGUE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def bias_act_pool_plain(y: torch.Tensor, bias: torch.Tensor,
+                        act: str = "none", pool: int = 1,
+                        slope: float = 0.01, out_dtype=None) -> torch.Tensor:
+    """The eager chain the kernel replaces, on NHWC y: `y + bias` in y's
+    type (the add after cuDNN), cast to `out_dtype`, the activation, and
+    with pool 2 the 2x2 max-pool; NHWC, contiguous."""
+    s = (y + bias).to(out_dtype or y.dtype)
+    if act == "relu":
+        s = torch.relu(s)
+    elif act == "leaky_relu":
+        s = F.leaky_relu(s, slope)
+    elif act == "sigmoid":
+        s = torch.sigmoid(s)
+    if pool == 2:
+        s = F.max_pool2d(s.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    return s.contiguous()
+
+
+def _check_epilogue(y, bias, act, pool, out_dtype) -> None:
+    name = "bias_act_pool"
+    if y.dim() != 4 or y.dtype not in EPILOGUE_DTYPES:
+        raise ValueError(f"{name}: expected an f32 or bf16 (N, H, W, C) "
+                         f"tensor, got {y.dtype} {tuple(y.shape)}")
+    if (tuple(bias.shape) != (y.shape[3],) or bias.dtype != y.dtype
+            or bias.device != y.device):
+        raise ValueError(f"{name}: bias must be ({y.shape[3]},) {y.dtype} "
+                         f"on {y.device}, got {bias.dtype} "
+                         f"{tuple(bias.shape)} on {bias.device}")
+    if act not in ACTS:
+        raise ValueError(f"{name}: act {act!r} not in {ACTS}")
+    if pool not in (1, 2) or (pool == 2 and (y.shape[1] % 2
+                                             or y.shape[2] % 2)):
+        raise ValueError(f"{name}: pool {pool} of {tuple(y.shape)}: 1, or "
+                         "2 over an even H and W")
+    if out_dtype not in (y.dtype, torch.float32):
+        raise ValueError(f"{name}: output {out_dtype} of a {y.dtype} input: "
+                         "the input's type or float32")
+
+
+def bias_act_pool(y: torch.Tensor, bias: torch.Tensor, act: str = "none",
+                  pool: int = 1, slope: float = 0.01,
+                  out_dtype=None) -> torch.Tensor:
+    """One convolution's epilogue: y (N, H, W, C), the NHWC view of a
+    channels_last convolution output made without its bias, f32 or
+    bf16; bias (C,) in y's type -> act(y + bias) with pool 2 its 2x2
+    max, (N, H/pool, W/pool, C) contiguous in `out_dtype` (y's type, or
+    float32). act: "none", "relu", "leaky_relu" (of `slope`) or
+    "sigmoid". One launch on the card, reading y once and writing only
+    the output. Bit-equal to `bias_act_pool_plain`, and so to PyTorch's
+    own bias add, activation and pool."""
+    out_dtype = out_dtype or y.dtype
+    _check_epilogue(y, bias, act, pool, out_dtype)
+    if y.device.type == "cpu":
+        return bias_act_pool_plain(y, bias, act, pool, slope, out_dtype)
+    if y.device.type != "cuda" or not y.is_contiguous():
+        # a strided NHWC view: the convolution output was not
+        # channels_last, and a copy here would cost what the kernel saves
+        raise ValueError("bias_act_pool: expected a contiguous NHWC CUDA "
+                         "tensor (a convolution output stored "
+                         f"channels_last), got {y.device} strides "
+                         f"{y.stride()}")
+    _build.require_cuda_tensor(bias, "bias_act_pool")
+    n, h, w, c = y.shape
+    out = torch.empty((n, h // pool, w // pool, c), dtype=out_dtype,
+                      device=y.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.kernel("conv_epilogue")
+    with torch.cuda.device(y.device):   # launch on the tensor's card
+        err = lib.cgs_bias_act_pool(
+            y.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h, w, c,
+            ACTS.index(act), pool, float(slope),
+            int(y.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            _build.stream_ptr(y.device))
+    _build.check(err, "bias_act_pool")
+    _build.launches["bias_act_pool"] += 1
+    return out

@@ -51,9 +51,12 @@ is `models/build.py:critic_forward` / `masker_forward`: the spans
 With `ensemble=True` (port of `cgs_tpu/pipeline.py:81-86,213-254`) the
 pipeline holds R members and outputs the mean over them of pred, soft
 mask and saliency: the batch is ingested once, each member's critic and
-decoder run in turn (1 + 5R kernel launches per batch), the outputs are
-summed in f32 in member order and divided by R, and only then encoded
-for the wire, so the u8 wire and the hard plane see the mean mask.
+decoder run in turn (1 + 17R kernel launches per batch: each member's 5
+joins and 12 convolution epilogues, `models/epilogue.py`; with salience
+the critic records its input gradient and keeps PyTorch's epilogues, so
+1 + 12R), the outputs are summed in f32 in member order and divided by
+R, and only then encoded for the wire, so the u8 wire and the hard
+plane see the mean mask.
 
 With `quantize="int8"` (port of `cgs_tpu/pipeline.py:161-172,300-315,
 377-395`) each member's convolutions run s8 x s8 -> s32

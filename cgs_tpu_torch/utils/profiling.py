@@ -19,9 +19,13 @@ same trace and on the same clock as the kernels and copies, under
 `--profile` or any other profiler; otherwise it is one shared no-op
 context. `counts` holds the port's counters (`pipeline.rows`,
 `pipeline.h2d_bytes`, `pipeline.d2h_bytes`, `pipeline.staged_batches`;
-`model.critic_frames`, `model.masker_frames`, and `model.bn_running` /
+`model.critic_frames`, `model.masker_frames`, `model.bn_running` /
 `model.bn_batch`, the BatchNorm layers applied on running and on batch
-statistics), bumped where the work is issued and never reset.
+statistics, and `model.epilogue_fused` / `model.epilogue_eager`, the
+convolutions of `Critic` and `UnetDecoder` forwards whose bias,
+activation and pool ran as one `bias_act_pool` launch or as PyTorch's
+own ops, `models/epilogue.py`), bumped where the work is issued and
+never reset.
 """
 
 from __future__ import annotations

@@ -206,13 +206,19 @@ BATCH = 8192            # the serve batch
 SERVE_BATCH, SERVE_FRAMES = 256, 1024
 EVAL_N = 2450           # the synthetic eval set
 MASKER_N = 64        # frames a masker step merges and decodes (2K)
-SERVE_KERNELS = ("normalize_u8", "upsample2x", "threshold_iou")
+SERVE_KERNELS = ("normalize_u8", "upsample2x", "bias_act_pool",
+                 "threshold_iou")
 # video -process and -vismasker compute no IoU
-VIDEO_KERNELS = ("normalize_u8", "upsample2x")
+VIDEO_KERNELS = ("normalize_u8", "upsample2x", "bias_act_pool")
+# int8 runs its own convolutions (ops/quant.py), with no epilogue kernel
+INT8_KERNELS = ("normalize_u8", "upsample2x")
+# the convolution epilogues of one paper-critic forward and its decoder's
+EPILOGUES = 12
 ENSEMBLE_R = 3
 # one ensemble evaluate of the 2450-frame set: one batch, ingested once,
-# each member's five decoder joins, one IoU count
+# each member's five decoder joins and twelve epilogues, one IoU count
 ENSEMBLE_LAUNCHES = {"normalize_u8": 1, "upsample2x": 5 * ENSEMBLE_R,
+                     "bias_act_pool": EPILOGUES * ENSEMBLE_R,
                      "threshold_iou": 1}
 # the names of the port's device kernels a --profile trace must show
 TRACE_KERNELS = ("ingest_", "upsample_cat_fwd", "threshold_iou_kernel")
@@ -409,7 +415,7 @@ def main(argv=None) -> int:
             ("profile", profile_launches, SERVE_KERNELS),
             ("video", video_launches, VIDEO_KERNELS),
             ("serve-http", serve_http_launches, VIDEO_KERNELS),
-            ("int8", int8_launches, VIDEO_KERNELS)):
+            ("int8", int8_launches, INT8_KERNELS)):
         for name in kernels:
             check(counts.get(name, 0) > 0,
                   f"{name} never launched on the {path} main path")
@@ -761,7 +767,8 @@ def _serve_dp(fx: dict, d: str, backend=None, device_indices=None) -> dict:
         same = np.mean([_same_png(_levels(r), fx["png_old"][i])
                         for i, r in enumerate(raw)])
         check(same >= 0.999, f"two ranks: raw PNGs identical on {same:.5f}")
-        check(launches == {"normalize_u8": n_disp, "upsample2x": 5 * n_disp},
+        check(launches == {"normalize_u8": n_disp, "upsample2x": 5 * n_disp,
+                           "bias_act_pool": EPILOGUES * n_disp},
               f"two ranks: rank 0 launched {launches} for {n_disp} "
               "dispatches")
         reload = _reload_under_traffic(base, fx["bodies"], publish,
@@ -971,7 +978,8 @@ def phase_serve_http(_build) -> dict:
             _build.launches.clear()
             srv.batcher.submit(frames[0])
             per_dispatch = dict(_build.launches)
-            check(per_dispatch == {"normalize_u8": 1, "upsample2x": 5},
+            check(per_dispatch == {"normalize_u8": 1, "upsample2x": 5,
+                                   "bias_act_pool": EPILOGUES},
                   f"launches per serve dispatch {per_dispatch}")
             counts = _dispatch_kernels(lambda: srv.pipe.run_device(one),
                                        ("ingest_", "upsample_cat_fwd"))
@@ -1486,20 +1494,23 @@ def _train_models(dtype, seed: int, chfak: int = 5, dropout: float = 0.5):
 def _plain_kernels():
     """A context in which a train step, or `MaskPipeline`, runs every
     port kernel's plain version (the ingest, the merges and their
-    gradient, the fused upsample-into-concat pair) on the card."""
+    gradient, the fused upsample-into-concat pair, the convolution
+    epilogue) on the card."""
     import contextlib
     from unittest import mock
 
+    import cgs_tpu_torch.models.epilogue as epilogue_mod
     import cgs_tpu_torch.ops.merge as merge_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
     import cgs_tpu_torch.train.losses as losses_mod
     from cgs_tpu_torch.ops.kernels import (
-        gather_normalize_u8_plain, merge_pair_bwd_plain, merge_pair_plain,
-        normalize_u8_plain,
+        bias_act_pool_plain, gather_normalize_u8_plain, merge_pair_bwd_plain,
+        merge_pair_plain, normalize_u8_plain,
     )
     stack = contextlib.ExitStack()
     for mod, name, plain in (
+            (epilogue_mod, "bias_act_pool", bias_act_pool_plain),
             (losses_mod, "gather_normalize_u8", gather_normalize_u8_plain),
             (pipeline_mod, "normalize_u8", normalize_u8_plain),
             (merge_mod, "merge_pair", merge_pair_plain),

@@ -9,7 +9,11 @@ paths; no concat kernel in a pipeline batch, a critic step or a masker
 step, and finite critic and masker chunk losses;
 `MaskPipeline.run`'s staging ring against `run_device`, a seeded masker
 step's launches at R = 1, 3 and 10, the dense CRF on kernel-path masks,
-and the gradient of a fused upsample-into-concat join through a conv.
+and the gradient of a fused upsample-into-concat join through a conv;
+the convolution epilogue (bias, activation, pool) bit-equal to PyTorch's
+own chain at every (act, pool) and width, and the pipeline through it
+bit-equal to the same modules run eagerly (chfak 1 and 5, ResNet-18,
+f32 and bf16).
 These are the card's checks of single kernels and single steps;
 `chip_smoke.py` runs whole paths, and `portbench/` measures speed.
 
@@ -30,9 +34,10 @@ import torch
 
 from cgs_tpu_torch.ops import _build
 from cgs_tpu_torch.ops.kernels import (
-    Segment, gather_normalize_u8, gather_normalize_u8_plain, merge_pair,
-    merge_pair_bwd, merge_pair_bwd_plain, merge_pair_plain, normalize_u8,
-    normalize_u8_plain, threshold_iou, threshold_iou_plain,
+    ACTS, Segment, bias_act_pool, bias_act_pool_plain, gather_normalize_u8,
+    gather_normalize_u8_plain, merge_pair, merge_pair_bwd,
+    merge_pair_bwd_plain, merge_pair_plain, normalize_u8, normalize_u8_plain,
+    threshold_iou, threshold_iou_plain,
 )
 from cgs_tpu_torch.ops.upsample import (
     up_cat, upcat_bwd, upcat_bwd_plain, upcat_fwd, upcat_plain, upsample2x,
@@ -84,7 +89,8 @@ PORT_KERNELS = (("merge_pair_bwd", "merge_pair_bwd"),
                 ("upsample_cat_bwd", "upsample2x_bwd"),
                 ("upsample_cat_fwd", "upsample2x"),
                 ("ingest_", "normalize_u8"),
-                ("threshold_iou", "threshold_iou"))
+                ("threshold_iou", "threshold_iou"),
+                ("bias_act_pool", "bias_act_pool"))
 
 
 def _device_ops(fn):
@@ -258,6 +264,137 @@ def test_upsample2x_bit_equal(dev, dtype):
                            _bits(upsample2x_plain(x))), (h, w, c)
 
 
+# (N, H, W, C) convolution outputs the epilogue sees: the chfak-5 and
+# chfak-1 critic blocks and decoder convs, the 1-channel head, and widths
+# that are no multiple of 4 or 8
+EPILOGUE_C = (1, 16, 40, 80, 160, 43)
+
+
+def _eager_epilogue(y, b, act, pool, out_dtype):
+    """The modules' chain on the card, NCHW: the bias add in y's type,
+    the activation in the output's, the pool."""
+    from torch import nn
+    mod = {"none": nn.Identity(), "relu": nn.ReLU(),
+           "leaky_relu": nn.LeakyReLU(0.01), "sigmoid": nn.Sigmoid()}[act]
+    x = y.permute(0, 3, 1, 2)
+    out = mod((x + b[:, None, None]).to(out_dtype))
+    if pool == 2:
+        out = torch.nn.functional.max_pool2d(out, 2)
+    return out.permute(0, 2, 3, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_bias_act_pool_bit_equal(dev, dtype, out_dtype):
+    """Every (act, pool) at each width, aligned and not: bit-equal to
+    the eager chain and to the plain version; one launch a call."""
+    for c in EPILOGUE_C:
+        y = torch.randn((5, 12, 10, c), device=dev).to(dtype)
+        y[0, 0, 0] = 0.0
+        y[0, 0, 1] = -0.0
+        b = torch.randn(c, device=dev).to(dtype)
+        for act in ACTS:
+            for pool in (1, 2):
+                for t in (y, _unaligned(y)):
+                    _build.launches.clear()
+                    got = bias_act_pool(t, b, act, pool, out_dtype=out_dtype)
+                    assert dict(_build.launches) == {"bias_act_pool": 1}
+                    want = _eager_epilogue(t, b, act, pool, out_dtype)
+                    key = (c, act, pool, t.data_ptr() % 16)
+                    assert got.dtype == out_dtype and got.is_contiguous()
+                    assert torch.equal(_bits(got), _bits(want)), key
+                    assert torch.equal(got, bias_act_pool_plain(
+                        t, b, act, pool, out_dtype=out_dtype)), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_act_pool_bit_equal_at_the_serve_batch(dev, dtype):
+    """The chfak-5 critic's first block (64 x 64 x 40, ReLU, pool) and
+    the mask head (64 x 64 x 16, LeakyReLU; 64 x 64 x 1, sigmoid to f32)
+    at batch 8192."""
+    for (h, w, c), act, pool, out_dtype in (
+            ((64, 64, 40), "relu", 2, dtype),
+            ((64, 64, 16), "leaky_relu", 1, dtype),
+            ((64, 64, 1), "sigmoid", 1, torch.float32)):
+        y = torch.randn((BATCH, h, w, c), device=dev).to(dtype)
+        b = torch.randn(c, device=dev).to(dtype)
+        got = bias_act_pool(y, b, act, pool, out_dtype=out_dtype)
+        want = _eager_epilogue(y, b, act, pool, out_dtype)
+        assert torch.equal(_bits(got), _bits(want)), (c, act)
+        del y, got, want
+
+
+@pytest.mark.cuda
+def test_bias_act_pool_refuses_a_layout_it_would_copy(dev):
+    """An NCHW-contiguous convolution output, seen as NHWC, is strided:
+    the wrapper raises rather than copy it."""
+    y = torch.randn(4, 16, 8, 8, device=dev)         # NCHW-dense
+    with pytest.raises(ValueError, match="channels_last"):
+        bias_act_pool(y.permute(0, 2, 3, 1), torch.zeros(16, device=dev),
+                      "relu", 2)
+    with pytest.raises(ValueError, match="bias"):
+        bias_act_pool(y.permute(0, 2, 3, 1).contiguous(),
+                      torch.zeros(16), "relu", 2)
+
+
+def _route_pair(arch, chfak, dtype):
+    from cgs_tpu_torch.core.config import Config
+    from cgs_tpu_torch.models.build import build_pair
+    from cgs_tpu_torch.models.interop import init_torch_default
+
+    cfg = Config(critic_arch=arch, chfak=chfak, dropout=0.0).derive()
+    critic, masker = build_pair(cfg, dtype)
+    gen = torch.Generator().manual_seed(7)
+    params = {name: init_torch_default(mod, gen).state_dict()
+              for name, mod in (("critic", critic), ("masker", masker))}
+    return critic, masker, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,chfak,batch,dtype", [
+    ("paper", 1, 64, torch.float32), ("paper", 1, 64, torch.bfloat16),
+    ("paper", 5, 64, torch.float32), ("paper", 5, 64, torch.bfloat16),
+    ("resnet18", 1, 64, torch.float32), ("resnet18", 1, 64, torch.bfloat16),
+    ("paper", 5, BATCH, torch.float32)])
+def test_pipeline_epilogue_route_equals_the_eager_forward(
+        dev, monkeypatch, arch, chfak, batch, dtype):
+    """`run_device` through the fused epilogues against the same modules
+    run eagerly (the route switched off), under deterministic cuDNN:
+    preds, f32 masks, the u8 wire and its hard plane bit-equal; 12
+    epilogue launches a paper batch, 7 a ResNet-18 one (its decoder; its
+    encoder is no `Critic` and counts under neither route)."""
+    import cgs_tpu_torch.models.epilogue as epilogue_mod
+    from cgs_tpu_torch.pipeline import MaskPipeline
+    from cgs_tpu_torch.utils.profiling import counts
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    critic, masker, params = _route_pair(arch, chfak, dtype)
+    if arch == "resnet18":
+        critic.eval()
+    pipes = [MaskPipeline(critic, masker, params, batch_size=batch, **kw)
+             for kw in ({}, {"wire": "u8", "hard_threshold": 0.5})]
+    frames = torch.randint(0, 256, (batch, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(8)
+                           ).to(dev)
+    fused = 12 if arch == "paper" else 7
+    _build.launches.clear()
+    before = counts["model.epilogue_fused"], counts["model.epilogue_eager"]
+    got = [p.run_device(frames) for p in pipes]
+    assert _build.launches["bias_act_pool"] == 2 * fused
+    assert (counts["model.epilogue_fused"] - before[0],
+            counts["model.epilogue_eager"] - before[1]) == (2 * fused, 0)
+    with mock.patch.object(epilogue_mod, "on_card", lambda t: False):
+        want = [p.run_device(frames) for p in pipes]
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_threshold_iou_exact(dev):
     """Exact counts at the eval set, ragged N, an odd numel (the tail
@@ -306,9 +443,10 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
 def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
                                                 batch, dtype):
     """One batch of `run_device` at the reference's width and at the
-    paper's at the serve batch: 1 ingest and 5 join launches, masks in
-    (0, 1), no concat kernel, and the plain path's outputs under
-    deterministic cuDNN."""
+    paper's at the serve batch: 1 ingest, 5 join and 12 epilogue
+    launches, masks in (0, 1), no concat kernel, and the plain path's
+    outputs under deterministic cuDNN."""
+    import cgs_tpu_torch.models.epilogue as epilogue_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
     from cgs_tpu_torch.models.critic import Critic
@@ -327,14 +465,17 @@ def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
                            device=dev)
     _build.launches.clear()
     pred, mask, _ = pipe.run_device(frames)
-    assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 5}
+    assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 5,
+                                     "bias_act_pool": 12}
     assert mask.shape == (batch, 64, 64, 1) and pred.shape == (batch,)
     assert bool(((mask > 0) & (mask < 1)).all())
     ops = _device_ops(lambda: pipe.run_device(frames))
     assert any("upsample_cat" in k for k in ops) and not _concats(ops), ops
     with mock.patch.object(pipeline_mod, "normalize_u8",
                            normalize_u8_plain), \
-            mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain):
+            mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain), \
+            mock.patch.object(epilogue_mod, "bias_act_pool",
+                              bias_act_pool_plain):
         ppred, pmask, _ = pipe.run_device(frames)
     torch.testing.assert_close(mask, pmask, atol=1e-5, rtol=0)
     torch.testing.assert_close(pred, ppred, atol=1e-5, rtol=0)
@@ -416,6 +557,7 @@ def test_pipeline_staging_ring_on_the_card(dev, kw):
 def _ensemble_masks(dev, salience=False):
     """(kernel-path outputs, plain-path outputs, launches per batch) of a
     3-member chfak-1 ensemble on 40 frames at batch 32 (2 batches)."""
+    import cgs_tpu_torch.models.epilogue as epilogue_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
     from cgs_tpu_torch.models.critic import Critic
@@ -438,7 +580,9 @@ def _ensemble_masks(dev, salience=False):
     per_batch = {k: v / 2 for k, v in _build.launches.items()}
     with mock.patch.object(pipeline_mod, "normalize_u8",
                            normalize_u8_plain), \
-            mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain):
+            mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain), \
+            mock.patch.object(epilogue_mod, "bias_act_pool",
+                              bias_act_pool_plain):
         plain = pipe.run(frames.numpy())
     return out, plain, per_batch, frames.numpy()
 
@@ -446,7 +590,10 @@ def _ensemble_masks(dev, salience=False):
 @pytest.mark.cuda
 def test_ensemble_kernel_path_equals_plain_path(dev):
     out, plain, per_batch, _ = _ensemble_masks(dev, salience=True)
-    assert per_batch == {"normalize_u8": 1, "upsample2x": 15}
+    # the saliency's critic records its input gradient: each member's
+    # decoder alone takes the fused epilogues
+    assert per_batch == {"normalize_u8": 1, "upsample2x": 15,
+                         "bias_act_pool": 21}
     assert (out.preds == plain.preds).all()
     assert (out.masks == plain.masks).all()
     assert (out.saliency == plain.saliency).all()
