@@ -13,7 +13,10 @@ LeakyReLU 0.01 but uses it only in the mask head, nets.py:487-492).
 `dec_model.{0..4}` and `masker.{0,2}` are the reference's state_dict
 keys. The neck join's factor f is read from the pyramid, the height of
 embeds[3] over that of embeds[4]: 4 for the paper critic's 1x1 neck, 2
-for ResNet-18's 2x2 one (`models/zoo.py:ResNetCritic`). Each
+for ResNet-18's and ConvNeXt-T's 2x2 one (`models/zoo.py:ResNetCritic`,
+`models/convnext.py`). A pyramid with no 32x32 tap (ConvNeXt-T's
+stride-4 stem leaves none) has `edims[0] = 0` and `embeds[0] = None`:
+that level is `conv(up(out1))`, the join with no skip channels. Each
 `cat(skip, up(...))` is one `ops.upsample.up_cat`, the fused
 upsample-into-concat kernel on the card (the x4 join too): 5 launches
 per forward and 5 per backward, and no `torch.cat`. Activations stay
@@ -66,10 +69,12 @@ class UnetDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, embeds: List[torch.Tensor]
                 ) -> torch.Tensor:
-        """x: (B, 3, 64, 64) in [0, 1]; embeds: the critic pyramid.
+        """x: (B, 3, 64, 64) in [0, 1]; embeds: the critic pyramid
+        (embeds[0] None where edims[0] is 0).
         Returns the mask (B, 1, 64, 64) in (0, 1), float32."""
         x = x.to(self.compute_dtype)
-        embeds = [e.to(self.compute_dtype) for e in embeds]
+        embeds = [None if e is None else e.to(self.compute_dtype)
+                  for e in embeds]
         dec, head = self.dec_model, self.masker
         fused = epilogue.fused(x, len(dec) + 2)
         conv = epilogue.conv_epilogue if fused else (lambda m, t: m(t))

@@ -21,6 +21,8 @@ critics' (their BatchNorm `batch_stats` as `running_mean` /
 head's input axis goes from NHWC to NCHW order. `load_pt_vgg_critic`
 and `load_pt_resnet_critic` read a reference or torchvision `.pt`
 directly: the port's modules use its keys and its NCHW flatten.
+`load_pt_convnext_critic` reads the port's `ConvNeXtCritic` `.pt`, or a
+torchvision `convnext_tiny` one's backbone: the two share their keys.
 
 The JAX package's `core/init.py` (torch's default init in flax) has no
 module here: the port's modules draw torch's own defaults, and
@@ -371,3 +373,26 @@ def load_pt_resnet_critic(path: str, head: bool = True
     port's ResNetCritic (head=False: its `resnet.*` keys; load them with
     `strict=False`)."""
     return resnet_state_from_torch(_load_pt(path), head)
+
+
+def load_pt_convnext_critic(path: str, head: bool = True
+                            ) -> Dict[str, torch.Tensor]:
+    """A `ConvNeXtCritic` `.pt`, or a torchvision `convnext_tiny` one's
+    (the same keys: `features.*`, `classifier.0` the head's LayerNorm,
+    `classifier.2` its linear) -> the state_dict of the port's
+    ConvNeXtCritic; head=False keeps all but `classifier.2` (a
+    torchvision one's is its 1000-class linear, not the critic's
+    one-output head; load the rest with `strict=False`)."""
+    state = _load_pt(path)
+    if not head:
+        return {k: v for k, v in state.items()
+                if k.startswith(("features.", "classifier.0."))}
+    w = state.get("classifier.2.weight")
+    if w is None or w.shape[0] != 1:
+        raise ValueError(
+            "state_dict has no ConvNeXtCritic head (a one-output "
+            "'classifier.2'; a torchvision convnext_tiny carries its "
+            "1000-class one instead): pass head=False to read the "
+            "backbone alone")
+    return {k: v for k, v in state.items()
+            if k.startswith(("features.", "classifier."))}

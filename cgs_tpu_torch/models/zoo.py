@@ -612,7 +612,27 @@ class ResNet18Features(nn.Sequential):
         super().__init__(*layers)
 
 
-class ResNetCritic(nn.Module):
+class ImageNetCritic(nn.Module):
+    """The input of the critics on an ImageNet backbone (`ResNetCritic`,
+    `models/convnext.py:ConvNeXtCritic`): frames in [0, 1], or in [0,
+    255] when their maximum is above 1 (nets.py:721), normalised by the
+    ImageNet mean and std (nets.py:802-804). The mean and std are
+    buffers outside the state_dict, so a forward on the card makes no
+    host copy."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("mean", torch.as_tensor(IMAGENET_MEAN).view(
+            1, 3, 1, 1), persistent=False)
+        self.register_buffer("std", torch.as_tensor(IMAGENET_STD).view(
+            1, 3, 1, 1), persistent=False)
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.where(x.max() > 1.0, x / 255.0, x)    # nets.py:721
+        return (x - self.mean) / self.std               # nets.py:802-804
+
+
+class ResNetCritic(ImageNetCritic):
     """nets.py:704-730: ImageNet-normalised ResNet18 features + 256-1
     head, no sigmoid. Port of `zoo.ResNetCritic`, the reference's keys
     (`resnet.*`, `head.{1,3}`); train mode moves the BatchNorm
@@ -627,9 +647,7 @@ class ResNetCritic(nn.Module):
     accepted and unused (no dropout). Under `compute_dtype=
     torch.bfloat16` the convolutions and linears run in bf16 with f32
     parameters, as in `Critic`. `batch_norms` lists the 20 BatchNorm
-    layers in forward order; the ImageNet mean and std are buffers
-    outside the state_dict, so a forward on the card makes no host
-    copy."""
+    layers in forward order; the input is `ImageNetCritic`'s."""
 
     def __init__(self, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -637,10 +655,6 @@ class ResNetCritic(nn.Module):
         self.resnet = ResNet18Features()
         self.head = nn.Sequential(nn.Flatten(), nn.Linear(512 * 2 * 2, 256),
                                   nn.ReLU(), nn.Linear(256, 1))
-        self.register_buffer("mean", torch.as_tensor(IMAGENET_MEAN).view(
-            1, 3, 1, 1), persistent=False)
-        self.register_buffer("std", torch.as_tensor(IMAGENET_STD).view(
-            1, 3, 1, 1), persistent=False)
         self.batch_norms = [m for m in self.modules()
                             if isinstance(m, nn.BatchNorm2d)]
 
@@ -648,8 +662,7 @@ class ResNetCritic(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """x: (B, 3, 64, 64). The score (B, 1) and, with collect=True,
         the five taps."""
-        x = torch.where(x.max() > 1.0, x / 255.0, x)    # nets.py:721
-        x = (x - self.mean) / self.std                  # nets.py:802-804
+        x = self.normalize(x)
         taps = []
         with compute_autocast(x.device.type, self.compute_dtype):
             for i, layer in enumerate(self.resnet):

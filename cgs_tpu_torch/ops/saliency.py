@@ -32,7 +32,8 @@ def critic_with_saliency(critic, x: torch.Tensor, generator=None
         pred, embeds = critic(x, collect=True, generator=generator)
         (grad,) = torch.autograd.grad(pred.mean(), x)
     sal = grad.abs().sum(dim=1, keepdim=True)
-    return pred.detach(), [e.detach() for e in embeds], sal
+    return pred.detach(), [None if e is None else e.detach()
+                           for e in embeds], sal
 
 
 def normalize_saliency_global(sal: np.ndarray, preds: np.ndarray,

@@ -134,6 +134,17 @@ def init_seed_params(critic, masker, seeds: Sequence[int],
     return {name: stack_state_dicts(states) for name, states in per.items()}
 
 
+def require_paper_critic(cfg) -> None:
+    """The runner stacks R seeds of the paper's critic
+    (`models/seeded.py`) and no other: refuse any other `--critic`
+    rather than train the paper's in its place."""
+    if cfg.critic_arch != "paper":
+        raise ValueError(
+            f"--critic {cfg.critic_arch}: the seed-parallel runner trains "
+            "the paper's critic only (models/seeded.py); run "
+            "sandbox/multirun.py for the other critics")
+
+
 def _build_models(cfg, seeds: int):
     """(SeededCritic, SeededDecoder) per the Config: neck and chfak
     widths, --dropout, --bf16 compute."""
@@ -412,6 +423,7 @@ def run_parallel(cfg, x, y, runs: int, base_seed: int = 0, mesh=None,
     from cgs_tpu_torch.models.critic import Critic
     from cgs_tpu_torch.models.decoder import UnetDecoder
 
+    require_paper_critic(cfg)
     if runs < 1:
         raise ValueError(f"runs must be >= 1, got {runs}")
     if masker_steps is not None and masker_steps < 1:
@@ -622,6 +634,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         raise SystemExit(f"--chunk-steps must be >= 1 (got {chunk_steps})")
     base_seed = pop_int(argv, "--base-seed", 0)
     cfg = parse_args(argv)
+    require_paper_critic(cfg)
     ensure_initialized(cfg.device)
     return run_over_ranks(cfg, _main_rank, cfg, runs, base_seed,
                           chunk_steps)

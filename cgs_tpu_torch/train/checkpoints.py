@@ -7,7 +7,9 @@ are state_dicts in the reference layout, so files move freely between
 the reference, `cgs_tpu` and this port. A `--critic resnet18` critic is
 the reference's `ResNetCritic` state_dict (`resnet.*`, `head.*`, the
 BatchNorm buffers with it), under names that end in `-critic=resnet18`
-(`core/config.py`). A missing file loads as None
+(`core/config.py`); a `--critic convnext_t` one has torchvision's
+`convnext_tiny` keys (`features.*`, `classifier.{0,2}`), under names
+that end in `-critic=convnext_t`. A missing file loads as None
 (the caller keeps its weights, main.py:141-147). `load_seed_ensemble`
 (port of `cgs_tpu/train/checkpoints.py:108-148`) reads the per-seed
 runs that `sandbox/multirun.py` and `sandbox/seed_parallel.py` write.
@@ -44,15 +46,17 @@ def checkpoint_paths(cfg) -> Dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def _resnet_critic_keys() -> frozenset:
-    from cgs_tpu_torch.models.zoo import ResNetCritic
+def _critic_keys(arch: str) -> frozenset:
+    from cgs_tpu_torch.core.config import Config
+    from cgs_tpu_torch.models.build import build_pair
     with torch.device("meta"):
-        return frozenset(ResNetCritic().state_dict())
+        return frozenset(build_pair(Config(critic_arch=arch))[0]
+                         .state_dict())
 
 
 def _expected_keys(kind: str, arch: str = "paper"):
-    if kind != "masker" and arch == "resnet18":
-        return _resnet_critic_keys()
+    if kind != "masker" and arch != "paper":
+        return _critic_keys(arch)
     return {f"{m}.{p}" for m in KEYMAPS[kind].values()
             for p in ("weight", "bias")}
 

@@ -27,6 +27,9 @@ pass, so fusing would mix A's statistics with B's: its passes run
 unfused, as the reference's separate calls (main.py:394-413), and its
 running statistics move once a pass. A frozen one runs BatchNorm on its
 running statistics (`train/steps.py:set_masker_modes`), fused and exact.
+A live `--critic convnext_t` draws its drop-path per frame, couples no
+frames, and fuses as dropout does; its pyramid's first tap is None (no
+32x32 level), which the A || B pass slices as it is.
 
 Every critic and masker pass goes through `models/build.py:
 critic_forward` / `masker_forward`: the spans `cgs.model.critic` and
@@ -194,7 +197,7 @@ def build_masker_loss(cfg, fuse: str = "both"):
             out = out.squeeze(-1)
             pred = out[:n]
             negpred = out[n:].detach()
-            embeds = [e[:n] for e in embeds]
+            embeds = [None if e is None else e[:n] for e in embeds]
         else:
             pred, embeds = critic_forward(critic, a, collect=True,
                                           generator=generator)

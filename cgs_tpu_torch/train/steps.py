@@ -42,7 +42,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from cgs_tpu_torch.models.build import batch_norms
+from cgs_tpu_torch.models.build import batch_norms, drop_paths
 from cgs_tpu_torch.ops.augment import draw_shift
 from cgs_tpu_torch.ops.kernels import Segment
 from cgs_tpu_torch.parallel.mesh import rank_seed
@@ -120,14 +120,17 @@ def trained_param_keys(cfg) -> list:
 def set_masker_modes(cfg, models: Dict[str, torch.nn.Module]) -> None:
     """The masker phase's modes: every model in train mode (dropout
     live), gradients for the trained ones (`trained_param_keys`). A
-    model that does not train (the -frozen critic) runs its BatchNorm on
-    its running statistics, as a frozen backbone does: they do not move,
-    and the fused critic passes stay exact (`train/losses.py`)."""
+    model that does not train (the -frozen critic) runs as a frozen
+    backbone does: its BatchNorm on its running statistics, which do not
+    move, so the fused critic passes stay exact (`train/losses.py`); its
+    drop-path in eval mode. ConvNeXt keeps no running statistics and
+    needs no BatchNorm rule: with its drop-path off, a frozen ConvNeXt
+    critic computes what its eval mode does."""
     trained = trained_param_keys(cfg)
     for name, model in models.items():
         model.requires_grad_(name in trained).train()
         if name not in trained:
-            for m in batch_norms(model):
+            for m in (*batch_norms(model), *drop_paths(model)):
                 m.eval()
 
 

@@ -141,7 +141,10 @@ from `cgs_tpu_torch/csrc/` and the dense-CRF library, then:
            each finite and positive (their figures are not logged), and
            the ingest, join, merge and merge-gradient kernels launched;
            then `MaskPipeline` at its auto batch (6553) and at the serve
-           batch (8192, the process cells' batch) in f32 and bf16, and
+           batch (8192, the process cells' batch) in f32 and bf16, the
+           `--critic resnet18` and `convnext_t` pairs' `MaskPipeline`
+           at the serve batch in f32 (1 ingest, 5 joins, the skipless
+           32x32 one among ConvNeXt-T's, and 7 epilogues a batch), and
            one critic step (batch 64) and one masker step (K = 32) at
            fuse both (the masker cell's step), none and merges, each
            kernel path bit-equal to its plain path;
@@ -317,6 +320,10 @@ BENCH_WIDTH_ARGV = ["--chfak", "5", "--iters", "8", "--skip-training"]
 BENCH_WIDTH_STEPS, BENCH_WIDTH_ROUNDS = 20, 3
 BENCH_WIDTH_KERNELS = ("normalize_u8", "upsample2x", "upsample2x_bwd",
                        "merge_pair", "merge_pair_bwd")
+# one batch of the resnet18 or convnext_t pair: one ingest, the decoder's
+# five joins and its seven convolution epilogues (the critic is no
+# `Critic` and takes no epilogue)
+ARCH_LAUNCHES = {"normalize_u8": 1, "upsample2x": 5, "bias_act_pool": 7}
 
 
 class SmokeFailure(Exception):
@@ -1790,10 +1797,12 @@ def phase_bench_width(_build) -> dict:
     not shown). Then, outside the counted run, the kernels at
     this path's and the cells' shapes, kernel path against plain path,
     bit-equal: `MaskPipeline.run_device` at the auto batch and at the
-    serve batch (BATCH, the process cells' batch) in f32 and bf16, and
-    one critic step (batch 64) and one masker step (K = 32) at fuse
-    both (the masker cell's step), none and merges, on the sweep's
-    models. Returns the launches of the sweep."""
+    serve batch (BATCH, the process cells' batch) in f32 and bf16, the
+    resnet18 and convnext_t pairs (`build_pair`, eval mode) at BATCH in
+    f32 with their launches a batch (ARCH_LAUNCHES), and one critic step
+    (batch 64) and one masker step (K = 32) at fuse both (the masker
+    cell's step), none and merges, on the sweep's models. Returns the
+    launches of the sweep."""
     import contextlib
     import importlib
     import io
@@ -1835,6 +1844,17 @@ def phase_bench_width(_build) -> dict:
             checked[f"MaskPipeline {_name(dtype)} batch {batch}"] = (
                 _pipeline_vs_plain(_build, pipe, frames[:batch]))
             del pipe
+    del critic, masker
+    torch.cuda.empty_cache()
+    for arch in ("resnet18", "convnext_t"):
+        pipe = _arch_pipeline(arch, dev)
+        got = _pipeline_vs_plain(_build, pipe, frames[:BATCH])
+        check(got == ARCH_LAUNCHES,
+              f"--critic {arch} batch {BATCH}: launches {got}, "
+              f"expected {ARCH_LAUNCHES}")
+        checked[f"MaskPipeline {arch} float32 batch {BATCH}"] = got
+        del pipe
+        torch.cuda.empty_cache()
     critic, masker = bench_width._models(5, 0.5, torch.float32, dev,
                                          train=True)
     checked.update(_steps_vs_plain(
@@ -1845,6 +1865,28 @@ def phase_bench_width(_build) -> dict:
     log(f"[bench-width] chfak 5, kernel path bit-equal to plain path: "
         f"{json.dumps(checked)}")
     return launches
+
+
+def _arch_pipeline(arch: str, dev):
+    """An f32 `MaskPipeline` at BATCH on `build_pair`'s `--critic arch`
+    pair in eval mode, random weights; ConvNeXt-T's layer scales and
+    block LayerNorm weights drawn from U(0.5, 1.5), as the process cell's
+    are (at the published 1e-6 every block is an identity)."""
+    from cgs_tpu_torch.core.config import Config
+    from cgs_tpu_torch.models.build import build_pair
+    from cgs_tpu_torch.pipeline import MaskPipeline
+
+    critic, masker = build_pair(Config(critic_arch=arch).derive())
+    params = _random_params(critic, masker, 21)
+    gen = torch.Generator().manual_seed(22)
+    for k, t in params["critic"].items():
+        if k.endswith("layer_scale") or (".block.2." in k
+                                         and k.endswith("weight")):
+            t.uniform_(0.5, 1.5, generator=gen)
+    critic.eval()
+    masker.eval()
+    return MaskPipeline(critic, masker, params, batch_size=BATCH,
+                        device=dev)
 
 
 def _seeded_models(seeds, dropout: float, dtype=torch.float32):

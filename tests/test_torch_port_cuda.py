@@ -13,7 +13,8 @@ and the gradient of a fused upsample-into-concat join through a conv;
 the convolution epilogue (bias, activation, pool) bit-equal to PyTorch's
 own chain at every (act, pool) and width, and the pipeline through it
 bit-equal to the same modules run eagerly (chfak 1 and 5, ResNet-18,
-f32 and bf16).
+ConvNeXt-T, f32 and bf16); the ConvNeXt-T pair on the card against its
+CPU path.
 These are the card's checks of single kernels and single steps;
 `chip_smoke.py` runs whole paths, and `portbench/` measures speed.
 
@@ -358,21 +359,24 @@ def _route_pair(arch, chfak, dtype):
     ("paper", 1, 64, torch.float32), ("paper", 1, 64, torch.bfloat16),
     ("paper", 5, 64, torch.float32), ("paper", 5, 64, torch.bfloat16),
     ("resnet18", 1, 64, torch.float32), ("resnet18", 1, 64, torch.bfloat16),
+    ("convnext_t", 1, 64, torch.float32),
+    ("convnext_t", 1, 64, torch.bfloat16),
     ("paper", 5, BATCH, torch.float32)])
 def test_pipeline_epilogue_route_equals_the_eager_forward(
         dev, monkeypatch, arch, chfak, batch, dtype):
     """`run_device` through the fused epilogues against the same modules
     run eagerly (the route switched off), under deterministic cuDNN:
     preds, f32 masks, the u8 wire and its hard plane bit-equal; 12
-    epilogue launches a paper batch, 7 a ResNet-18 one (its decoder; its
-    encoder is no `Critic` and counts under neither route)."""
+    epilogue launches a paper batch, 7 a ResNet-18 or ConvNeXt-T one
+    (its decoder, the skipless 32x32 level's conv among them; its encoder
+    is no `Critic` and counts under neither route)."""
     import cgs_tpu_torch.models.epilogue as epilogue_mod
     from cgs_tpu_torch.pipeline import MaskPipeline
     from cgs_tpu_torch.utils.profiling import counts
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     critic, masker, params = _route_pair(arch, chfak, dtype)
-    if arch == "resnet18":
+    if arch != "paper":
         critic.eval()
     pipes = [MaskPipeline(critic, masker, params, batch_size=batch, **kw)
              for kw in ({}, {"wire": "u8", "hard_threshold": 0.5})]
@@ -479,6 +483,49 @@ def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
         ppred, pmask, _ = pipe.run_device(frames)
     torch.testing.assert_close(mask, pmask, atol=1e-5, rtol=0)
     torch.testing.assert_close(pred, ppred, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_convnext_pair_on_the_card_against_the_cpu(dev, monkeypatch):
+    """The ConvNeXt-T pair's eval forward on the card (the epilogue
+    route, the decoder's skipless 32x32 join through the join kernel with
+    no skip channels, cuBLAS's projections, TF32 off) against the same
+    pipeline on the CPU: scores and masks within 1e-4 of their largest
+    value (the card's and oneDNN's sums run in other orders; the f32
+    forward's own gap against float64 is ~1e-6 of it). One ingest, 5
+    joins and 7 epilogues a batch, every port kernel in the trace, no
+    concat kernel."""
+    from cgs_tpu_torch.core.config import Config
+    from cgs_tpu_torch.models.build import build_pair
+    from cgs_tpu_torch.models.interop import init_torch_default
+    from cgs_tpu_torch.pipeline import MaskPipeline
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    critic, masker = build_pair(Config(critic_arch="convnext_t"))
+    gen = torch.Generator().manual_seed(11)
+    for mod in (critic, masker):
+        init_torch_default(mod, gen)
+    with torch.no_grad():       # blocks that are no identity (gamma 1e-6)
+        for name, t in critic.named_parameters():
+            if name.endswith("layer_scale") or ".block.2." in name:
+                t.uniform_(0.5, 1.5, generator=gen)
+    params = {"critic": critic.state_dict(), "masker": masker.state_dict()}
+    frames = torch.randint(0, 256, (64, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(12))
+    want = MaskPipeline(critic, masker, params, batch_size=64,
+                        device="cpu").run_device(frames)
+    pipe = MaskPipeline(critic, masker, params, batch_size=64, device=dev)
+    _build.launches.clear()
+    got = pipe.run_device(frames.to(dev))
+    assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 5,
+                                     "bias_act_pool": 7}
+    for g, w in zip(got[:2], want[:2]):
+        w = w.double()
+        assert float((g.cpu().double() - w).abs().max()) \
+            <= 1e-4 * float(w.abs().max())
+    ops = _device_ops(lambda: pipe.run_device(frames.to(dev)))
+    assert any("upsample_cat" in k for k in ops) and not _concats(ops), ops
 
 
 def _staged_and_per_batch(pipe, frames):

@@ -10,7 +10,8 @@ mesh runs its eager loop, counted in `train.eager_steps`; the rule of
 dropout 0.5, over chunks of 1, 5 and 3 steps with a `masker_viz` on the
 training generators between chunks, bit-equal in the loss terms, every
 trained leaf, Adam's moments and step and both generators' states, in
-every `fuse` mode, frozen and live, float32 and bfloat16, and across a
+every `fuse` mode, frozen and live, float32 and bfloat16, for the
+paper, ResNet-18 and ConvNeXt-T critics, and across a
 recapture forced by `optimizer.load_state_dict`. This file imports neither JAX nor the JAX
 package.
 """
@@ -247,7 +248,8 @@ def test_out_ingest_on_the_card(dev):
 
 ARCHS = [("paper", 5, frozen, dtype) for frozen in (True, False)
          for dtype in (torch.float32, torch.bfloat16)] + [
-    ("resnet18", 1, frozen, torch.float32) for frozen in (True, False)]
+    (arch, 1, frozen, torch.float32) for arch in ("resnet18", "convnext_t")
+    for frozen in (True, False)]
 
 
 @pytest.mark.cuda
@@ -256,8 +258,10 @@ ARCHS = [("paper", 5, frozen, dtype) for frozen in (True, False)
 def test_graphed_chunks_equal_the_eager_loop(dev, fuse, arch, chfak,
                                              frozen, dtype):
     """The paper critic at chfak 5 in float32 and under bfloat16
-    autocast, and ResNet-18 (a live one moves its BatchNorm statistics
-    inside the graph), each frozen and live."""
+    autocast, ResNet-18 (a live one moves its BatchNorm statistics
+    inside the graph) and ConvNeXt-T (a live one draws its drop-path
+    inside the graph; a frozen one runs it in eval mode), each frozen and
+    live."""
     cfg = Config(chfak=chfak, dropout=0.5, shift=12, frozen=frozen,
                  critic_arch=arch, device="cuda").derive()
     eager = _train(dev, cfg, fuse, graphed=False, dtype=dtype)
