@@ -23,9 +23,11 @@ per forward and 5 per backward, and no `torch.cat`. Activations stay
 `torch.channels_last`, so the NHWC views the kernel takes are
 `permute`s with no copy, and the joins keep the JAX layout's channel
 order (skip first). On the card with grad mode off, each conv and its
-bias (with the head's LeakyReLU, and its sigmoid in f32) run as the conv
-without its bias and one `bias_act_pool` launch (`models/epilogue.py`):
-7 a forward, bit-equal to the modules' chain.
+bias run as the conv without its bias and one `bias_act_pool` launch
+(`models/epilogue.py`): 5 a forward, bit-equal to the modules' chain;
+the mask head runs as its first conv without its bias and one
+`mask_head` launch for the LeakyReLU, the last conv, its bias and the
+sigmoid, close to the chain's mask (its sums in another order).
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ class UnetDecoder(nn.Module):
         embeds = [None if e is None else e.to(self.compute_dtype)
                   for e in embeds]
         dec, head = self.dec_model, self.masker
-        fused = epilogue.fused(x, len(dec) + 2)
+        head_fused = epilogue.head_fused(x, head)
+        fused = epilogue.fused(x, len(dec) + (0 if head_fused else 2))
         conv = epilogue.conv_epilogue if fused else (lambda m, t: m(t))
         with compute_autocast(x.device.type, self.compute_dtype):
             out = conv(dec[4], embeds[4])
@@ -85,6 +88,8 @@ class UnetDecoder(nn.Module):
             out = conv(dec[2], up_cat(embeds[2], out))
             out = conv(dec[1], up_cat(embeds[1], out))
             out = conv(dec[0], up_cat(embeds[0], out))
+            if head_fused:
+                return epilogue.conv_mask_head(head, up_cat(x, out))
             if fused:
                 h = conv(head[0], up_cat(x, out), "leaky_relu",
                          slope=head[1].negative_slope)

@@ -17,6 +17,16 @@ it requires grad (the -frozen critic's passes in a masker step), so a
 training step and its captured graph stay as they are. It adds the
 forward's convolutions to the counter `model.epilogue_fused` or
 `model.epilogue_eager` (`utils/profiling.py:counts`).
+
+The decoder's mask head goes further where `head_fused` says so, on the
+same observations and the head's type and width: its first convolution
+through cuDNN without its bias, then one `ops.kernels.mask_head` launch
+(`csrc/mask_head.cu`) for the LeakyReLU, the 16 -> 1 convolution, its
+bias and the sigmoid, where the epilogue route takes three passes and
+cuDNN's grouped direct kernel. Its sums run in another order than
+cuDNN's, so the mask is close to the chain's, not bit-equal. Such a
+forward counts one `model.mask_heads`, and its head's two convolutions
+under neither `model.epilogue_*` counter.
 """
 
 from __future__ import annotations
@@ -25,7 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cgs_tpu_torch.ops.kernels import bias_act_pool
+from cgs_tpu_torch.ops.kernels import (
+    bias_act_pool, mask_head, mask_head_takes,
+)
 from cgs_tpu_torch.utils.profiling import counts
 
 
@@ -43,6 +55,15 @@ def fused(x: torch.Tensor, convs: int) -> bool:
     return take
 
 
+def head_fused(x: torch.Tensor, head: nn.Sequential) -> bool:
+    """Whether a decoder forward on x runs its mask head `head`
+    (conv, LeakyReLU, conv, sigmoid) through `mask_head`; counts it."""
+    take = (on_card(x) and not torch.is_grad_enabled()
+            and mask_head_takes(x.dtype, head[0].out_channels))
+    counts["model.mask_heads"] += take
+    return take
+
+
 def conv_epilogue(conv: nn.Conv2d, x: torch.Tensor, act: str = "none",
                   pool: int = 1, slope: float = 0.01,
                   out_dtype=None) -> torch.Tensor:
@@ -55,3 +76,16 @@ def conv_epilogue(conv: nn.Conv2d, x: torch.Tensor, act: str = "none",
     out = bias_act_pool(y.permute(0, 2, 3, 1), conv.bias.to(y.dtype), act,
                         pool, slope, out_dtype)
     return out.permute(0, 3, 1, 2)
+
+
+def conv_mask_head(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """`head(x)` as the mask, (N, 1, H, W) float32: the first convolution
+    without its bias, then one `mask_head` for the rest; the parameters
+    in the convolution's type, as autocast has them."""
+    conv0, act, conv2 = head[0], head[1], head[2]
+    y = F.conv2d(x, conv0.weight, None, conv0.stride, conv0.padding,
+                 conv0.dilation, conv0.groups)
+    mask = mask_head(y.permute(0, 2, 3, 1), conv0.bias.to(y.dtype),
+                     conv2.weight.to(y.dtype), conv2.bias.to(y.dtype),
+                     act.negative_slope)
+    return mask.unsqueeze(1)

@@ -47,6 +47,8 @@ SIGNATURES = {
                    "cgs_merge_pair_bwd": (_P,) * 7 + (_I64,) * 6 + (_P,)},
     "conv_epilogue": {"cgs_bias_act_pool": (_P,) * 3 + (_I64,) * 6
                       + (_F32, _I64, _I64, _P)},
+    "mask_head": {"cgs_mask_head": (_P,) * 3 + (_I64,) * 3 + (_P, _P)
+                  + (_I64,) * 4 + (_F32, _I64, _P)},
 }
 
 # one launch counter per C entry point, named without the `cgs_` prefix

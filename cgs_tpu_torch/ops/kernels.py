@@ -1,17 +1,19 @@
 """The uint8 ingest (gather by index, roll, normalise), the fused
 counterfactual merges and their gradient, the fused threshold+IoU
-count and the convolution epilogue (bias, activation, 2x2 max-pool):
-CUDA kernel wrappers and their plain PyTorch versions.
+count, the convolution epilogue (bias, activation, 2x2 max-pool) and
+the mask head after its first convolution: CUDA kernel wrappers and
+their plain PyTorch versions.
 
 Ports of `cgs_tpu/ops/pallas_kernels.py:normalize_u8` (with the
 gather, concatenation and roll a JAX train step fuses around it),
 `:merge_pair`, `:merge_pair_bwd` and `:threshold_iou`; the epilogue
-replaces no Pallas kernel (XLA fused it into the convolution on the
-TPU). On a CUDA tensor each wrapper launches its kernel
-(`csrc/normalize_u8.cu`, `csrc/merge_pair.cu`, `csrc/threshold_iou.cu`,
-`csrc/conv_epilogue.cu`) or raises; on a CPU tensor it runs the plain
-version, which is also the oracle the kernel is held against on the
-card. There is no fallback from the kernel to the plain version.
+and the mask head replace no Pallas kernel (XLA fused them into the
+convolutions on the TPU). On a CUDA tensor each wrapper launches its
+kernel (`csrc/normalize_u8.cu`, `csrc/merge_pair.cu`,
+`csrc/threshold_iou.cu`, `csrc/conv_epilogue.cu`, `csrc/mask_head.cu`)
+or raises; on a CPU tensor it runs the plain version, which is also the
+oracle the kernel is held against on the card. There is no fallback
+from the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -560,4 +562,84 @@ def bias_act_pool(y: torch.Tensor, bias: torch.Tensor, act: str = "none",
             _build.stream_ptr(y.device))
     _build.check(err, "bias_act_pool")
     _build.launches["bias_act_pool"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------
+# the mask head after its first convolution: LeakyReLU, the C -> 1 3x3
+# convolution, its bias and the sigmoid
+# ---------------------------------------------------------------------
+
+MASK_HEAD_MAX_C = 64    # csrc/mask_head.cu: kMaxC
+
+
+def mask_head_takes(dtype: torch.dtype, c: int) -> bool:
+    """Whether `mask_head` takes a first convolution's output of this
+    type and channel count."""
+    return dtype in EPILOGUE_DTYPES and 1 <= c <= MASK_HEAD_MAX_C
+
+
+def mask_head_plain(y0: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor,
+                    b2: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
+    """The eager chain the kernel replaces, on NHWC y0: the LeakyReLU
+    epilogue, the convolution of its output without the bias, then the
+    sigmoid epilogue to float32; (N, H, W). On float64 tensors, the head
+    in float64 throughout: the yardstick the kernel is held to."""
+    h = bias_act_pool_plain(y0, b0, "leaky_relu", 1, slope)
+    z = F.conv2d(h.permute(0, 3, 1, 2), w2, None, 1, 1)
+    mask = bias_act_pool_plain(z.permute(0, 2, 3, 1), b2, "sigmoid", 1,
+                               out_dtype=torch.promote_types(
+                                   y0.dtype, torch.float32))
+    return mask.view(mask.shape[:3])
+
+
+def _check_mask_head(y0, b0, w2, b2) -> None:
+    name = "mask_head"
+    if y0.dim() != 4 or not mask_head_takes(y0.dtype, y0.shape[3]):
+        raise ValueError(f"{name}: expected an f32 or bf16 (N, H, W, C) "
+                         f"tensor with 1 <= C <= {MASK_HEAD_MAX_C}, got "
+                         f"{y0.dtype} {tuple(y0.shape)}")
+    c = y0.shape[3]
+    for t, shape, what in ((b0, (c,), "b0"), (w2, (1, c, 3, 3), "w2"),
+                           (b2, (1,), "b2")):
+        if (tuple(t.shape) != shape or t.dtype != y0.dtype
+                or t.device != y0.device):
+            raise ValueError(f"{name}: {what} must be {shape} {y0.dtype} "
+                             f"on {y0.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def mask_head(y0: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
+    """The mask head after its first convolution: y0 (N, H, W, C), the
+    NHWC view of that convolution's channels_last output made without
+    its bias, f32 or bf16, C <= MASK_HEAD_MAX_C; b0 (C,) its bias, w2
+    (1, C, 3, 3) and b2 (1,) the last convolution's (padding 1), all in
+    y0's type -> sigmoid(conv3x3(leaky_relu(y0 + b0), w2) + b2), (N, H,
+    W) float32, which is the (N, 1, H, W) mask. One launch on the card,
+    reading y0 once. The products are summed in another order than
+    cuDNN's, so the mask is close to `mask_head_plain`'s, not bit-equal;
+    the rounding to y0's type is the chain's."""
+    _check_mask_head(y0, b0, w2, b2)
+    if y0.device.type == "cpu":
+        return mask_head_plain(y0, b0, w2, b2, slope)
+    if y0.device.type != "cuda" or not y0.is_contiguous():
+        raise ValueError("mask_head: expected a contiguous NHWC CUDA "
+                         "tensor (a convolution output stored "
+                         f"channels_last), got {y0.device} strides "
+                         f"{y0.stride()}")
+    for t in (b0, b2):
+        _build.require_cuda_tensor(t, "mask_head")
+    n, h, w, c = y0.shape
+    out = torch.empty((n, h, w), dtype=torch.float32, device=y0.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.kernel("mask_head")
+    with torch.cuda.device(y0.device):   # launch on the tensor's card
+        err = lib.cgs_mask_head(
+            y0.data_ptr(), b0.data_ptr(), w2.data_ptr(), *w2.stride()[1:],
+            b2.data_ptr(), out.data_ptr(), n, h, w, c, float(slope),
+            int(y0.dtype == torch.bfloat16), _build.stream_ptr(y0.device))
+    _build.check(err, "mask_head")
+    _build.launches["mask_head"] += 1
     return out

@@ -24,11 +24,13 @@ context. `counts` holds the port's counters (`pipeline.rows`,
 `model.critic_frames`, `model.masker_frames`, `model.bn_running` /
 `model.bn_batch`, the BatchNorm layers applied on running and on batch
 statistics, `model.layer_norms` and `model.dw_convs`, a ConvNeXt
-critic's LayerNorm and depthwise layers, and `model.epilogue_fused` / `model.epilogue_eager`, the
-convolutions of `Critic` and `UnetDecoder` forwards whose bias,
-activation and pool ran as one `bias_act_pool` launch or as PyTorch's
-own ops, `models/epilogue.py`), bumped where the work is issued and
-never reset.
+critic's LayerNorm and depthwise layers, `model.epilogue_fused` /
+`model.epilogue_eager`, the convolutions of `Critic` and `UnetDecoder`
+forwards whose bias, activation and pool ran as one `bias_act_pool`
+launch or as PyTorch's own ops, and `model.mask_heads`, the decoder
+forwards whose mask head ran as one `mask_head` launch,
+`models/epilogue.py`), bumped where the work is issued and never
+reset.
 """
 
 from __future__ import annotations

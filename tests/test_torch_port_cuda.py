@@ -12,9 +12,12 @@ step's launches at R = 1, 3 and 10, the dense CRF on kernel-path masks,
 and the gradient of a fused upsample-into-concat join through a conv;
 the convolution epilogue (bias, activation, pool) bit-equal to PyTorch's
 own chain at every (act, pool) and width, and the pipeline through it
-bit-equal to the same modules run eagerly (chfak 1 and 5, ResNet-18,
-ConvNeXt-T, f32 and bf16); the ConvNeXt-T pair on the card against its
-CPU path.
+against the same modules run eagerly (chfak 1 and 5, ResNet-18,
+ConvNeXt-T, f32 and bf16: preds and the rest bit-equal, the mask of the
+one-launch mask head within twice the eager chain's own gap to a
+float64 evaluation); the mask head kernel against its plain version and
+float64 at the serve batch and ragged shapes; the ConvNeXt-T pair on the
+card against its CPU path.
 These are the card's checks of single kernels and single steps;
 `chip_smoke.py` runs whole paths, and `portbench/` measures speed.
 
@@ -36,9 +39,9 @@ import torch
 from cgs_tpu_torch.ops import _build
 from cgs_tpu_torch.ops.kernels import (
     ACTS, Segment, bias_act_pool, bias_act_pool_plain, gather_normalize_u8,
-    gather_normalize_u8_plain, merge_pair, merge_pair_bwd,
-    merge_pair_bwd_plain, merge_pair_plain, normalize_u8, normalize_u8_plain,
-    threshold_iou, threshold_iou_plain,
+    gather_normalize_u8_plain, mask_head, mask_head_plain, merge_pair,
+    merge_pair_bwd, merge_pair_bwd_plain, merge_pair_plain, normalize_u8,
+    normalize_u8_plain, threshold_iou, threshold_iou_plain,
 )
 from cgs_tpu_torch.ops.upsample import (
     up_cat, upcat_bwd, upcat_bwd_plain, upcat_fwd, upcat_plain, upsample2x,
@@ -91,7 +94,8 @@ PORT_KERNELS = (("merge_pair_bwd", "merge_pair_bwd"),
                 ("upsample_cat_fwd", "upsample2x"),
                 ("ingest_", "normalize_u8"),
                 ("threshold_iou", "threshold_iou"),
-                ("bias_act_pool", "bias_act_pool"))
+                ("bias_act_pool", "bias_act_pool"),
+                ("mask_head", "mask_head"))
 
 
 def _device_ops(fn):
@@ -341,6 +345,115 @@ def test_bias_act_pool_refuses_a_layout_it_would_copy(dev):
                       torch.zeros(16), "relu", 2)
 
 
+def _head_inputs(dev, n, h, w, c, dtype, seed=0):
+    """The mask head's inputs: y0 (N, H, W, C) as `masker.0` leaves it
+    without its bias, b0 with both signs (so that a border padded with
+    leaky(b0) in place of 0 shows), w2 (1, C, 3, 3) at the default
+    init's scale, b2 (1,), all of `dtype`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    y0 = torch.randn((n, h, w, c), device=dev, generator=g)
+    b0 = torch.rand(c, device=dev, generator=g) + 0.5
+    b0[1::2] *= -1
+    bound = 1 / math.sqrt(9 * c)
+    w2 = (torch.rand((1, c, 3, 3), device=dev, generator=g) * 2 - 1) * bound
+    b2 = (torch.rand(1, device=dev, generator=g) * 2 - 1) * bound
+    return tuple(t.to(dtype) for t in (y0, b0, w2, b2))
+
+
+def _gap64(mask, args):
+    """The largest distance of `mask` from the head evaluated in float64
+    on the same inputs (`mask_head_plain` on float64 tensors)."""
+    exact = mask_head_plain(*(a.double() if torch.is_tensor(a) else a
+                              for a in args))
+    return float((mask.double() - exact).abs().max())
+
+
+def _recording(head, calls):
+    """`head` (`mask_head` or `mask_head_plain`) that appends each call's
+    (inputs, a copy of its mask) to `calls`: an ensemble adds its
+    members' masks into the first one in place."""
+    def run(*args):
+        mask = head(*args)
+        calls.append((args, mask.clone()))
+        return mask
+    return run
+
+
+def _heads_within_twice_the_plain_gap(kernel, plain):
+    """Each kernel-path head call's mask within twice its plain-path
+    twin's gap to float64, each gap taken on its own path's inputs."""
+    assert len(kernel) == len(plain) > 0
+    for (ka, km), (pa, pm) in zip(kernel, plain):
+        gap, plain_gap = _gap64(km, ka), _gap64(pm, pa)
+        assert gap <= 2 * plain_gap, (gap, plain_gap)
+
+
+def _head_gaps(args):
+    """(the kernel's, the eager chain's) largest gap to float64; the
+    chain is `mask_head_plain` on the card: the LeakyReLU epilogue,
+    cuDNN's convolution, the sigmoid epilogue."""
+    _build.launches.clear()
+    got = mask_head(*args)
+    assert dict(_build.launches) == {"mask_head": 1}
+    assert got.dtype == torch.float32 and got.shape == args[0].shape[:3]
+    chain = mask_head_plain(*args)
+    return _gap64(got, args), _gap64(chain, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mask_head_within_twice_the_chains_gap_to_float64(dev, monkeypatch,
+                                                         dtype):
+    """At the serve batch and at 1 and 7 frames of the head's shape
+    (64 x 64 x 16): the kernel's worst gap to float64 is at most twice
+    cuDNN's chain's own (TF32 off, as -process runs); its products are
+    summed in another order, so bit-equality is not asked. One launch,
+    one device kernel a call."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    for n in (BATCH, 1, 7):
+        args = _head_inputs(dev, n, 64, 64, 16, dtype, seed=n)
+        ours, chain = _head_gaps(args)
+        assert ours <= 2 * chain, (n, ours, chain)
+        del args
+    args = _head_inputs(dev, 7, 64, 64, 16, dtype)
+    ops = _device_ops(lambda: mask_head(*args))
+    assert sum(ops.values()) == 1 and "mask_head" in next(iter(ops)), ops
+
+
+# (N, H, W, C) off the main path's shape: ragged strips and columns, more
+# than one strip of columns, C below, above and not a multiple of 4 or 8,
+# and the main path's width with a ragged last strip
+RAGGED_HEADS = [(256, 5, 7, 3), (8, 64, 130, 16), (32, 9, 64, 20),
+                (8, 64, 64, 64), (64, 64, 64, 1), (16, 13, 70, 8),
+                (16, 13, 64, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mask_head_ragged_shapes_and_layouts(dev, monkeypatch, dtype):
+    """Widths from 1 to 64, ragged frames, y0 off its 16-byte boundary
+    (the element-by-element loads) and w2 channels_last as the pipeline
+    keeps it: within twice the chain's gap to float64 (TF32 off)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    for n, h, w, c in RAGGED_HEADS:
+        y0, b0, w2, b2 = _head_inputs(dev, n, h, w, c, dtype, seed=c)
+        for y, w2_ in ((y0, w2), (_unaligned(y0), w2),
+                       (y0, w2.contiguous(memory_format=torch.channels_last))):
+            ours, chain = _head_gaps((y, b0, w2_, b2))
+            key = (n, h, w, c, y.data_ptr() % 16, w2_.stride())
+            assert ours <= 2 * chain, (key, ours, chain)
+
+
+@pytest.mark.cuda
+def test_mask_head_refuses_a_layout_it_would_copy(dev):
+    y0, b0, w2, b2 = _head_inputs(dev, 2, 8, 8, 16, torch.float32)
+    nchw = y0.permute(0, 3, 1, 2).contiguous()       # NCHW-dense
+    with pytest.raises(ValueError, match="channels_last"):
+        mask_head(nchw.permute(0, 2, 3, 1), b0, w2, b2)
+    with pytest.raises(ValueError, match="b0"):
+        mask_head(y0, b0.cpu(), w2, b2)
+
+
 def _route_pair(arch, chfak, dtype):
     from cgs_tpu_torch.core.config import Config
     from cgs_tpu_torch.models.build import build_pair
@@ -364,17 +477,28 @@ def _route_pair(arch, chfak, dtype):
     ("paper", 5, BATCH, torch.float32)])
 def test_pipeline_epilogue_route_equals_the_eager_forward(
         dev, monkeypatch, arch, chfak, batch, dtype):
-    """`run_device` through the fused epilogues against the same modules
-    run eagerly (the route switched off), under deterministic cuDNN:
-    preds, f32 masks, the u8 wire and its hard plane bit-equal; 12
-    epilogue launches a paper batch, 7 a ResNet-18 or ConvNeXt-T one
-    (its decoder, the skipless 32x32 level's conv among them; its encoder
-    is no `Critic` and counts under neither route)."""
+    """`run_device` through the fused epilogues and the one-launch mask
+    head against the same modules run eagerly (the route switched off),
+    under deterministic cuDNN: preds and the critic's embeds bit-equal;
+    the f32 mask within twice the eager mask's own gap to the head
+    evaluated in float64 on the head's inputs; the u8 wire and the hard
+    plane apart only where that float64 mask lies within the larger of
+    the two gaps of a level's edge or of the threshold (in f32, 2e-6,
+    the limit of `hard_gap` in `portbench/limits/`, which both gaps must
+    stay under).
+    A batch: 10 epilogue launches in a paper pair, 5 in a ResNet-18 or
+    ConvNeXt-T one (its decoder, the skipless 32x32 level's conv among
+    them; its encoder is no `Critic` and counts under neither route), and
+    one mask head."""
     import cgs_tpu_torch.models.epilogue as epilogue_mod
+    from cgs_tpu_torch.models.build import critic_forward
     from cgs_tpu_torch.pipeline import MaskPipeline
     from cgs_tpu_torch.utils.profiling import counts
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    # TF32 off, as -process runs (core/device.py:train_switches): the
+    # eager mask is the float64 bound's yardstick
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     critic, masker, params = _route_pair(arch, chfak, dtype)
     if arch != "paper":
         critic.eval()
@@ -383,20 +507,59 @@ def test_pipeline_epilogue_route_equals_the_eager_forward(
     frames = torch.randint(0, 256, (batch, 64, 64, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(8)
                            ).to(dev)
-    fused = 12 if arch == "paper" else 7
+    fused = 10 if arch == "paper" else 5
+    heads = []
+
+    def spy(*args):          # the head's inputs, for float64
+        heads.append(args)
+        return mask_head(*args)
+
     _build.launches.clear()
-    before = counts["model.epilogue_fused"], counts["model.epilogue_eager"]
-    got = [p.run_device(frames) for p in pipes]
+    names = ("model.epilogue_fused", "model.epilogue_eager",
+             "model.mask_heads")
+    before = [counts[k] for k in names]
+    with mock.patch.object(epilogue_mod, "mask_head", spy):
+        got = [p.run_device(frames) for p in pipes]
     assert _build.launches["bias_act_pool"] == 2 * fused
-    assert (counts["model.epilogue_fused"] - before[0],
-            counts["model.epilogue_eager"] - before[1]) == (2 * fused, 0)
+    assert _build.launches["mask_head"] == 2
+    assert [counts[k] - b for k, b in zip(names, before)] == [
+        2 * fused, 0, 2]
     with mock.patch.object(epilogue_mod, "on_card", lambda t: False):
         want = [p.run_device(frames) for p in pipes]
+    # the critic's embeds, which the head's route does not touch
+    member = pipes[0]._members[0]["critic"]
+    x = normalize_u8(frames, pipes[0]._ingest_dtype).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        embeds = critic_forward(member, x, collect=True)[1]
+        with mock.patch.object(epilogue_mod, "on_card", lambda t: False):
+            embeds_eager = critic_forward(member, x, collect=True)[1]
+    for a, b in zip(embeds, embeds_eager, strict=True):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a, b)
+    y0, b0, w2, b2, slope = heads[0]
+    exact = mask_head_plain(*(a.double() for a in (y0, b0, w2, b2)),
+                            slope)[..., None]
     for g, w in zip(got, want):
-        for a, b in zip(g, w):
-            assert (a is None) == (b is None)
-            if a is not None:
-                assert a.dtype == b.dtype and torch.equal(a, b)
+        assert len(g) == len(w)
+        assert g[0].dtype == w[0].dtype and torch.equal(g[0], w[0])
+        assert g[2] is None and w[2] is None
+    mask, mask_eager = got[0][1], want[0][1]
+    assert mask.dtype == torch.float32 and mask.shape == exact.shape
+    gap = float((mask.double() - exact).abs().max())
+    gap_eager = float((mask_eager.double() - exact).abs().max())
+    assert gap <= 2 * gap_eager
+    tol = max(gap, gap_eager)
+    if dtype == torch.float32:
+        assert tol <= 2e-6
+        tol = 2e-6
+    # the u8 wire (floor(255 m)) and the hard plane (m >= 0.5) of the
+    # same masks: apart only next to an edge
+    levels = exact.clamp(0, 1) * 255
+    level_edge = (levels - levels.round()).abs() <= 255 * tol
+    for a, b, edge in ((got[1][1], want[1][1], level_edge),
+                       (got[1][3], want[1][3], (exact - 0.5).abs() <= tol)):
+        assert a.dtype == b.dtype == torch.uint8
+        assert bool((edge | (a == b)).all())
 
 
 @pytest.mark.cuda
@@ -447,9 +610,12 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
 def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
                                                 batch, dtype):
     """One batch of `run_device` at the reference's width and at the
-    paper's at the serve batch: 1 ingest, 5 join and 12 epilogue
-    launches, masks in (0, 1), no concat kernel, and the plain path's
-    outputs under deterministic cuDNN."""
+    paper's at the serve batch: 1 ingest, 5 join, 10 epilogue and 1 mask
+    head launches, masks in (0, 1), no concat kernel, and the plain
+    path's preds under deterministic cuDNN; the mask head's kernel sums
+    in another order than cuDNN, so its mask is held to twice the plain
+    path's (`mask_head_plain`'s) worst gap to the head evaluated in
+    float64 on each path's own inputs."""
     import cgs_tpu_torch.models.epilogue as epilogue_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
@@ -467,10 +633,13 @@ def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
     pipe = MaskPipeline(critic, masker, params, batch_size=batch)
     frames = torch.randint(0, 256, (batch, 64, 64, 3), dtype=torch.uint8,
                            device=dev)
+    heads, plain_heads = [], []
     _build.launches.clear()
-    pred, mask, _ = pipe.run_device(frames)
+    with mock.patch.object(epilogue_mod, "mask_head",
+                           _recording(mask_head, heads)):
+        pred, mask, _ = pipe.run_device(frames)
     assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 5,
-                                     "bias_act_pool": 12}
+                                     "bias_act_pool": 10, "mask_head": 1}
     assert mask.shape == (batch, 64, 64, 1) and pred.shape == (batch,)
     assert bool(((mask > 0) & (mask < 1)).all())
     ops = _device_ops(lambda: pipe.run_device(frames))
@@ -479,9 +648,13 @@ def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
                            normalize_u8_plain), \
             mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain), \
             mock.patch.object(epilogue_mod, "bias_act_pool",
-                              bias_act_pool_plain):
+                              bias_act_pool_plain), \
+            mock.patch.object(epilogue_mod, "mask_head",
+                              _recording(mask_head_plain, plain_heads)):
         ppred, pmask, _ = pipe.run_device(frames)
-    torch.testing.assert_close(mask, pmask, atol=1e-5, rtol=0)
+    assert torch.equal(mask[..., 0], heads[0][1])
+    assert torch.equal(pmask[..., 0], plain_heads[0][1])
+    _heads_within_twice_the_plain_gap(heads, plain_heads)
     torch.testing.assert_close(pred, ppred, atol=1e-5, rtol=0)
 
 
@@ -493,7 +666,7 @@ def test_convnext_pair_on_the_card_against_the_cpu(dev, monkeypatch):
     pipeline on the CPU: scores and masks within 1e-4 of their largest
     value (the card's and oneDNN's sums run in other orders; the f32
     forward's own gap against float64 is ~1e-6 of it). One ingest, 5
-    joins and 7 epilogues a batch, every port kernel in the trace, no
+    joins, 5 epilogues and 1 mask head a batch, every port kernel in the trace, no
     concat kernel."""
     from cgs_tpu_torch.core.config import Config
     from cgs_tpu_torch.models.build import build_pair
@@ -519,7 +692,7 @@ def test_convnext_pair_on_the_card_against_the_cpu(dev, monkeypatch):
     _build.launches.clear()
     got = pipe.run_device(frames.to(dev))
     assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 5,
-                                     "bias_act_pool": 7}
+                                     "bias_act_pool": 5, "mask_head": 1}
     for g, w in zip(got[:2], want[:2]):
         w = w.double()
         assert float((g.cpu().double() - w).abs().max()) \
@@ -601,9 +774,12 @@ def test_pipeline_staging_ring_on_the_card(dev, kw):
             assert np.array_equal(a, b)
 
 
-def _ensemble_masks(dev, salience=False):
+def _ensemble_masks(dev, salience=False, heads=None):
     """(kernel-path outputs, plain-path outputs, launches per batch) of a
-    3-member chfak-1 ensemble on 40 frames at batch 32 (2 batches)."""
+    3-member chfak-1 ensemble on 40 frames at batch 32 (2 batches). With
+    `heads` = ([], []) the plain path runs `mask_head_plain` too, and
+    each path's mask head calls are recorded there; else both paths run
+    the head's kernel."""
     import cgs_tpu_torch.models.epilogue as epilogue_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
@@ -622,28 +798,57 @@ def _ensemble_masks(dev, salience=False):
                         salience=salience, ensemble=True)
     frames = torch.randint(0, 256, (40, 64, 64, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(4))
+    kernel_head, plain_head = mask_head, mask_head
+    if heads is not None:
+        kernel_head = _recording(mask_head, heads[0])
+        plain_head = _recording(mask_head_plain, heads[1])
     _build.launches.clear()
-    out = pipe.run(frames.numpy())
+    with mock.patch.object(epilogue_mod, "mask_head", kernel_head):
+        out = pipe.run(frames.numpy())
     per_batch = {k: v / 2 for k, v in _build.launches.items()}
     with mock.patch.object(pipeline_mod, "normalize_u8",
                            normalize_u8_plain), \
             mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain), \
             mock.patch.object(epilogue_mod, "bias_act_pool",
-                              bias_act_pool_plain):
+                              bias_act_pool_plain), \
+            mock.patch.object(epilogue_mod, "mask_head", plain_head):
         plain = pipe.run(frames.numpy())
     return out, plain, per_batch, frames.numpy()
 
 
+def _ensemble_mean(calls, members, n):
+    """The masks an ensemble pipeline makes from its recorded head calls:
+    each batch's members summed in order in f32, divided by their count,
+    the batches joined and cut to n rows, NHWC."""
+    means = []
+    for lo in range(0, len(calls), members):
+        mean = calls[lo][1].clone()
+        for _, mask in calls[lo + 1:lo + members]:
+            mean.add_(mask)
+        means.append(mean.div_(float(members)))
+    return torch.cat(means)[:n, ..., None].cpu().numpy()
+
+
 @pytest.mark.cuda
 def test_ensemble_kernel_path_equals_plain_path(dev):
-    out, plain, per_batch, _ = _ensemble_masks(dev, salience=True)
+    """Preds and saliency bit-equal to the plain path's; each member's
+    mask head within twice `mask_head_plain`'s gap to float64, and the
+    masks the mean of the members' heads on either path."""
+    import numpy as np
+
+    heads = ([], [])
+    out, plain, per_batch, _ = _ensemble_masks(dev, salience=True,
+                                               heads=heads)
     # the saliency's critic records its input gradient: each member's
-    # decoder alone takes the fused epilogues
+    # decoder alone takes the fused epilogues and the mask head
     assert per_batch == {"normalize_u8": 1, "upsample2x": 15,
-                         "bias_act_pool": 21}
+                         "bias_act_pool": 15, "mask_head": 3}
     assert (out.preds == plain.preds).all()
-    assert (out.masks == plain.masks).all()
     assert (out.saliency == plain.saliency).all()
+    assert len(heads[0]) == 6
+    _heads_within_twice_the_plain_gap(*heads)
+    for got, calls in ((out.masks, heads[0]), (plain.masks, heads[1])):
+        assert np.array_equal(got, _ensemble_mean(calls, 3, len(got)))
 
 
 @pytest.mark.cuda

@@ -6,9 +6,10 @@ activation, with and without the pool, in f32 and bf16; the wrapper
 refuses what the kernel does not take. The route: a `Critic` /
 `UnetDecoder` forward takes the fused epilogues only on the card with
 grad mode off (the card faked here, so the CPU runs the plain version
-through the route): 12 fused convolutions a chfak-1 forward, 7 a
-ResNet-18 decoder forward, the same outputs as the eager chain in f32;
-with grad on, or in a masker step, none. The kernel itself is held
+through the route): 10 fused convolutions a chfak-1 forward, 5 a
+ResNet-18 decoder forward (the mask head's two take `mask_head`,
+`tests/test_torch_port_mask_head.py`), the same outputs as the eager
+chain in f32; with grad on, or in a masker step, none. The kernel itself is held
 against the plain version on the card (`tests/test_torch_port_cuda.py`).
 This file imports neither JAX nor the JAX package.
 """
@@ -122,7 +123,7 @@ def test_route_only_on_the_card_with_grad_off(one_torch_thread):  # noqa: F811
     with mock.patch.object(epilogue, "on_card", lambda t: True):
         with torch.no_grad():
             _, n = _counted(lambda: _forward(critic, masker, x))
-        assert n == (12, 0)             # critic 5, decoder 7
+        assert n == (10, 0)             # critic 5, decoder 5 and a head
         for frozen in (False, True):   # grad on: eager, frozen or not
             critic.requires_grad_(not frozen)
             masker.requires_grad_(not frozen)
@@ -158,7 +159,7 @@ def test_resnet18_routes_its_decoder_alone(one_torch_thread):  # noqa: F811
     with torch.no_grad(), \
             mock.patch.object(epilogue, "on_card", lambda t: True):
         (_, _, z), n = _counted(lambda: _forward(critic, masker, x))
-    assert n == (7, 0)
+    assert n == (5, 0)
     assert z.shape == (2, 1, 64, 64)
 
 
