@@ -1,7 +1,7 @@
 """Configuration system (PyTorch port; a copy of `cgs_tpu/core/config.py`
 with two extra flags, `--device {cuda,cpu}`, default `cuda`, and
-`--critic {paper,resnet18,convnext_t}`, default `paper`: the critic and
-masker pair of `models/build.py`).
+`--critic {paper,resnet18,convnext_t,swin_v2_t}`, default `paper`: the
+critic and masker pair of `models/build.py`).
 
 The reference drives everything through a single argparse parser
 (reference `main.py:1461-1545`). We keep a typed dataclass as the source
@@ -37,7 +37,7 @@ DEAD_FLAGS = (
 )
 
 # --critic: the critic and masker pairs of `models/build.py:build_pair`
-CRITICS = ("paper", "resnet18", "convnext_t")
+CRITICS = ("paper", "resnet18", "convnext_t", "swin_v2_t")
 
 
 @dataclass
@@ -173,9 +173,9 @@ class Config:
                                  # runs; cuda raises when no card is
                                  # present (never a silent cpu run)
     critic_arch: str = "paper"   # port-only (--critic): the paper's
-                                 # critic, or ResNet-18 or ConvNeXt-T
-                                 # with the paper's masker on its
-                                 # pyramid (models/build.py)
+                                 # critic, or ResNet-18, ConvNeXt-T or
+                                 # Swin V2-T with the paper's masker
+                                 # on its pyramid (models/build.py)
 
     def derive(self) -> "Config":
         """Reproduce the reference's post-parse derivations
@@ -220,9 +220,10 @@ class Config:
             + self._arch_suffix()
 
     def _arch_suffix(self) -> str:
-        """'-critic=<arch>' off the paper critic, so that a ResNet-18 or
-        ConvNeXt-T run's checkpoints never load into another pair; ''
-        for the paper's, whose names stay the reference's."""
+        """'-critic=<arch>' off the paper critic, so that a ResNet-18,
+        ConvNeXt-T or Swin V2-T run's checkpoints never load into
+        another pair; '' for the paper's, whose names stay the
+        reference's."""
         if self.critic_arch == "paper":
             return ""
         return f"-critic={self.critic_arch}"

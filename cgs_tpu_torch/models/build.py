@@ -17,6 +17,11 @@
               none), so that level upsamples alone (edims 0, 96, 192,
               384; ddims 96, 96, 192, 384); the 768 @ 2x2 neck; mask
               head 99 -> 16 -> 1 @ 64x64
+    swin_v2_t `models/swin.py:SwinV2Critic` (Swin Transformer V2-T,
+              arXiv:2111.09883, swinv2_tiny_patch4_window8_256 under
+              torchvision swin_v2_t's keys, 29 LayerNorms and 12 window
+              attentions) with the decoder on its four stages, whose
+              pyramid is ConvNeXt-T's: the same decoder widths
 
 `-train`, `-eval`, `-process`, the server and the benchmark build the
 pair here, so all of them run the same architecture.
@@ -29,8 +34,8 @@ counters (`utils/profiling.py:counts`) the frames it ran
 frame) and, for a critic with BatchNorm, its layers applied on running
 statistics (`model.bn_running`) and on batch statistics
 (`model.bn_batch`), and, for a critic that lists them, its LayerNorm
-and depthwise layers (`model.layer_norms`, `model.dw_convs`). They add
-no device operation.
+and depthwise layers (`model.layer_norms`, `model.dw_convs`) and its
+window attentions (`model.window_attns`). They add no device operation.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from cgs_tpu_torch.core.config import CRITICS
 from cgs_tpu_torch.models.convnext import ConvNeXtCritic
 from cgs_tpu_torch.models.critic import Critic
 from cgs_tpu_torch.models.decoder import UnetDecoder
+from cgs_tpu_torch.models.swin import SwinV2Critic
 from cgs_tpu_torch.models.zoo import ResNetCritic
 from cgs_tpu_torch.utils.profiling import counts, span
 
@@ -55,8 +61,9 @@ CONVNEXT_T_NECK = 768
 
 def build_pair(cfg, compute_dtype: torch.dtype = torch.float32):
     """(critic, masker) templates of `cfg.critic_arch` at
-    `compute_dtype`. resnet18 and convnext_t have fixed widths: --chfak
-    other than 1, or --neck other than its default, is an error."""
+    `compute_dtype`. resnet18, convnext_t and swin_v2_t have fixed
+    widths: --chfak other than 1, or --neck other than its default, is
+    an error."""
     arch = cfg.critic_arch
     if arch == "paper":
         return (Critic(bottleneck=cfg.neck, chfak=cfg.chfak,
@@ -75,7 +82,9 @@ def build_pair(cfg, compute_dtype: torch.dtype = torch.float32):
                 UnetDecoder(edims=RESNET18_TAPS, ddims=RESNET18_TAPS,
                             bottleneck=RESNET18_NECK, chfak=1,
                             compute_dtype=compute_dtype))
-    return (ConvNeXtCritic(compute_dtype=compute_dtype),
+    critic = (ConvNeXtCritic if arch == "convnext_t" else SwinV2Critic)(
+        compute_dtype=compute_dtype)
+    return (critic,
             UnetDecoder(edims=CONVNEXT_T_TAPS, ddims=CONVNEXT_T_DDIMS,
                         bottleneck=CONVNEXT_T_NECK, chfak=1,
                         compute_dtype=compute_dtype))
@@ -87,7 +96,8 @@ def batch_norms(model: torch.nn.Module) -> list:
 
 
 def drop_paths(model: torch.nn.Module) -> list:
-    """The model's drop-path layers (ConvNeXt's; none elsewhere)."""
+    """The model's drop-path layers (ConvNeXt's and Swin's; none
+    elsewhere)."""
     return getattr(model, "drop_paths", ())
 
 
@@ -101,7 +111,7 @@ def critic_forward(critic, x: torch.Tensor, collect: bool = False,
             live = sum(m.training for m in bns)
             counts["model.bn_batch"] += live
             counts["model.bn_running"] += len(bns) - live
-        for key in ("layer_norms", "dw_convs"):
+        for key in ("layer_norms", "dw_convs", "window_attns"):
             n = len(getattr(critic, key, ()))
             if n:
                 counts[f"model.{key}"] += n

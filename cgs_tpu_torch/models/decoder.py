@@ -13,10 +13,11 @@ LeakyReLU 0.01 but uses it only in the mask head, nets.py:487-492).
 `dec_model.{0..4}` and `masker.{0,2}` are the reference's state_dict
 keys. The neck join's factor f is read from the pyramid, the height of
 embeds[3] over that of embeds[4]: 4 for the paper critic's 1x1 neck, 2
-for ResNet-18's and ConvNeXt-T's 2x2 one (`models/zoo.py:ResNetCritic`,
-`models/convnext.py`). A pyramid with no 32x32 tap (ConvNeXt-T's
-stride-4 stem leaves none) has `edims[0] = 0` and `embeds[0] = None`:
-that level is `conv(up(out1))`, the join with no skip channels. Each
+for ResNet-18's, ConvNeXt-T's and Swin V2-T's 2x2 one
+(`models/zoo.py:ResNetCritic`, `models/convnext.py`, `models/swin.py`).
+A pyramid with no 32x32 tap (ConvNeXt-T's stride-4 stem and Swin's
+stride-4 patch embedding leave none) has `edims[0] = 0` and `embeds[0] =
+None`: that level is `conv(up(out1))`, the join with no skip channels. Each
 `cat(skip, up(...))` is one `ops.upsample.up_cat`, the fused
 upsample-into-concat kernel on the card (the x4 join too): 5 launches
 per forward and 5 per backward, and no `torch.cat`. Activations stay

@@ -614,11 +614,11 @@ class ResNet18Features(nn.Sequential):
 
 class ImageNetCritic(nn.Module):
     """The input of the critics on an ImageNet backbone (`ResNetCritic`,
-    `models/convnext.py:ConvNeXtCritic`): frames in [0, 1], or in [0,
-    255] when their maximum is above 1 (nets.py:721), normalised by the
-    ImageNet mean and std (nets.py:802-804). The mean and std are
-    buffers outside the state_dict, so a forward on the card makes no
-    host copy."""
+    `models/convnext.py:ConvNeXtCritic`, `models/swin.py:SwinV2Critic`):
+    frames in [0, 1], or in [0, 255] when their maximum is above 1
+    (nets.py:721), normalised by the ImageNet mean and std
+    (nets.py:802-804). The mean and std are buffers outside the
+    state_dict, so a forward on the card makes no host copy."""
 
     def __init__(self):
         super().__init__()

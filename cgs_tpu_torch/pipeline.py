@@ -3,8 +3,8 @@ port of `cgs_tpu/pipeline.py`; reference main.py:1130-1151 / 935-956).
 
 One forward per batch, of any pair of `models/build.py` (the paper's
 `Critic`, `ResNetCritic` with its BatchNorm in the module's mode, or
-`ConvNeXtCritic` with its drop-path in it, with the `UnetDecoder` on its
-pyramid): uint8 NHWC frames are ingested
+`ConvNeXtCritic` or `SwinV2Critic` with its drop-path in it, with the
+`UnetDecoder` on its pyramid): uint8 NHWC frames are ingested
 by the `normalize_u8` kernel (straight into bf16 when critic and decoder
 compute in bf16 and no saliency is asked for, so neither model casts
 its input), viewed as NCHW channels_last with no copy, run

@@ -9,7 +9,9 @@ the reference's `ResNetCritic` state_dict (`resnet.*`, `head.*`, the
 BatchNorm buffers with it), under names that end in `-critic=resnet18`
 (`core/config.py`); a `--critic convnext_t` one has torchvision's
 `convnext_tiny` keys (`features.*`, `classifier.{0,2}`), under names
-that end in `-critic=convnext_t`. A missing file loads as None
+that end in `-critic=convnext_t`, and a `--critic swin_v2_t` one
+torchvision's `swin_v2_t` keys (`features.*`, `norm`, `head`), under
+names that end in `-critic=swin_v2_t`. A missing file loads as None
 (the caller keeps its weights, main.py:141-147). `load_seed_ensemble`
 (port of `cgs_tpu/train/checkpoints.py:108-148`) reads the per-seed
 runs that `sandbox/multirun.py` and `sandbox/seed_parallel.py` write.

@@ -27,8 +27,9 @@ pass, so fusing would mix A's statistics with B's: its passes run
 unfused, as the reference's separate calls (main.py:394-413), and its
 running statistics move once a pass. A frozen one runs BatchNorm on its
 running statistics (`train/steps.py:set_masker_modes`), fused and exact.
-A live `--critic convnext_t` draws its drop-path per frame, couples no
-frames, and fuses as dropout does; its pyramid's first tap is None (no
+A live `--critic convnext_t` or `swin_v2_t` draws its drop-path per
+frame, couples no frames (Swin's attention stays within a frame's
+windows), and fuses as dropout does; its pyramid's first tap is None (no
 32x32 level), which the A || B pass slices as it is.
 
 Every critic and masker pass goes through `models/build.py:

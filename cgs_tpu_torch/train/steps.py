@@ -123,9 +123,9 @@ def set_masker_modes(cfg, models: Dict[str, torch.nn.Module]) -> None:
     model that does not train (the -frozen critic) runs as a frozen
     backbone does: its BatchNorm on its running statistics, which do not
     move, so the fused critic passes stay exact (`train/losses.py`); its
-    drop-path in eval mode. ConvNeXt keeps no running statistics and
-    needs no BatchNorm rule: with its drop-path off, a frozen ConvNeXt
-    critic computes what its eval mode does."""
+    drop-path in eval mode. ConvNeXt and Swin keep no running statistics
+    and need no BatchNorm rule: with its drop-path off, a frozen ConvNeXt
+    or Swin critic computes what its eval mode does."""
     trained = trained_param_keys(cfg)
     for name, model in models.items():
         model.requires_grad_(name in trained).train()

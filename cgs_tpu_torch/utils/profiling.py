@@ -13,9 +13,10 @@ short run.
 in `pipeline.py`, `cgs.train.*` in `train/loops.py` and
 `train/steps.py`, `cgs.model.critic` and `cgs.model.masker` around each
 critic and decoder forward of the pipeline and the training passes,
-`models/build.py`, and inside a ConvNeXt critic's `cgs.model.convnext.stem`,
-`.stage1` ... `.stage4` and `.head`, `models/convnext.py`). While a
-torch.profiler
+`models/build.py`, inside a ConvNeXt critic's `cgs.model.convnext.stem`,
+`.stage1` ... `.stage4` and `.head`, `models/convnext.py`, and inside a
+Swin critic's `cgs.model.swin.patch_embed`, `.stage1` ... `.stage4` and
+`.head`, `models/swin.py`). While a torch.profiler
 records on the calling thread, it is a `record_function` event, in the
 same trace and on the same clock as the kernels and copies, under
 `--profile` or any other profiler; otherwise it is one shared no-op
@@ -23,8 +24,9 @@ context. `counts` holds the port's counters (`pipeline.rows`,
 `pipeline.h2d_bytes`, `pipeline.d2h_bytes`, `pipeline.staged_batches`;
 `model.critic_frames`, `model.masker_frames`, `model.bn_running` /
 `model.bn_batch`, the BatchNorm layers applied on running and on batch
-statistics, `model.layer_norms` and `model.dw_convs`, a ConvNeXt
-critic's LayerNorm and depthwise layers, `model.epilogue_fused` /
+statistics, `model.layer_norms` and `model.dw_convs`, a ConvNeXt or
+Swin critic's LayerNorm and depthwise layers, `model.window_attns`, a
+Swin critic's window attention layers, `model.epilogue_fused` /
 `model.epilogue_eager`, the convolutions of `Critic` and `UnetDecoder`
 forwards whose bias, activation and pool ran as one `bias_act_pool`
 launch or as PyTorch's own ops, and `model.mask_heads`, the decoder

@@ -5,6 +5,7 @@ card.
     python3 chip_smoke.py
     python3 chip_smoke.py --train-seeds 0,1,2   # the protocol per seed
     python3 chip_smoke.py --only-dp             # the dp phase alone
+    python3 chip_smoke.py --only-swin           # the swin phase alone
 
 Where the card's checks live: checks of single kernels and single steps
 on the card are the `cuda`-marked tests (`pytest -m cuda
@@ -176,11 +177,29 @@ from `cgs_tpu_torch/csrc/` and the dense-CRF library, then:
            step logged (a seed's grouped convolutions round apart at
            R = 1 and 2, and Adam grows it); (c) the checks of (b) over
            NCCL across cards when there are two or more, else one line
-           saying it did not run.
+           saying it did not run;
+  swin     (the `--critic swin_v2_t` pair's main paths) `-train -eval`
+           by `cli.main(SWIN_ARGV, primary=True)` in a temporary
+           directory (the critic phase, then the masker phase with the
+           critic live: its checkpoints, finite losses, an IoU in [0,
+           1]), then `-frozen` with primary=False (the frozen critic's
+           drop-path in eval mode); `-process` of a few PNG frames from
+           those checkpoints (`-cload 1 -mload 1`): a raw and a hard mask
+           a frame, the raw one within one level of `MaskPipeline.run`;
+           the HTTP server on the same checkpoints answering as the
+           offline pipeline does, within one level; the pipeline's eval
+           forward launching 12 `fmha_cutlassF` kernels, one a window
+           attention layer (`model.window_attns`), and no softmax; then,
+           outside the counted run, one critic step and one masker step
+           with the critic live, and one masker step with it frozen, at
+           SWIN_ARGV's sizes, kernel path bit-equal to plain path (the
+           joins' backward at the pair's shapes: the 32x32 join with no
+           skip and the 768 @ 2x2 neck's among them); the pair's
+           pipeline at BATCH is held so in bench-width.
 
 Launch counts are set to 0 just before each main path (eval + process;
 ensemble; profile; video; serve-http; int8; train; train-primary;
-seed-parallel; resume; drift; ablation; zoo; bench-width; dp) and read
+seed-parallel; resume; drift; ablation; zoo; bench-width; dp; swin) and read
 just after it; every kernel of a path must have launched there, and
 every kernel on some path. Weights are random, from a seed. Any failed
 check exits non-zero. Without CUDA, or without the rest of the
@@ -309,6 +328,18 @@ PRIMARY_ARGV = ["-train", "-eval", "-synthetic_data", "--datasize", "1100",
                 "chip-smoke-primary"]
 PRIMARY_PNGS = ("critic/_loss.png", "segment/_loss.png",
                 "pred_idx1_hist.png", "GT_idx1_hist.png")
+# the swin_v2_t pair's -train -eval: PRIMARY_ARGV's small protocol, its
+# contrastive thresholds put every frame on both sides, so that a critic
+# trained for a few epochs always hands the masker phase its two sets
+SWIN_ARGV = ["--critic", "swin_v2_t", "-train", "-eval", "-synthetic_data",
+             "--datasize", "1100", "--testsize", "100", "--cepochs", "3",
+             "--batch-size", "32", "--dropout", "0", "--high-rew-thresh",
+             "-1000", "--low-rew-thresh", "1000", "--contrastive-min", "5",
+             "--mepochs", "1", "--eval-video-max-frames", "2", "--model",
+             "chip-smoke-swin"]
+SWIN_KERNELS = ("normalize_u8", "merge_pair", "merge_pair_bwd",
+                "upsample2x", "upsample2x_bwd", "threshold_iou",
+                "bias_act_pool", "mask_head")
 # an ensemble that does not divide over the server's ranks
 UNEVEN_R = 3
 # per-pixel HSV KMeans: frames (4096 pixels each), clusters, iterations;
@@ -326,7 +357,7 @@ BENCH_WIDTH_ARGV = ["--chfak", "5", "--iters", "8", "--skip-training"]
 BENCH_WIDTH_STEPS, BENCH_WIDTH_ROUNDS = 20, 3
 BENCH_WIDTH_KERNELS = ("normalize_u8", "upsample2x", "upsample2x_bwd",
                        "merge_pair", "merge_pair_bwd")
-# one batch of the resnet18 or convnext_t pair: one ingest, the decoder's
+# one batch of the resnet18, convnext_t or swin_v2_t pair: one ingest, the decoder's
 # five joins, its five convolution epilogues and its mask head (the
 # critic is no `Critic` and takes no epilogue)
 ARCH_LAUNCHES = {"normalize_u8": 1, "upsample2x": 5, "bias_act_pool": 5,
@@ -353,6 +384,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only-dp", action="store_true",
                     help="run only the dp phase (its NCCL-across-cards "
                     "part needs a machine with two or more cards)")
+    ap.add_argument("--only-swin", action="store_true",
+                    help="run only the swin phase")
     args = ap.parse_args(argv)
     seeds = [int(s) for s in args.train_seeds.split(",")]
     if not torch.cuda.is_available():
@@ -395,6 +428,13 @@ def main(argv=None) -> int:
         else:
             log("[serve-http dp] NCCL across cards did not run: this "
                 "machine has one card")
+        log(card)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.only_swin:
+        log("[main path: swin] launches:", phase_swin(_build))
         log(card)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -457,6 +497,7 @@ def main(argv=None) -> int:
     phase_cluster()
     later["bench-width"] = (phase_bench_width(_build), BENCH_WIDTH_KERNELS)
     later["dp"] = (phase_dp(_build), TRAIN_KERNELS)
+    later["swin"] = (phase_swin(_build), SWIN_KERNELS)
     for path, (counts, kernels) in later.items():
         log(f"[main path: {path}] launches:", counts)
         for name in kernels:
@@ -1597,9 +1638,9 @@ def _pipeline_vs_plain(_build, pipe, frames) -> dict:
 
 
 def _steps_vs_plain(_build, cfg, models, critic_rows: int, fuses) -> dict:
-    """One critic step (`critic_rows` labelled frames) and one masker
-    step (K = MASKER_N / 2 high and low frames, 2K negatives) for each
-    fuse mode in `fuses`, of `models` on the card, kernel path against
+    """One critic step (`critic_rows` labelled frames; none at 0) and one
+    masker step (K = MASKER_N / 2 high and low frames, 2K negatives) for
+    each fuse mode in `fuses`, of `models` on the card, kernel path against
     plain path: loss terms and every gradient bit-equal (deterministic
     cuDNN; SGD at lr 0 keeps the weights; every run draws from the
     same seeded StepRng), the plain path launching nothing, the kernel
@@ -1613,8 +1654,10 @@ def _steps_vs_plain(_build, cfg, models, critic_rows: int, fuses) -> dict:
     crit = Segment(banks[0], banks[6][:critic_rows], 0, banks[1])
     opt = torch.optim.SGD([p for m in models.values()
                            for p in m.parameters()], lr=0.0)
-    steps = {"critic": (("normalize_u8",), lambda rng: (critic_step(
-        cfg, models["critic"], opt, crit, rng),))}
+    steps = {}
+    if critic_rows:
+        steps["critic"] = (("normalize_u8",), lambda rng: (critic_step(
+            cfg, models["critic"], opt, crit, rng),))
     for fuse in fuses:
         steps[f"masker fuse {fuse}"] = (
             tuple(STEP_LAUNCHES), lambda rng, fuse=fuse: masker_step(
@@ -1753,6 +1796,132 @@ def phase_train_primary(_build) -> dict:
     return launches
 
 
+def phase_swin(_build) -> dict:
+    """The `--critic swin_v2_t` pair through `-train -eval`, `-process`
+    and the HTTP server, and its train steps against their plain path
+    (module docstring); returns the launches of the primary `-train
+    -eval` run."""
+    import urllib.request
+
+    from PIL import Image
+
+    from cgs_tpu_torch import cli
+    from cgs_tpu_torch.core.config import parse_args
+    from cgs_tpu_torch.data.synthetic import synthetic_eval_set
+    from cgs_tpu_torch.models.build import build_pair
+    from cgs_tpu_torch.models.swin import SwinV2Critic
+    from cgs_tpu_torch.serve import MaskServer
+    from cgs_tpu_torch.train.steps import set_masker_modes
+    from cgs_tpu_torch.utils.profiling import counts
+
+    old = os.getcwd()
+    frames, _ = synthetic_eval_set(n_frames=8, seed=11)     # uint8 NHWC
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            attns = counts["model.window_attns"]
+            _build.launches.clear()         # the main path starts
+            handler = cli.main(SWIN_ARGV, primary=True)
+            launches = dict(_build.launches)    # ... and ends
+            check(isinstance(handler.critic, SwinV2Critic),
+                  f"--critic swin_v2_t built {type(handler.critic)}")
+            n_attn = counts["model.window_attns"] - attns
+            check(n_attn > 0 and n_attn % 12 == 0,
+                  f"model.window_attns moved by {n_attn}")
+            saves = sorted(p.name for p in
+                           (Path(d) / "chip-smoke-swin" / "saves")
+                           .glob("*.pt"))
+            check(len(saves) == 2 and all(n.endswith("-critic=swin_v2_t.pt")
+                                          or n.startswith("masker")
+                                          for n in saves),
+                  f"checkpoints written: {saves}")
+            iou = handler.last_ious
+            check(len(iou) == 1 and 0.0 <= iou[0] <= 1.0, f"eval IoU {iou}")
+            for name in ("critic", "masker"):
+                loss = handler.loss_log[name]
+                check(loss.size > 0 and bool(np.isfinite(loss).all()),
+                      f"{name} losses {loss.shape}")
+            frozen = cli.main(SWIN_ARGV[:-1] + ["chip-smoke-swin-frozen",
+                                                "-frozen"], primary=False)
+            check(bool(np.isfinite(frozen.loss_log["masker"]).all())
+                  and 0.0 <= frozen.last_ious[0] <= 1.0,
+                  f"-frozen: IoU {frozen.last_ious}")
+
+            src, out = Path(d) / "src", Path(d) / "out"
+            src.mkdir()
+            for i, f in enumerate(frames):
+                Image.fromarray(f).save(src / f"img{i:03d}.png")
+            # the run's flags name its checkpoints
+            run = [a for a in SWIN_ARGV if a not in ("-train", "-eval")]
+            proc = cli.main(run + ["-cload", "1", "-mload", "1",
+                                   "-process", "--source-imgs", str(src),
+                                   "--mask-output-imgs", str(out)],
+                            primary=True)
+            pipe = proc._pipeline(salience=False)
+            soft = pipe.run(frames).masks[..., 0]
+            for i in range(len(frames)):
+                raw = np.asarray(Image.open(out / f"img{i:03d}-raw-mask.png"))
+                _same_png(raw[..., 0].astype(np.int16),
+                          (255 * np.clip(soft[i], 0, 1)).astype(np.int16))
+                check((out / f"img{i:03d}-thresholded-mask.png").is_file(),
+                      f"no hard mask for frame {i}: {sorted(out.iterdir())}")
+
+            srv = MaskServer(parse_args(run + ["--infer-batch", "4"]))
+            try:
+                base, _ = _http(srv)
+                for i, f in enumerate(frames):
+                    got = _levels(_post(f"{base}/segment", _png(f)))
+                    _same_png(got if got.ndim == 2 else got[..., 0],
+                              (255 * np.clip(soft[i], 0, 1)
+                               ).astype(np.int16))
+                stats = json.loads(urllib.request.urlopen(
+                    f"{base}/stats", timeout=30).read())
+                check(stats["frames"] == len(frames), f"/stats {stats}")
+            finally:
+                srv.shutdown()
+        finally:
+            os.chdir(old)
+    dev_frames = torch.from_numpy(frames).cuda()
+    ops = {}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pipe.run_device(dev_frames)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ops[e.key] = e.count
+    attn = sum(n for k, n in ops.items() if "fmha_cutlassF" in k)
+    check(attn == 12 and not [k for k in ops if "softmax" in k.lower()],
+          f"eval forward: {attn} fmha_cutlassF launches, ops {ops}")
+    log(f"[swin] -train -eval (critic live in the masker phase) IoU {iou}, "
+        f"-frozen IoU {frozen.last_ious}; -process and the server on its "
+        f"checkpoints within one level of MaskPipeline.run ({len(frames)} "
+        f"frames); the eval forward: 12 fmha_cutlassF launches, no "
+        f"softmax; launches {launches}")
+
+    critic, masker = build_pair(parse_args(SWIN_ARGV))
+    params = _random_params(critic, masker, 23)
+    models = {}
+    for name, m in (("critic", critic), ("masker", masker)):
+        m = m.to("cuda", memory_format=torch.channels_last)
+        m.load_state_dict(params[name])
+        models[name] = m
+    steps = {}
+    for mode, flags in (("live", []), ("frozen", ["-frozen"])):
+        cfg = parse_args(SWIN_ARGV + flags)
+        set_masker_modes(cfg, models)
+        got = _steps_vs_plain(_build, cfg, models,
+                              cfg.batch_size if cfg.live else 0, ("both",))
+        steps.update({f"{mode} {k}": v for k, v in got.items()})
+    del models, critic, masker
+    torch.cuda.empty_cache()
+    log(f"[swin] critic step (batch {parse_args(SWIN_ARGV).batch_size}) "
+        f"and masker step (K = {MASKER_N // 2}) with the critic live, "
+        f"masker step with it frozen: kernel path bit-equal to plain "
+        f"path; launches {json.dumps(steps)}")
+    return launches
+
+
 def phase_cluster() -> None:
     """The sandbox clustering at realistic size: `cluster_frames` (per-
     pixel HSV KMeans) over KMEANS_FRAMES synthetic frames (4096 pixels
@@ -1832,8 +2001,9 @@ def phase_bench_width(_build) -> dict:
     this path's and the cells' shapes, kernel path against plain path,
     bit-equal: `MaskPipeline.run_device` at the auto batch and at the
     serve batch (BATCH, the process cells' batch) in f32 and bf16, the
-    resnet18 and convnext_t pairs (`build_pair`, eval mode) at BATCH in
-    f32 with their launches a batch (ARCH_LAUNCHES), and one critic step
+    resnet18, convnext_t and swin_v2_t pairs (`build_pair`, eval mode)
+    at BATCH in f32 with their launches a batch (ARCH_LAUNCHES), and one
+    critic step
     (batch 64) and one masker step (K = 32) at fuse both (the masker
     cell's step), none and merges, on the sweep's models; the
     pipelines' masks within twice the plain path's gap to float64
@@ -1881,7 +2051,7 @@ def phase_bench_width(_build) -> dict:
             del pipe
     del critic, masker
     torch.cuda.empty_cache()
-    for arch in ("resnet18", "convnext_t"):
+    for arch in ("resnet18", "convnext_t", "swin_v2_t"):
         pipe = _arch_pipeline(arch, dev)
         got = _pipeline_vs_plain(_build, pipe, frames[:BATCH])
         check(got == ARCH_LAUNCHES,
@@ -1906,7 +2076,8 @@ def _arch_pipeline(arch: str, dev):
     """An f32 `MaskPipeline` at BATCH on `build_pair`'s `--critic arch`
     pair in eval mode, random weights; ConvNeXt-T's layer scales and
     block LayerNorm weights drawn from U(0.5, 1.5), as the process cell's
-    are (at the published 1e-6 every block is an identity)."""
+    are (at the published 1e-6 every block is an identity); Swin V2-T's
+    post-norms keep weight 1 and its temperatures log 10."""
     from cgs_tpu_torch.core.config import Config
     from cgs_tpu_torch.models.build import build_pair
     from cgs_tpu_torch.pipeline import MaskPipeline

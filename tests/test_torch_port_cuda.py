@@ -13,11 +13,12 @@ and the gradient of a fused upsample-into-concat join through a conv;
 the convolution epilogue (bias, activation, pool) bit-equal to PyTorch's
 own chain at every (act, pool) and width, and the pipeline through it
 against the same modules run eagerly (chfak 1 and 5, ResNet-18,
-ConvNeXt-T, f32 and bf16: preds and the rest bit-equal, the mask of the
+ConvNeXt-T, Swin V2-T, f32 and bf16: preds and the rest bit-equal, the mask of the
 one-launch mask head within twice the eager chain's own gap to a
 float64 evaluation); the mask head kernel against its plain version and
 float64 at the serve batch and ragged shapes; the ConvNeXt-T pair on the
-card against its CPU path.
+card against its CPU path; the Swin V2-T pair's fused attention against
+the benchmark's plain reference, 12 attention launches a forward.
 These are the card's checks of single kernels and single steps;
 `chip_smoke.py` runs whole paths, and `portbench/` measures speed.
 
@@ -474,6 +475,8 @@ def _route_pair(arch, chfak, dtype):
     ("resnet18", 1, 64, torch.float32), ("resnet18", 1, 64, torch.bfloat16),
     ("convnext_t", 1, 64, torch.float32),
     ("convnext_t", 1, 64, torch.bfloat16),
+    ("swin_v2_t", 1, 64, torch.float32),
+    ("swin_v2_t", 1, 64, torch.bfloat16),
     ("paper", 5, BATCH, torch.float32)])
 def test_pipeline_epilogue_route_equals_the_eager_forward(
         dev, monkeypatch, arch, chfak, batch, dtype):
@@ -486,10 +489,10 @@ def test_pipeline_epilogue_route_equals_the_eager_forward(
     the two gaps of a level's edge or of the threshold (in f32, 2e-6,
     the limit of `hard_gap` in `portbench/limits/`, which both gaps must
     stay under).
-    A batch: 10 epilogue launches in a paper pair, 5 in a ResNet-18 or
-    ConvNeXt-T one (its decoder, the skipless 32x32 level's conv among
-    them; its encoder is no `Critic` and counts under neither route), and
-    one mask head."""
+    A batch: 10 epilogue launches in a paper pair, 5 in a ResNet-18,
+    ConvNeXt-T or Swin V2-T one (its decoder, the skipless 32x32 level's
+    conv among them; its encoder is no `Critic` and counts under neither
+    route), and one mask head."""
     import cgs_tpu_torch.models.epilogue as epilogue_mod
     from cgs_tpu_torch.models.build import critic_forward
     from cgs_tpu_torch.pipeline import MaskPipeline
@@ -699,6 +702,67 @@ def test_convnext_pair_on_the_card_against_the_cpu(dev, monkeypatch):
             <= 1e-4 * float(w.abs().max())
     ops = _device_ops(lambda: pipe.run_device(frames.to(dev)))
     assert any("upsample_cat" in k for k in ops) and not _concats(ops), ops
+
+
+@pytest.mark.cuda
+def test_swin_fused_attention_against_the_reference(dev, monkeypatch):
+    """The Swin V2-T pair's eval forward on the card at batch 64, its 12
+    attention layers on the fused route (`models/swin.py:attend_fused`,
+    PyTorch's memory-efficient attention, f32, TF32 off), against the
+    benchmark's plain reference on the benchmark's seeded weights: the
+    score, the taps and the mask within 2e-5 of their largest value (on
+    the card the f32 forward of either route is ~1.5e-6 of it from
+    float64; the reference sums in another order). A forward launches
+    exactly 12 `fmha_cutlassF` kernels, one a layer, and no softmax
+    kernel of the math path; the plain route (the scores written out)
+    agrees with the fused one as closely."""
+    import sys
+    from pathlib import Path
+
+    import cgs_tpu_torch.models.swin as swin
+    from cgs_tpu_torch.core.config import Config
+    from cgs_tpu_torch.models.build import build_pair
+    from cgs_tpu_torch.pipeline import MaskPipeline
+
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench.lib import shapes_swin_v2_t
+    from portbench.lib.manifest import load_json
+    from portbench.reference import swin_v2_t as ref
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = load_json(Path(root) / "portbench/configs/swin_v2_t.json")
+    params = shapes_swin_v2_t.seeded_params(cfg, 2 ** 31 + 77, dev)
+    critic, masker = build_pair(Config(critic_arch="swin_v2_t"))
+    pipe = MaskPipeline(critic, masker, params, batch_size=64, device=dev)
+    frames = torch.randint(0, 256, (64, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(13)
+                           ).to(dev)
+    pred, mask, _ = pipe.run_device(frames)
+    want_pred, want_mask = ref.forward_masks(params, frames)
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    assert rel(pred, want_pred) <= 2e-5
+    assert rel(mask[..., 0], want_mask) <= 2e-5
+    x = frames.permute(0, 3, 1, 2).float() / 255.0
+    model = pipe._members[0]["critic"]      # the pipeline's device copy
+    xcl = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        _, taps = model(xcl, collect=True)
+        with mock.patch.object(swin, "fused_route", lambda q: False):
+            _, plain = model(xcl, collect=True)
+    _, want_taps = ref.critic(params["critic"], x)
+    for t, p, w in zip(taps[1:], plain[1:], want_taps[1:]):
+        assert rel(t, w) <= 2e-5 and rel(p, w) <= 2e-5
+    ops = _device_ops(lambda: pipe.run_device(frames))
+    attn = {k: n for k, n in ops.items() if "fmha_cutlassF" in k}
+    assert sum(attn.values()) == 12, ops
+    assert not [k for k in ops if "softmax" in k.lower()], ops
 
 
 def _staged_and_per_batch(pipe, frames):
