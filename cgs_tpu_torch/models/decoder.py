@@ -26,9 +26,10 @@ per forward and 5 per backward, and no `torch.cat`. Activations stay
 order (skip first). On the card with grad mode off, each conv and its
 bias run as the conv without its bias and one `bias_act_pool` launch
 (`models/epilogue.py`): 5 a forward, bit-equal to the modules' chain;
-the mask head runs as its first conv without its bias and one
-`mask_head` launch for the LeakyReLU, the last conv, its bias and the
-sigmoid, close to the chain's mask (its sums in another order).
+the mask head runs in f32 as one `conv_mask_head` launch for both its
+convs, the LeakyReLU, the biases and the sigmoid, in bf16 as its first
+conv without its bias and one `mask_head` launch for the rest, close to
+the chain's mask either way (its sums in another order).
 """
 
 from __future__ import annotations

@@ -19,14 +19,18 @@ forward's convolutions to the counter `model.epilogue_fused` or
 `model.epilogue_eager` (`utils/profiling.py:counts`).
 
 The decoder's mask head goes further where `head_fused` says so, on the
-same observations and the head's type and width: its first convolution
-through cuDNN without its bias, then one `ops.kernels.mask_head` launch
-(`csrc/mask_head.cu`) for the LeakyReLU, the 16 -> 1 convolution, its
-bias and the sigmoid, where the epilogue route takes three passes and
-cuDNN's grouped direct kernel. Its sums run in another order than
-cuDNN's, so the mask is close to the chain's, not bit-equal. Such a
-forward counts one `model.mask_heads`, and its head's two convolutions
-under neither `model.epilogue_*` counter.
+same observations and the head's type and width. In f32, where the
+join's width and the head's fit `ops.kernels.conv_mask_head_takes`, the
+whole head is one `ops.kernels.conv_mask_head` launch
+(`csrc/conv_mask_head.cu`): both convolutions, the LeakyReLU, the bias
+and the sigmoid, the first convolution's output never written out; such
+a forward also counts one `model.mask_head_convs`. Otherwise (bf16, a
+wider join) its first convolution runs through cuDNN without its bias,
+then one `ops.kernels.mask_head` launch (`csrc/mask_head.cu`) for the
+rest. Either way the sums run in another order than cuDNN's, so the
+mask is close to the chain's, not bit-equal. Such a forward counts one
+`model.mask_heads`, and its head's two convolutions under neither
+`model.epilogue_*` counter.
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from cgs_tpu_torch.ops.kernels import (
-    bias_act_pool, mask_head, mask_head_takes,
+    bias_act_pool, conv_mask_head as conv_mask_head_op,
+    conv_mask_head_takes, mask_head, mask_head_takes,
 )
 from cgs_tpu_torch.utils.profiling import counts
 
@@ -79,10 +84,20 @@ def conv_epilogue(conv: nn.Conv2d, x: torch.Tensor, act: str = "none",
 
 
 def conv_mask_head(head: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
-    """`head(x)` as the mask, (N, 1, H, W) float32: the first convolution
-    without its bias, then one `mask_head` for the rest; the parameters
-    in the convolution's type, as autocast has them."""
+    """`head(x)` as the mask, (N, 1, H, W) float32: one `conv_mask_head`
+    where it takes the head (counted under `model.mask_head_convs`), else
+    the first convolution without its bias, then one `mask_head` for the
+    rest, the parameters in the convolution's type, as autocast has
+    them."""
     conv0, act, conv2 = head[0], head[1], head[2]
+    if (conv_mask_head_takes(x.dtype, x.shape[1], conv0.out_channels,
+                             x.shape[3])
+            and not torch.is_autocast_enabled(x.device.type)):
+        counts["model.mask_head_convs"] += 1
+        mask = conv_mask_head_op(x.permute(0, 2, 3, 1), conv0.weight,
+                                 conv0.bias, conv2.weight, conv2.bias,
+                                 act.negative_slope)
+        return mask.unsqueeze(1)
     y = F.conv2d(x, conv0.weight, None, conv0.stride, conv0.padding,
                  conv0.dilation, conv0.groups)
     mask = mask_head(y.permute(0, 2, 3, 1), conv0.bias.to(y.dtype),

@@ -49,6 +49,8 @@ SIGNATURES = {
                       + (_F32, _I64, _I64, _P)},
     "mask_head": {"cgs_mask_head": (_P,) * 3 + (_I64,) * 3 + (_P, _P)
                   + (_I64,) * 4 + (_F32, _I64, _P)},
+    "conv_mask_head": {"cgs_conv_mask_head": (_P,) * 4 + (_I64,) * 3
+                       + (_P, _P) + (_I64,) * 4 + (_F32, _P)},
 }
 
 # one launch counter per C entry point, named without the `cgs_` prefix

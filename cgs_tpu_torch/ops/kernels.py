@@ -1,19 +1,19 @@
 """The uint8 ingest (gather by index, roll, normalise), the fused
 counterfactual merges and their gradient, the fused threshold+IoU
-count, the convolution epilogue (bias, activation, 2x2 max-pool) and
-the mask head after its first convolution: CUDA kernel wrappers and
-their plain PyTorch versions.
+count, the convolution epilogue (bias, activation, 2x2 max-pool), the
+mask head after its first convolution and the whole mask head: CUDA
+kernel wrappers and their plain PyTorch versions.
 
 Ports of `cgs_tpu/ops/pallas_kernels.py:normalize_u8` (with the
 gather, concatenation and roll a JAX train step fuses around it),
 `:merge_pair`, `:merge_pair_bwd` and `:threshold_iou`; the epilogue
-and the mask head replace no Pallas kernel (XLA fused them into the
+and the mask heads replace no Pallas kernel (XLA fused them into the
 convolutions on the TPU). On a CUDA tensor each wrapper launches its
 kernel (`csrc/normalize_u8.cu`, `csrc/merge_pair.cu`,
-`csrc/threshold_iou.cu`, `csrc/conv_epilogue.cu`, `csrc/mask_head.cu`)
-or raises; on a CPU tensor it runs the plain version, which is also the
-oracle the kernel is held against on the card. There is no fallback
-from the kernel to the plain version.
+`csrc/threshold_iou.cu`, `csrc/conv_epilogue.cu`, `csrc/mask_head.cu`,
+`csrc/conv_mask_head.cu`) or raises; on a CPU tensor it runs the plain
+version, which is also the oracle the kernel is held against on the
+card. There is no fallback from the kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -642,4 +642,94 @@ def mask_head(y0: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor,
             int(y0.dtype == torch.bfloat16), _build.stream_ptr(y0.device))
     _build.check(err, "mask_head")
     _build.launches["mask_head"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------
+# the whole mask head: the C -> 16 3x3 convolution, then as above
+# ---------------------------------------------------------------------
+
+CONV_MASK_HEAD_MID = 16     # csrc/conv_mask_head.cu: kMid
+CONV_MASK_HEAD_W = 64       # ... kW, the frame's width
+CONV_MASK_HEAD_MAX_C = 128  # ... kMaxC
+
+
+def conv_mask_head_takes(dtype: torch.dtype, c: int, mid: int,
+                         w: int) -> bool:
+    """Whether `conv_mask_head` takes a head of C input and `mid` middle
+    channels on frames `w` wide, in this type."""
+    return (dtype == torch.float32 and 1 <= c <= CONV_MASK_HEAD_MAX_C
+            and mid == CONV_MASK_HEAD_MID and w == CONV_MASK_HEAD_W)
+
+
+def conv_mask_head_plain(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor,
+                         slope: float = 0.01) -> torch.Tensor:
+    """The chain the kernel replaces, on NHWC x: the first convolution
+    without its bias, then `mask_head_plain`; (N, H, W). On float64
+    tensors, the head in float64 throughout."""
+    y0 = F.conv2d(x.permute(0, 3, 1, 2), w0, None, 1, 1)
+    return mask_head_plain(y0.permute(0, 2, 3, 1), b0, w2, b2, slope)
+
+
+def _check_conv_mask_head(x, w0, b0, w2, b2) -> None:
+    name = "conv_mask_head"
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected an (N, H, W, C) tensor, got "
+                         f"{tuple(x.shape)}")
+    c, w = x.shape[3], x.shape[2]
+    if not conv_mask_head_takes(x.dtype, c, CONV_MASK_HEAD_MID, w):
+        raise ValueError(f"{name}: expected an f32 (N, H, "
+                         f"{CONV_MASK_HEAD_W}, C) tensor with 1 <= C <= "
+                         f"{CONV_MASK_HEAD_MAX_C}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        # a strided view: the join was not channels_last, and a copy here
+        # would cost what the kernel saves
+        raise ValueError(f"{name}: expected a contiguous NHWC tensor (a "
+                         f"join stored channels_last), got strides "
+                         f"{x.stride()}")
+    mid = CONV_MASK_HEAD_MID
+    for t, shape, what in ((w0, (mid, c, 3, 3), "w0"), (b0, (mid,), "b0"),
+                           (w2, (1, mid, 3, 3), "w2"), (b2, (1,), "b2")):
+        if (tuple(t.shape) != shape or t.dtype != x.dtype
+                or t.device != x.device):
+            raise ValueError(f"{name}: {what} must be {shape} {x.dtype} "
+                             f"on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def conv_mask_head(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor,
+                   slope: float = 0.01) -> torch.Tensor:
+    """The decoder's whole mask head: x (N, H, 64, C), the NHWC view of
+    the last skip join stored channels_last, f32, C <=
+    CONV_MASK_HEAD_MAX_C; w0 (16, C, 3, 3) and b0 (16,) the first
+    convolution's, w2 (1, 16, 3, 3) and b2 (1,) the last one's (padding
+    1 each) -> sigmoid(conv3x3(leaky_relu(conv3x3(x, w0) + b0), w2) +
+    b2), (N, H, 64) float32, which is the (N, 1, H, 64) mask. One launch
+    on the card, reading x once; the first convolution's output never
+    reaches device memory. The sums run in another order than cuDNN's,
+    so the mask is close to `conv_mask_head_plain`'s, not bit-equal."""
+    _check_conv_mask_head(x, w0, b0, w2, b2)
+    if x.device.type == "cpu":
+        return conv_mask_head_plain(x, w0, b0, w2, b2, slope)
+    for t in (x, b0, b2):
+        _build.require_cuda_tensor(t, "conv_mask_head")
+    n, h, w, c = x.shape
+    out = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.kernel("conv_mask_head")
+    with torch.cuda.device(x.device):   # launch on the tensor's card
+        # masker.0's weight with the output channel last, so that a chunk
+        # of input channels is one contiguous piece (a copy of 144 C
+        # floats)
+        wt = w0.permute(1, 2, 3, 0).contiguous()
+        err = lib.cgs_conv_mask_head(
+            x.data_ptr(), wt.data_ptr(), b0.data_ptr(), w2.data_ptr(),
+            *w2.stride()[1:], b2.data_ptr(), out.data_ptr(), n, h, w, c,
+            float(slope), _build.stream_ptr(x.device))
+    _build.check(err, "conv_mask_head")
+    _build.launches["conv_mask_head"] += 1
     return out

@@ -29,10 +29,11 @@ Swin critic's LayerNorm and depthwise layers, `model.window_attns`, a
 Swin critic's window attention layers, `model.epilogue_fused` /
 `model.epilogue_eager`, the convolutions of `Critic` and `UnetDecoder`
 forwards whose bias, activation and pool ran as one `bias_act_pool`
-launch or as PyTorch's own ops, and `model.mask_heads`, the decoder
-forwards whose mask head ran as one `mask_head` launch,
-`models/epilogue.py`), bumped where the work is issued and never
-reset.
+launch or as PyTorch's own ops, `model.mask_heads`, the decoder
+forwards whose mask head ran as one `mask_head` or `conv_mask_head`
+launch, and `model.mask_head_convs`, those of them whose first
+convolution ran inside `conv_mask_head`, `models/epilogue.py`), bumped
+where the work is issued and never reset.
 """
 
 from __future__ import annotations

@@ -143,9 +143,10 @@ from `cgs_tpu_torch/csrc/` and the dense-CRF library, then:
            the ingest, join, merge and merge-gradient kernels launched;
            then `MaskPipeline` at its auto batch (6553) and at the serve
            batch (8192, the process cells' batch) in f32 and bf16, the
-           `--critic resnet18` and `convnext_t` pairs' `MaskPipeline`
-           at the serve batch in f32 (1 ingest, 5 joins, the skipless
-           32x32 one among ConvNeXt-T's, 5 epilogues and 1 mask head a
+           chfak-1 pair's and the `--critic resnet18`, `convnext_t` and
+           `swin_v2_t` pairs' `MaskPipeline` at the serve batch in f32
+           (the ImageNet pairs: 1 ingest, 5 joins, the skipless 32x32
+           one among ConvNeXt-T's, 5 epilogues and 1 whole mask head a
            batch), and one critic step (batch 64) and one masker step
            (K = 32) at fuse both (the masker cell's step), none and
            merges, each kernel path bit-equal to its plain path but the
@@ -231,14 +232,15 @@ SERVE_BATCH, SERVE_FRAMES = 256, 1024
 EVAL_N = 2450           # the synthetic eval set
 MASKER_N = 64        # frames a masker step merges and decodes (2K)
 SERVE_KERNELS = ("normalize_u8", "upsample2x", "bias_act_pool",
-                 "mask_head", "threshold_iou")
+                 "conv_mask_head", "threshold_iou")
 # video -process and -vismasker compute no IoU
 VIDEO_KERNELS = ("normalize_u8", "upsample2x", "bias_act_pool",
-                 "mask_head")
+                 "conv_mask_head")
 # int8 runs its own convolutions (ops/quant.py), with no epilogue kernel
 INT8_KERNELS = ("normalize_u8", "upsample2x")
 # the convolution epilogues of one paper-critic forward and its decoder's
-# (the mask head's two convolutions aside: one `mask_head` launch)
+# (the mask head's two convolutions aside: one `conv_mask_head` launch in
+# f32, masker.0 then one `mask_head` in bf16)
 EPILOGUES = 10
 ENSEMBLE_R = 3
 # one ensemble evaluate of the 2450-frame set: one batch, ingested once,
@@ -246,7 +248,7 @@ ENSEMBLE_R = 3
 # count
 ENSEMBLE_LAUNCHES = {"normalize_u8": 1, "upsample2x": 5 * ENSEMBLE_R,
                      "bias_act_pool": EPILOGUES * ENSEMBLE_R,
-                     "mask_head": ENSEMBLE_R,
+                     "conv_mask_head": ENSEMBLE_R,
                      "threshold_iou": 1}
 # the names of the port's device kernels a --profile trace must show
 TRACE_KERNELS = ("ingest_", "upsample_cat_fwd", "threshold_iou_kernel")
@@ -339,7 +341,7 @@ SWIN_ARGV = ["--critic", "swin_v2_t", "-train", "-eval", "-synthetic_data",
              "chip-smoke-swin"]
 SWIN_KERNELS = ("normalize_u8", "merge_pair", "merge_pair_bwd",
                 "upsample2x", "upsample2x_bwd", "threshold_iou",
-                "bias_act_pool", "mask_head")
+                "bias_act_pool", "conv_mask_head")
 # an ensemble that does not divide over the server's ranks
 UNEVEN_R = 3
 # per-pixel HSV KMeans: frames (4096 pixels each), clusters, iterations;
@@ -357,11 +359,11 @@ BENCH_WIDTH_ARGV = ["--chfak", "5", "--iters", "8", "--skip-training"]
 BENCH_WIDTH_STEPS, BENCH_WIDTH_ROUNDS = 20, 3
 BENCH_WIDTH_KERNELS = ("normalize_u8", "upsample2x", "upsample2x_bwd",
                        "merge_pair", "merge_pair_bwd")
-# one batch of the resnet18, convnext_t or swin_v2_t pair: one ingest, the decoder's
-# five joins, its five convolution epilogues and its mask head (the
-# critic is no `Critic` and takes no epilogue)
+# one batch of the resnet18, convnext_t or swin_v2_t pair: one ingest, the
+# decoder's five joins, its five convolution epilogues and its mask head
+# (the critic is no `Critic` and takes no epilogue)
 ARCH_LAUNCHES = {"normalize_u8": 1, "upsample2x": 5, "bias_act_pool": 5,
-                 "mask_head": 1}
+                 "conv_mask_head": 1}
 
 
 class SmokeFailure(Exception):
@@ -824,7 +826,7 @@ def _serve_dp(fx: dict, d: str, backend=None, device_indices=None) -> dict:
         check(same >= 0.999, f"two ranks: raw PNGs identical on {same:.5f}")
         check(launches == {"normalize_u8": n_disp, "upsample2x": 5 * n_disp,
                            "bias_act_pool": EPILOGUES * n_disp,
-                           "mask_head": n_disp},
+                           "conv_mask_head": n_disp},
               f"two ranks: rank 0 launched {launches} for {n_disp} "
               "dispatches")
         reload = _reload_under_traffic(base, fx["bodies"], publish,
@@ -1036,7 +1038,7 @@ def phase_serve_http(_build) -> dict:
             per_dispatch = dict(_build.launches)
             check(per_dispatch == {"normalize_u8": 1, "upsample2x": 5,
                                    "bias_act_pool": EPILOGUES,
-                                   "mask_head": 1},
+                                   "conv_mask_head": 1},
                   f"launches per serve dispatch {per_dispatch}")
             counts = _dispatch_kernels(lambda: srv.pipe.run_device(one),
                                        ("ingest_", "upsample_cat_fwd"))
@@ -1552,7 +1554,7 @@ def _plain_kernels():
     """A context in which a train step, or `MaskPipeline`, runs every
     port kernel's plain version (the ingest, the merges and their
     gradient, the fused upsample-into-concat pair, the convolution
-    epilogue, the mask head) on the card."""
+    epilogue, the mask heads) on the card."""
     import contextlib
     from unittest import mock
 
@@ -1562,12 +1564,14 @@ def _plain_kernels():
     import cgs_tpu_torch.pipeline as pipeline_mod
     import cgs_tpu_torch.train.losses as losses_mod
     from cgs_tpu_torch.ops.kernels import (
-        bias_act_pool_plain, gather_normalize_u8_plain, mask_head_plain,
-        merge_pair_bwd_plain, merge_pair_plain, normalize_u8_plain,
+        bias_act_pool_plain, conv_mask_head_plain, gather_normalize_u8_plain,
+        mask_head_plain, merge_pair_bwd_plain, merge_pair_plain,
+        normalize_u8_plain,
     )
     stack = contextlib.ExitStack()
     for mod, name, plain in (
             (epilogue_mod, "bias_act_pool", bias_act_pool_plain),
+            (epilogue_mod, "conv_mask_head_op", conv_mask_head_plain),
             (epilogue_mod, "mask_head", mask_head_plain),
             (losses_mod, "gather_normalize_u8", gather_normalize_u8_plain),
             (pipeline_mod, "normalize_u8", normalize_u8_plain),
@@ -1599,18 +1603,26 @@ def _pipeline_vs_plain(_build, pipe, frames) -> dict:
     from unittest import mock
 
     import cgs_tpu_torch.models.epilogue as epilogue_mod
-    from cgs_tpu_torch.ops.kernels import mask_head, mask_head_plain
+    from cgs_tpu_torch.ops.kernels import (
+        conv_mask_head, conv_mask_head_plain, mask_head, mask_head_plain,
+    )
 
-    heads = []
+    heads = []           # (the head's plain version, its inputs)
 
-    def spy(*args):          # the head's inputs, for float64
-        heads.append(args)
-        return mask_head(*args)
+    def spy(kernel, plain):
+        def run(*args):
+            heads.append((plain, args))
+            return kernel(*args)
+        return run
 
     def run(kernels: bool):
         _build.launches.clear()
         if kernels:
-            with mock.patch.object(epilogue_mod, "mask_head", spy):
+            whole = spy(conv_mask_head, conv_mask_head_plain)
+            with mock.patch.object(epilogue_mod, "conv_mask_head_op",
+                                   whole), \
+                    mock.patch.object(epilogue_mod, "mask_head",
+                                      spy(mask_head, mask_head_plain)):
                 pred, mask, _ = pipe.run_device(frames)
         else:
             with _plain_kernels():
@@ -1626,9 +1638,12 @@ def _pipeline_vs_plain(_build, pipe, frames) -> dict:
           f"preds {float((pred - ppred).abs().max()):.3g} apart")
     check(len(heads) == 1, f"MaskPipeline batch {len(frames)}: "
           f"{len(heads)} mask head calls")
-    y0, b0, w2, b2, slope = heads[0]
-    exact = mask_head_plain(*(a.double() for a in (y0, b0, w2, b2)),
-                            slope)[..., None]
+    plain, (x, *rest) = heads[0]
+    # the head in float64 a slice of frames at a time: a whole batch's
+    # join in float64 would not fit beside the pipeline (18 GB at C = 67)
+    rest = [a.double() if torch.is_tensor(a) else a for a in rest]
+    exact = torch.cat([plain(x[lo:lo + 1024].double(), *rest)
+                       for lo in range(0, len(x), 1024)])[..., None]
     gap, plain_gap = (float((m.double() - exact).abs().max())
                       for m in (mask, pmask))
     check(gap <= 2 * plain_gap,
@@ -2001,6 +2016,7 @@ def phase_bench_width(_build) -> dict:
     this path's and the cells' shapes, kernel path against plain path,
     bit-equal: `MaskPipeline.run_device` at the auto batch and at the
     serve batch (BATCH, the process cells' batch) in f32 and bf16, the
+    chfak 1 pair at BATCH in f32, the
     resnet18, convnext_t and swin_v2_t pairs (`build_pair`, eval mode)
     at BATCH in f32 with their launches a batch (ARCH_LAUNCHES), and one
     critic step
@@ -2049,7 +2065,15 @@ def phase_bench_width(_build) -> dict:
             checked[f"MaskPipeline {_name(dtype)} batch {batch}"] = (
                 _pipeline_vs_plain(_build, pipe, frames[:batch]))
             del pipe
-    del critic, masker
+    # the chfak1.process cell's pair, its join 11 channels wide
+    critic, masker = bench_width._models(1, 0.3, torch.float32, dev,
+                                         train=False)
+    pipe = MaskPipeline(critic, masker, {"critic": critic.state_dict(),
+                                         "masker": masker.state_dict()},
+                        batch_size=BATCH, device=dev)
+    checked[f"MaskPipeline chfak 1 float32 batch {BATCH}"] = (
+        _pipeline_vs_plain(_build, pipe, frames[:BATCH]))
+    del pipe, critic, masker
     torch.cuda.empty_cache()
     for arch in ("resnet18", "convnext_t", "swin_v2_t"):
         pipe = _arch_pipeline(arch, dev)

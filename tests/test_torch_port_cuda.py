@@ -30,6 +30,7 @@ with the card and no JAX:
         tests/test_torch_port_cuda.py
 """
 
+import contextlib
 import math
 from unittest import mock
 
@@ -39,8 +40,9 @@ import torch
 
 from cgs_tpu_torch.ops import _build
 from cgs_tpu_torch.ops.kernels import (
-    ACTS, Segment, bias_act_pool, bias_act_pool_plain, gather_normalize_u8,
-    gather_normalize_u8_plain, mask_head, mask_head_plain, merge_pair,
+    ACTS, Segment, bias_act_pool, bias_act_pool_plain, conv_mask_head,
+    conv_mask_head_plain, gather_normalize_u8, gather_normalize_u8_plain,
+    mask_head, mask_head_plain, merge_pair,
     merge_pair_bwd, merge_pair_bwd_plain, merge_pair_plain, normalize_u8,
     normalize_u8_plain, threshold_iou, threshold_iou_plain,
 )
@@ -96,6 +98,7 @@ PORT_KERNELS = (("merge_pair_bwd", "merge_pair_bwd"),
                 ("ingest_", "normalize_u8"),
                 ("threshold_iou", "threshold_iou"),
                 ("bias_act_pool", "bias_act_pool"),
+                ("conv_mask_head", "conv_mask_head"),
                 ("mask_head", "mask_head"))
 
 
@@ -363,21 +366,50 @@ def _head_inputs(dev, n, h, w, c, dtype, seed=0):
 
 def _gap64(mask, args):
     """The largest distance of `mask` from the head evaluated in float64
-    on the same inputs (`mask_head_plain` on float64 tensors)."""
-    exact = mask_head_plain(*(a.double() if torch.is_tensor(a) else a
-                              for a in args))
-    return float((mask.double() - exact).abs().max())
+    on the same inputs."""
+    return float((mask.double() - _exact64(args)).abs().max())
+
+
+def _exact64(args):
+    """The mask head in float64 on `args`: `mask_head_plain`, or with the
+    join and masker.0's weight first (6 arguments) `conv_mask_head_plain`,
+    a slice of 1024 frames at a time (a serve batch's join in float64
+    takes 18 GB at C = 67)."""
+    plain = conv_mask_head_plain if len(args) == 6 else mask_head_plain
+    x, *rest = args
+    rest = [a.double() if torch.is_tensor(a) else a for a in rest]
+    return torch.cat([plain(x[lo:lo + 1024].double(), *rest)
+                      for lo in range(0, len(x), 1024)])
+
+
+# the route's two mask-head kernels (`models/epilogue.py`: f32 takes the
+# whole head, bf16 the head after masker.0), each with its plain version
+HEADS = {"conv_mask_head_op": (conv_mask_head, conv_mask_head_plain),
+         "mask_head": (mask_head, mask_head_plain)}
 
 
 def _recording(head, calls):
-    """`head` (`mask_head` or `mask_head_plain`) that appends each call's
-    (inputs, a copy of its mask) to `calls`: an ensemble adds its
+    """`head` (a mask-head kernel or its plain version) that appends each
+    call's (inputs, a copy of its mask) to `calls`: an ensemble adds its
     members' masks into the first one in place."""
     def run(*args):
         mask = head(*args)
         calls.append((args, mask.clone()))
         return mask
     return run
+
+
+@contextlib.contextmanager
+def _recording_heads(calls, plain=False):
+    """A context in which the route's mask heads, either kernel (or its
+    plain version), record their calls in `calls`."""
+    import cgs_tpu_torch.models.epilogue as epilogue_mod
+
+    with contextlib.ExitStack() as stack:
+        for name, fns in HEADS.items():
+            stack.enter_context(mock.patch.object(
+                epilogue_mod, name, _recording(fns[plain], calls)))
+        yield
 
 
 def _heads_within_twice_the_plain_gap(kernel, plain):
@@ -455,6 +487,110 @@ def test_mask_head_refuses_a_layout_it_would_copy(dev):
         mask_head(y0, b0.cpu(), w2, b2)
 
 
+# the last join's width in the configurations: chfak 1, chfak 5,
+# resnet18, convnext_t and swin_v2_t
+JOIN_WIDTHS = (11, 43, 67, 99)
+
+
+def _conv_head_inputs(dev, n, c, h=64, seed=0):
+    """A join (N, H, 64, C), the NHWC view of a channels_last tensor of
+    signed values, and a head's parameters: uniform in PyTorch's
+    default bounds, masker.0's weights channels_last as the pipeline
+    keeps them, b0 of both signs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cl = torch.channels_last
+    x = torch.randn((n, c, h, 64), device=dev, generator=g).contiguous(
+        memory_format=cl)
+    b = 1 / math.sqrt(9 * c)
+    w0 = ((torch.rand((16, c, 3, 3), device=dev, generator=g) * 2 - 1)
+          * b).contiguous(memory_format=cl)
+    b0 = torch.rand(16, device=dev, generator=g) * b + 0.05
+    b0[1::2] *= -1
+    w2 = (torch.rand((1, 16, 3, 3), device=dev, generator=g) * 2 - 1) / 12
+    b2 = (torch.rand(1, device=dev, generator=g) * 2 - 1) / 12
+    return x.permute(0, 2, 3, 1), w0, b0, w2, b2, 0.01
+
+
+def _conv_head_gaps(args):
+    """(the kernel's, the eager chain's) largest gap to float64; the
+    chain is cuDNN's masker.0 without its bias, then `mask_head`'s
+    kernel, as the route ran before the whole head was one kernel."""
+    x, w0, b0, w2, b2, slope = args
+    _build.launches.clear()
+    got = conv_mask_head(*args)
+    assert dict(_build.launches) == {"conv_mask_head": 1}
+    assert got.dtype == torch.float32 and got.shape == x.shape[:3]
+    y0 = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w0, None, 1, 1)
+    # (at C = 1 cuDNN's output is NCHW-dense, which mask_head refuses)
+    y0 = y0.contiguous(memory_format=torch.channels_last)
+    chain = mask_head(y0.permute(0, 2, 3, 1), b0, w2, b2, slope)
+    del y0
+    exact = _exact64(args)
+    return tuple(float((m.double() - exact).abs().max())
+                 for m in (got, chain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", JOIN_WIDTHS)
+def test_conv_mask_head_within_twice_the_chains_gap_to_float64(
+        dev, monkeypatch, c):
+    """At the serve batch and at 3 frames, at each join width of the
+    configurations: the kernel's worst gap to float64 is at most twice
+    that of cuDNN's masker.0 and `mask_head` (TF32 off, as -process
+    runs); its sums run in another order. One launch a call; on the
+    device the kernel and PyTorch's copy of masker.0's weight into the
+    kernel's layout."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    for n in (BATCH, 3):
+        args = _conv_head_inputs(dev, n, c, seed=n + c)
+        ours, chain = _conv_head_gaps(args)
+        assert ours <= 2 * chain, (n, ours, chain)
+        del args
+    args = _conv_head_inputs(dev, 3, c)
+    ops = _device_ops(lambda: conv_mask_head(*args))
+    heads = [k for k in ops if "conv_mask_head" in k]
+    copies = [k for k in ops if "copy_kernel" in k]
+    assert len(ops) == 2 and len(heads) == len(copies) == 1, ops
+    assert ops[heads[0]] == ops[copies[0]] == 1, ops
+
+
+@pytest.mark.cuda
+def test_conv_mask_head_ragged_frames_borders_and_layouts(dev, monkeypatch):
+    """Frames of 1, 13 and 70 rows (no whole tile, a ragged last tile,
+    more than a frame's 64), C from 1 to the kernel's limit, both
+    weights contiguous or channels_last; and a join whose border pixels
+    alone are nonzero, which holds the zero padding of the join and of
+    h: within twice the chain's gap to float64."""
+    from cgs_tpu_torch.ops.kernels import CONV_MASK_HEAD_MAX_C
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    for n, h, c in ((5, 1, 11), (7, 13, 43), (3, 70, 1), (2, 64, 8),
+                    (2, 64, 9), (4, 64, CONV_MASK_HEAD_MAX_C)):
+        x, w0, b0, w2, b2, slope = _conv_head_inputs(dev, n, c, h, seed=h)
+        for w0_, w2_ in ((w0, w2), (w0.contiguous(), w2.contiguous(
+                memory_format=torch.channels_last))):
+            ours, chain = _conv_head_gaps((x, w0_, b0, w2_, b2, slope))
+            assert ours <= 2 * chain, ((n, h, c, w0_.stride()), ours, chain)
+    x, *rest = _conv_head_inputs(dev, 4, 43, seed=1)
+    inner = torch.zeros_like(x, dtype=torch.bool)
+    inner[:, 1:-1, 1:-1] = True
+    x = x.masked_fill(inner, 0.0)
+    ours, chain = _conv_head_gaps((x, *rest))
+    assert ours <= 2 * chain, (ours, chain)
+
+
+@pytest.mark.cuda
+def test_conv_mask_head_refuses_a_layout_it_would_copy(dev):
+    x, w0, b0, w2, b2, slope = _conv_head_inputs(dev, 2, 11, h=8)
+    nchw = x.permute(0, 3, 1, 2).contiguous()       # NCHW-dense
+    with pytest.raises(ValueError, match="channels_last"):
+        conv_mask_head(nchw.permute(0, 2, 3, 1), w0, b0, w2, b2)
+    with pytest.raises(ValueError, match="b0"):
+        conv_mask_head(x, w0, b0.cpu(), w2, b2)
+    with pytest.raises(ValueError, match="f32"):
+        conv_mask_head(x.bfloat16(), w0, b0, w2, b2)
+
+
 def _route_pair(arch, chfak, dtype):
     from cgs_tpu_torch.core.config import Config
     from cgs_tpu_torch.models.build import build_pair
@@ -492,7 +628,8 @@ def test_pipeline_epilogue_route_equals_the_eager_forward(
     A batch: 10 epilogue launches in a paper pair, 5 in a ResNet-18,
     ConvNeXt-T or Swin V2-T one (its decoder, the skipless 32x32 level's
     conv among them; its encoder is no `Critic` and counts under neither
-    route), and one mask head."""
+    route), and one mask head: in f32 the whole head as one
+    `conv_mask_head`, in bf16 masker.0 then one `mask_head`."""
     import cgs_tpu_torch.models.epilogue as epilogue_mod
     from cgs_tpu_torch.models.build import critic_forward
     from cgs_tpu_torch.pipeline import MaskPipeline
@@ -511,22 +648,20 @@ def test_pipeline_epilogue_route_equals_the_eager_forward(
                            generator=torch.Generator().manual_seed(8)
                            ).to(dev)
     fused = 10 if arch == "paper" else 5
-    heads = []
-
-    def spy(*args):          # the head's inputs, for float64
-        heads.append(args)
-        return mask_head(*args)
-
+    heads = []          # the head's inputs, for float64
+    # f32 runs the whole head as one kernel, bf16 masker.0 then mask_head
+    f32 = dtype == torch.float32
+    head = "conv_mask_head" if f32 else "mask_head"
     _build.launches.clear()
     names = ("model.epilogue_fused", "model.epilogue_eager",
-             "model.mask_heads")
+             "model.mask_heads", "model.mask_head_convs")
     before = [counts[k] for k in names]
-    with mock.patch.object(epilogue_mod, "mask_head", spy):
+    with _recording_heads(heads):
         got = [p.run_device(frames) for p in pipes]
     assert _build.launches["bias_act_pool"] == 2 * fused
-    assert _build.launches["mask_head"] == 2
+    assert _build.launches[head] == 2
     assert [counts[k] - b for k, b in zip(names, before)] == [
-        2 * fused, 0, 2]
+        2 * fused, 0, 2, 2 * f32]
     with mock.patch.object(epilogue_mod, "on_card", lambda t: False):
         want = [p.run_device(frames) for p in pipes]
     # the critic's embeds, which the head's route does not touch
@@ -539,9 +674,7 @@ def test_pipeline_epilogue_route_equals_the_eager_forward(
     for a, b in zip(embeds, embeds_eager, strict=True):
         assert (a is None) == (b is None)
         assert a is None or torch.equal(a, b)
-    y0, b0, w2, b2, slope = heads[0]
-    exact = mask_head_plain(*(a.double() for a in (y0, b0, w2, b2)),
-                            slope)[..., None]
+    exact = _exact64(heads[0][0])[..., None]
     for g, w in zip(got, want):
         assert len(g) == len(w)
         assert g[0].dtype == w[0].dtype and torch.equal(g[0], w[0])
@@ -614,11 +747,12 @@ def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
                                                 batch, dtype):
     """One batch of `run_device` at the reference's width and at the
     paper's at the serve batch: 1 ingest, 5 join, 10 epilogue and 1 mask
-    head launches, masks in (0, 1), no concat kernel, and the plain
-    path's preds under deterministic cuDNN; the mask head's kernel sums
-    in another order than cuDNN, so its mask is held to twice the plain
-    path's (`mask_head_plain`'s) worst gap to the head evaluated in
-    float64 on each path's own inputs."""
+    head launches (`conv_mask_head` in f32, `mask_head` in bf16), masks
+    in (0, 1), no concat kernel, and the plain path's preds under
+    deterministic cuDNN; the mask head's kernel sums in another order than
+    cuDNN, so its mask is held to twice the plain path's
+    (`conv_mask_head_plain`'s or `mask_head_plain`'s) worst gap to the
+    head evaluated in float64 on each path's own inputs."""
     import cgs_tpu_torch.models.epilogue as epilogue_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
@@ -638,11 +772,11 @@ def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
                            device=dev)
     heads, plain_heads = [], []
     _build.launches.clear()
-    with mock.patch.object(epilogue_mod, "mask_head",
-                           _recording(mask_head, heads)):
+    with _recording_heads(heads):
         pred, mask, _ = pipe.run_device(frames)
+    head = "conv_mask_head" if dtype == torch.float32 else "mask_head"
     assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 5,
-                                     "bias_act_pool": 10, "mask_head": 1}
+                                     "bias_act_pool": 10, head: 1}
     assert mask.shape == (batch, 64, 64, 1) and pred.shape == (batch,)
     assert bool(((mask > 0) & (mask < 1)).all())
     ops = _device_ops(lambda: pipe.run_device(frames))
@@ -652,8 +786,7 @@ def test_pipeline_kernel_path_equals_plain_path(dev, monkeypatch, chfak,
             mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain), \
             mock.patch.object(epilogue_mod, "bias_act_pool",
                               bias_act_pool_plain), \
-            mock.patch.object(epilogue_mod, "mask_head",
-                              _recording(mask_head_plain, plain_heads)):
+            _recording_heads(plain_heads, plain=True):
         ppred, pmask, _ = pipe.run_device(frames)
     assert torch.equal(mask[..., 0], heads[0][1])
     assert torch.equal(pmask[..., 0], plain_heads[0][1])
@@ -669,8 +802,8 @@ def test_convnext_pair_on_the_card_against_the_cpu(dev, monkeypatch):
     pipeline on the CPU: scores and masks within 1e-4 of their largest
     value (the card's and oneDNN's sums run in other orders; the f32
     forward's own gap against float64 is ~1e-6 of it). One ingest, 5
-    joins, 5 epilogues and 1 mask head a batch, every port kernel in the trace, no
-    concat kernel."""
+    joins, 5 epilogues and 1 whole mask head a batch, every port kernel in
+    the trace, no concat kernel."""
     from cgs_tpu_torch.core.config import Config
     from cgs_tpu_torch.models.build import build_pair
     from cgs_tpu_torch.models.interop import init_torch_default
@@ -695,7 +828,7 @@ def test_convnext_pair_on_the_card_against_the_cpu(dev, monkeypatch):
     _build.launches.clear()
     got = pipe.run_device(frames.to(dev))
     assert dict(_build.launches) == {"normalize_u8": 1, "upsample2x": 5,
-                                     "bias_act_pool": 5, "mask_head": 1}
+                                     "bias_act_pool": 5, "conv_mask_head": 1}
     for g, w in zip(got[:2], want[:2]):
         w = w.double()
         assert float((g.cpu().double() - w).abs().max()) \
@@ -841,9 +974,9 @@ def test_pipeline_staging_ring_on_the_card(dev, kw):
 def _ensemble_masks(dev, salience=False, heads=None):
     """(kernel-path outputs, plain-path outputs, launches per batch) of a
     3-member chfak-1 ensemble on 40 frames at batch 32 (2 batches). With
-    `heads` = ([], []) the plain path runs `mask_head_plain` too, and
-    each path's mask head calls are recorded there; else both paths run
-    the head's kernel."""
+    `heads` = ([], []) the plain path runs the mask head's plain version
+    too, and each path's mask head calls are recorded there; else both
+    paths run the head's kernel."""
     import cgs_tpu_torch.models.epilogue as epilogue_mod
     import cgs_tpu_torch.ops.upsample as upsample_mod
     import cgs_tpu_torch.pipeline as pipeline_mod
@@ -862,12 +995,12 @@ def _ensemble_masks(dev, salience=False, heads=None):
                         salience=salience, ensemble=True)
     frames = torch.randint(0, 256, (40, 64, 64, 3), dtype=torch.uint8,
                            generator=torch.Generator().manual_seed(4))
-    kernel_head, plain_head = mask_head, mask_head
+    kernel_heads = plain_heads = contextlib.nullcontext()
     if heads is not None:
-        kernel_head = _recording(mask_head, heads[0])
-        plain_head = _recording(mask_head_plain, heads[1])
+        kernel_heads = _recording_heads(heads[0])
+        plain_heads = _recording_heads(heads[1], plain=True)
     _build.launches.clear()
-    with mock.patch.object(epilogue_mod, "mask_head", kernel_head):
+    with kernel_heads:
         out = pipe.run(frames.numpy())
     per_batch = {k: v / 2 for k, v in _build.launches.items()}
     with mock.patch.object(pipeline_mod, "normalize_u8",
@@ -875,7 +1008,7 @@ def _ensemble_masks(dev, salience=False, heads=None):
             mock.patch.object(upsample_mod, "upcat_fwd", upcat_plain), \
             mock.patch.object(epilogue_mod, "bias_act_pool",
                               bias_act_pool_plain), \
-            mock.patch.object(epilogue_mod, "mask_head", plain_head):
+            plain_heads:
         plain = pipe.run(frames.numpy())
     return out, plain, per_batch, frames.numpy()
 
@@ -896,7 +1029,7 @@ def _ensemble_mean(calls, members, n):
 @pytest.mark.cuda
 def test_ensemble_kernel_path_equals_plain_path(dev):
     """Preds and saliency bit-equal to the plain path's; each member's
-    mask head within twice `mask_head_plain`'s gap to float64, and the
+    mask head within twice `conv_mask_head_plain`'s gap to float64, and the
     masks the mean of the members' heads on either path."""
     import numpy as np
 
@@ -906,7 +1039,7 @@ def test_ensemble_kernel_path_equals_plain_path(dev):
     # the saliency's critic records its input gradient: each member's
     # decoder alone takes the fused epilogues and the mask head
     assert per_batch == {"normalize_u8": 1, "upsample2x": 15,
-                         "bias_act_pool": 15, "mask_head": 3}
+                         "bias_act_pool": 15, "conv_mask_head": 3}
     assert (out.preds == plain.preds).all()
     assert (out.saliency == plain.saliency).all()
     assert len(heads[0]) == 6
