@@ -33,13 +33,20 @@ runs with unpinned buffers and no side streams. `run` is not reentrant:
 one call at a time per pipeline. `run_device` is the device-resident
 path.
 
-Under a profiler `run` names its host work (`utils/profiling.py:span`):
-`cgs.pipeline.run` around the call, and inside it `pad` (zeroing the
-ragged last batch's tail in its slot), `upload` (the copy into the slot
-and the enqueue of the upload), `forward` (`run_device`: the enqueue of
-ingest, critic, decoder and wire encoding, then of the read-back's
-copies) and `read_back` (the wait on a slot's copies and the writes of
-its rows into the outputs). `run` alone adds to the counters
+Under a profiler `run` names its host work (`utils/profiling.py:span`,
+which also keeps each span's total duration and count while a profiler
+records): `cgs.pipeline.run` around the call, and inside it `lead` (in
+the first batch alone: taking its slot, any padding and its upload;
+the card holds none of the call's work before it ends), `pad` (zeroing
+the ragged last batch's tail in its slot), `upload` (the copy into the
+slot and the enqueue of the upload), `forward` (`run_device`: the
+enqueue of ingest, critic, decoder and wire encoding, then of the
+read-back's copies) and `read_back` (the wait on a slot's copies and
+the writes of its rows into the outputs; for the last batch those
+writes are `tail`, after which the card holds none of the call's work).
+`wait` is each host block on the card: on a slot's last upload before
+it is refilled, and on its read-back before it is unstaged; off the card
+there is no event and no wait. `run` alone adds to the counters
 `pipeline.rows` (padding included), `pipeline.h2d_bytes`,
 `pipeline.d2h_bytes` (every row of every output, padding included) and
 `pipeline.staged_batches` (batches whose copies ran on the side streams
@@ -166,7 +173,8 @@ class _StagingRing:
         may be refilled."""
         slot = self.slots[i % len(self.slots)]
         if slot.uploaded is not None:
-            slot.uploaded.synchronize()
+            with span("cgs.pipeline.wait"):
+                slot.uploaded.synchronize()
         return slot
 
     def stage(self, slot: _Slot, chunk: np.ndarray, bs: int) -> None:
@@ -224,9 +232,20 @@ class _StagingRing:
     @staticmethod
     def unstage(slot: _Slot, dst: list, lo: int, hi: int) -> None:
         """Wait for the slot's read-back, then write its first hi - lo
-        rows into rows lo:hi of the call's outputs (host tensors)."""
+        rows into rows lo:hi of the call's outputs (host tensors; the
+        first is the scores); the writes of the call's last rows are
+        `cgs.pipeline.tail`."""
         if slot.copied is not None:
-            slot.copied.synchronize()
+            with span("cgs.pipeline.wait"):
+                slot.copied.synchronize()
+        if hi < dst[0].shape[0]:
+            _StagingRing._write_rows(slot, dst, lo, hi)
+        else:
+            with span("cgs.pipeline.tail"):
+                _StagingRing._write_rows(slot, dst, lo, hi)
+
+    @staticmethod
+    def _write_rows(slot: _Slot, dst: list, lo: int, hi: int) -> None:
         for out, host in zip(dst, slot.outs):
             if out is not None:
                 out[lo:hi].copy_(host[:hi - lo])
@@ -519,16 +538,25 @@ class MaskPipeline:
                 ring.unstage(slot, dst, lo, hi)
             pending.popleft()   # frees the device outputs: copies done
 
+        def stage(i, lo, hi):
+            slot = ring.take(i)
+            if hi - lo < bs:                # pad the final ragged batch
+                with span("cgs.pipeline.pad"):
+                    slot.frames[hi - lo:bs].zero_()
+            with span("cgs.pipeline.upload"):
+                ring.stage(slot, frames_u8[lo:hi], bs)
+            return slot
+
         try:
             for i, lo in enumerate(range(0, n, bs)):
                 if len(pending) == len(ring.slots):
                     unstage()
-                slot, hi = ring.take(i), min(lo + bs, n)
-                if hi - lo < bs:            # pad the final ragged batch
-                    with span("cgs.pipeline.pad"):
-                        slot.frames[hi - lo:bs].zero_()
-                with span("cgs.pipeline.upload"):
-                    ring.stage(slot, frames_u8[lo:hi], bs)
+                hi = min(lo + bs, n)
+                if i:
+                    slot = stage(i, lo, hi)
+                else:           # nothing of the call is on the card yet
+                    with span("cgs.pipeline.lead"):
+                        slot = stage(i, lo, hi)
                 with span("cgs.pipeline.forward"):
                     outs = ring.dispatch(slot, bs, self.run_device)
                 pending.append((slot, outs, lo, hi))

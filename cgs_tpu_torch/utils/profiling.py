@@ -10,7 +10,8 @@ every event in host memory until the trace stops: a trace of a whole
 short run.
 
 `span(name)` names a region of the port's own host work (`cgs.pipeline.*`
-in `pipeline.py`, `cgs.train.*` in `train/loops.py` and
+in `pipeline.py`: `run`, `lead`, `pad`, `upload`, `forward`,
+`read_back`, `tail` and `wait`; `cgs.train.*` in `train/loops.py` and
 `train/steps.py`, `cgs.model.critic` and `cgs.model.masker` around each
 critic and decoder forward of the pipeline and the training passes,
 `models/build.py`, inside a ConvNeXt critic's `cgs.model.convnext.stem`,
@@ -19,8 +20,13 @@ Swin critic's `cgs.model.swin.patch_embed`, `.stage1` ... `.stage4` and
 `.head`, `models/swin.py`). While a torch.profiler
 records on the calling thread, it is a `record_function` event, in the
 same trace and on the same clock as the kernels and copies, under
-`--profile` or any other profiler; otherwise it is one shared no-op
-context. `counts` holds the port's counters (`pipeline.rows`,
+`--profile` or any other profiler, and on exit it adds its duration on
+the host's `time.perf_counter_ns`, read around the event, to
+`span_ns[name]` and one to `span_calls[name]`: every span's totals, in
+memory, kept only while a profiler records and never reset, so that a
+reader takes ratios of totals recorded alike. Otherwise it is one
+shared no-op context, which reads no clock and updates nothing.
+`counts` holds the port's counters (`pipeline.rows`,
 `pipeline.h2d_bytes`, `pipeline.d2h_bytes`, `pipeline.staged_batches`;
 `model.critic_frames`, `model.masker_frames`, `model.bn_running` /
 `model.bn_batch`, the BatchNorm layers applied on running and on batch
@@ -48,14 +54,39 @@ import numpy as np
 import torch
 
 counts: Counter = Counter()
+span_ns: Counter = Counter()      # span name -> nanoseconds inside it
+span_calls: Counter = Counter()   # span name -> exits
 _NO_SPAN = contextlib.nullcontext()
 
 
+class _Span:
+    """A `record_function` event that adds its duration to `span_ns`
+    and its exit to `span_calls`."""
+
+    __slots__ = ("name", "_event", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._event = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self._t0 = time.perf_counter_ns()
+        return self._event.__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return self._event.__exit__(*exc)
+        finally:
+            span_ns[self.name] += time.perf_counter_ns() - self._t0
+            span_calls[self.name] += 1
+
+
 def span(name: str):
-    """A named host region while a profiler records on this thread;
-    otherwise the shared no-op context (one C call)."""
+    """A named host region, timed into `span_ns` and `span_calls`, while
+    a profiler records on this thread; otherwise the shared no-op
+    context (one C call)."""
     if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
+        return _Span(name)
     return _NO_SPAN
 
 

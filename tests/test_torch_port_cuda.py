@@ -971,6 +971,39 @@ def test_pipeline_staging_ring_on_the_card(dev, kw):
             assert np.array_equal(a, b)
 
 
+@pytest.mark.cuda
+def test_pipeline_run_spans_wait_on_the_card(dev):
+    """Under a profiler on the card, a 3-batch call blocks on the card
+    at least once a batch (`cgs.pipeline.wait`: on a slot's upload before
+    it is refilled, on its read-back before it is unstaged) and opens
+    `cgs.pipeline.lead` and `cgs.pipeline.tail` once each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cgs_tpu_torch.models.critic import Critic
+    from cgs_tpu_torch.models.decoder import UnetDecoder
+    from cgs_tpu_torch.pipeline import MaskPipeline
+    from cgs_tpu_torch.utils import profiling
+
+    critic, masker = Critic(chfak=1, dropout=0.0), UnetDecoder(chfak=1)
+    pipe = MaskPipeline(critic, masker, {"critic": critic.state_dict(),
+                                         "masker": masker.state_dict()},
+                        batch_size=256, wire="u8", hard_threshold=0.5)
+    frames = torch.randint(0, 256, (2 * 256 + 100, 64, 64, 3),
+                           dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(7)
+                           ).numpy()
+    pipe.run(frames)
+    names = ["cgs.pipeline." + k for k in ("run", "lead", "forward",
+                                           "tail", "wait")]
+    before = {k: profiling.span_calls[k] for k in names}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pipe.run(frames)
+    got = {k[13:]: profiling.span_calls[k] - before[k] for k in names}
+    assert got["wait"] >= 3, got
+    assert {k: got[k] for k in ("run", "lead", "forward", "tail")} == {
+        "run": 1, "lead": 1, "forward": 3, "tail": 1}
+
+
 def _ensemble_masks(dev, salience=False, heads=None):
     """(kernel-path outputs, plain-path outputs, launches per batch) of a
     3-member chfak-1 ensemble on 40 frames at batch 32 (2 batches). With

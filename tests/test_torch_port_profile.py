@@ -2,7 +2,8 @@
 `torch.profiler`, `cgs_tpu/utils/profiling.py:19-48`): one Chrome trace
 JSON per trace, stopped however the traced body ends; the port's spans
 (`utils/profiling.py:span`), recorded under any profiler and nothing
-without one, nested as `pipeline.py` and `train/` open them; the
+without one, nested as `pipeline.py` and `train/` open them, and their
+in-memory totals (`span_ns`, `span_calls`) against the trace; the
 pipeline's counters."""
 
 import json
@@ -117,21 +118,70 @@ def _children(events, parent):
 def test_pipeline_run_spans_nest_under_run(one_torch_thread):
     """A ragged call (20 frames at batch 8: 3 batches, the last padded)
     names each piece of `run`'s host work under `cgs.pipeline.run`, once
-    a first call has made the pipeline's staging ring."""
+    a first call has made the pipeline's staging ring: the first batch's
+    upload inside `lead`, the last batch's writes as `tail` inside the
+    last `read_back`."""
     pipe = _tiny_pipeline(8, wire="u8", hard_threshold=0.5)
     pipe.run(_frames(20, seed=1))
     out, events = _profiled(lambda: pipe.run(_frames(20)))
     assert out.masks_u8.shape == (20, 64, 64, 1)
     assert [e.name for e in events].count("cgs.pipeline.run") == 1
     kids = _children(events, "cgs.pipeline.run")
-    assert kids == {"cgs.pipeline.pad": 1, "cgs.pipeline.upload": 3,
-                    "cgs.pipeline.forward": 3, "cgs.pipeline.read_back": 3}
+    assert kids == {"cgs.pipeline.lead": 1, "cgs.pipeline.pad": 1,
+                    "cgs.pipeline.upload": 2, "cgs.pipeline.forward": 3,
+                    "cgs.pipeline.read_back": 3}
+    assert _children(events, "cgs.pipeline.lead") == {
+        "cgs.pipeline.upload": 1}
+    (tail,) = [e for e in events if e.name == "cgs.pipeline.tail"]
+    last = max((e for e in events if e.name == "cgs.pipeline.read_back"),
+               key=lambda e: e.time_range.start)
+    assert tail.cpu_parent is not None and tail.cpu_parent.id == last.id
     # the forward's operations sit inside its span, the models' in
     # theirs (`models/build.py`)
     assert _children(events, "cgs.pipeline.forward").keys() >= {
         "cgs.model.critic", "cgs.model.masker"}
     assert any(n.startswith("aten::conv")
                for n in _children(events, "cgs.model.critic"))
+
+
+def test_span_totals_still_without_a_profiler(one_torch_thread):
+    """With no profiler recording, a whole ragged call moves no span
+    total."""
+    pipe = _tiny_pipeline(8, wire="u8", hard_threshold=0.5)
+    before = (dict(profiling.span_ns), dict(profiling.span_calls))
+    pipe.run(_frames(20))
+    assert (dict(profiling.span_ns), dict(profiling.span_calls)) == before
+
+
+@pytest.mark.parametrize("name,calls", [
+    ("run", 1), ("lead", 1), ("pad", 1), ("upload", 3), ("forward", 3),
+    ("read_back", 3), ("tail", 1), ("wait", 0)])
+def test_span_totals_match_the_trace(name, calls, one_torch_thread):
+    """Under a CPU profile of a ragged call (20 frames at batch 8), the
+    call's increase in `span_calls` of each `cgs.pipeline.*` span is its
+    count of events in the trace, and its increase in `span_ns` the sum
+    of their durations within 10% or 50 us. Off the card no span
+    waits: there is no event to wait on. The host clock around a span
+    also holds the profiler's own work at the span's entry and exit
+    (~10-15 us a span on a CPU), and whatever preempts the process there
+    when the cores are oversubscribed: the counts must agree on every
+    call, the durations on one of three."""
+    pipe = _tiny_pipeline(8, wire="u8", hard_threshold=0.5)
+    pipe.run(_frames(20, seed=1))
+    name = "cgs.pipeline." + name
+    gaps = []
+    for _ in range(3):
+        ns0 = profiling.span_ns[name]
+        calls0 = profiling.span_calls[name]
+        _, events = _profiled(lambda: pipe.run(_frames(20)))
+        mine = [e for e in events if e.name == name]
+        assert profiling.span_calls[name] - calls0 == len(mine) == calls
+        traced_us = sum(e.time_range.elapsed_us() for e in mine)
+        kept_us = (profiling.span_ns[name] - ns0) / 1e3
+        gaps.append((kept_us, traced_us))
+        if abs(kept_us - traced_us) <= max(0.1 * traced_us, 50.0):
+            return
+    pytest.fail(f"{name}: kept and traced us {gaps}")
 
 
 @pytest.mark.parametrize("n,batch,kw", [
